@@ -1,0 +1,290 @@
+"""Batched detection HTTP server (the JAX package's ``cli/serve.py``).
+
+A stdlib HTTP server whose handler threads decode and letterbox images
+and queue them; one device thread micro-batches the queue into the
+predict path (``device_loop``), padding every batch to ``--max_batch``.
+
+    python -m cl_object_detection_tpu_torch.cli.serve --weights w.npz \
+        [--params_json run/params.json] [--depth 50] [--height 608 \
+        --width 832] [--fused_stem] [--nms_impl pallas_fp] [--port 8500] \
+        [--cpu]
+
+``--weights`` is a flat ``"/"``-keyed ``.npz`` of the JAX variable tree
+(``models/bridge.py``). Frame, depth, stem form and dtype come from the
+flags, else from the run's ``params.json``, else the config defaults;
+the class count comes from the weights. ``--quantize`` and
+``--from_export`` (the JAX package's int8 and exported-artifact paths)
+are not ported and are refused.
+
+API:
+  POST /detect      body: raw JPEG/PNG bytes
+                    -> {"detections": [{"box": [x1,y1,x2,y2],
+                        "score": s, "class_id": c}, ...]}
+  GET  /healthz     -> ok
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+
+
+def submit(work: "queue.Queue", frame: np.ndarray, scale: float,
+           timeout: float) -> Optional[dict]:
+    """Queue one letterboxed frame for ``device_loop`` and wait for its
+    answer: ``{"detections": [...]}``, ``{"error": ...}``, or None when
+    ``timeout`` seconds pass first."""
+    done = threading.Event()
+    out: dict = {}
+    work.put(((frame, scale), done, out, time.time()))
+    return out if done.wait(timeout=timeout) else None
+
+
+def device_loop(work: "queue.Queue", run_predict: Callable[[np.ndarray], Dict[str, np.ndarray]],
+                frame_shape: Tuple[int, ...], frame_dtype, *, max_batch: int,
+                batch_window_ms: float, request_ttl: float,
+                score_thresh: float, stop: Optional[threading.Event] = None) -> None:
+    """The device thread: take the first queued request, gather more for
+    up to ``batch_window_ms`` (at most ``max_batch``), drop the ones older
+    than ``request_ttl``, pad to ``max_batch`` and answer each request
+    with its detections above ``score_thresh`` (boxes in the original
+    image's pixels). A failing batch fails its requests and the loop goes
+    on. Returns when ``stop`` is set."""
+    while stop is None or not stop.is_set():
+        try:
+            first = work.get(timeout=0.1)
+        except queue.Empty:
+            continue
+        batch = [first]
+        deadline = time.perf_counter() + batch_window_ms / 1e3
+        while len(batch) < max_batch:
+            timeout = deadline - time.perf_counter()
+            if timeout <= 0:
+                break
+            try:
+                batch.append(work.get(timeout=timeout))
+            except queue.Empty:
+                break
+        now = time.time()
+        live = []
+        for item in batch:
+            if now - item[3] > request_ttl:
+                item[2].setdefault("error", "expired in queue")
+                item[1].set()
+            else:
+                live.append(item)
+        batch = live
+        if not batch:
+            continue
+        try:
+            images = np.zeros((max_batch,) + tuple(frame_shape), frame_dtype)
+            scales = np.ones(max_batch, np.float32)
+            for i, (img, _done, _out, _t) in enumerate(batch):
+                images[i], scales[i] = img
+            det = run_predict(images)
+            boxes, scores = det["boxes"], det["scores"]
+            labels, valid = det["labels"], det["valid"]
+            for i, (_img, done, out, _t) in enumerate(batch):
+                keep = valid[i] & (scores[i] > score_thresh)
+                out["detections"] = [
+                    {"box": (boxes[i, d] / scales[i]).tolist(),
+                     "score": float(scores[i, d]),
+                     "class_id": int(labels[i, d])}
+                    for d in np.where(keep)[0]
+                ]
+                done.set()
+        except Exception as e:  # keep serving; fail the affected requests
+            for _img, done, out, _t in batch:
+                if done.is_set():
+                    continue
+                out.setdefault("error", f"{type(e).__name__}: {e}")
+                done.set()
+
+
+def frame_spec(height: int, width: int, s2d: bool, fused: bool,
+               uint8: bool) -> Tuple[Tuple[int, ...], type]:
+    """The (shape, dtype) of one served frame."""
+    shape = ((height // 2, width // 2, 12) if s2d
+             else (height // 4, width // 4, 64) if fused
+             else (height, width, 3))
+    return shape, (np.uint8 if uint8 else np.float32)
+
+
+def make_run_predict(predict, device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
+    """Wrap a port ``predict`` as numpy frames in -> numpy detections out."""
+    import torch
+
+    def run_predict(images: np.ndarray) -> Dict[str, np.ndarray]:
+        det = predict(torch.from_numpy(images).to(device))
+        return {"boxes": det.boxes.cpu().numpy(),
+                "scores": det.scores.cpu().numpy(),
+                "labels": det.labels.cpu().numpy(),
+                "valid": det.valid.cpu().numpy()}
+
+    return run_predict
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--weights", required=True,
+                        help="flat '/'-keyed .npz of the JAX variable tree")
+    parser.add_argument("--params_json", default=None,
+                        help="a training run's params.json (model/data "
+                             "sections)")
+    parser.add_argument("--depth", type=int, default=None)
+    parser.add_argument("--height", type=int, default=None)
+    parser.add_argument("--width", type=int, default=None)
+    parser.add_argument("--num_classes", type=int, default=None,
+                        help="default: from the classifier's output bias")
+    parser.add_argument("--fused_stem", action="store_true", default=None,
+                        help="serve 4x4 space-to-depth frames through the "
+                             "fused stem kernel")
+    parser.add_argument("--nms_impl", default="pallas_fp",
+                        choices=["pallas_fp", "iterative", "scan"])
+    parser.add_argument("--port", type=int, default=8500)
+    parser.add_argument("--max_batch", type=int, default=8)
+    parser.add_argument("--batch_window_ms", type=float, default=5.0)
+    parser.add_argument("--score_thresh", type=float, default=0.3)
+    parser.add_argument("--request_ttl", type=float, default=60.0)
+    parser.add_argument("--transfer_dtype", default="uint8",
+                        choices=["float32", "uint8"])
+    parser.add_argument("--quantize", action="store_true",
+                        help="not ported: refused")
+    parser.add_argument("--from_export", default=None,
+                        help="not ported: refused")
+    parser.add_argument("--cpu", action="store_true")
+    a = parser.parse_args(argv)
+    if a.quantize:
+        parser.error("--quantize (int8 predict path) is not ported")
+    if a.from_export:
+        parser.error("--from_export (exported StableHLO artifacts) is not "
+                     "ported; serve the weights with --weights")
+
+    from .. import resolve_device
+    from ..config import DataConfig, ModelConfig, PredictConfig
+    from ..data.transforms import normalize_image, space_to_depth
+    from ..eval.predictor import make_predict_fn
+    from ..models.bridge import load_jax_variables, load_npz
+    from ..models.retinanet import create_retinanet
+
+    device = resolve_device("cpu" if a.cpu else None)
+    run_cfg: dict = {}
+    if a.params_json:
+        with open(a.params_json) as f:
+            run_cfg = json.load(f)
+    mc_fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    run_model = {k: (tuple(v) if isinstance(v, list) else v)
+                 for k, v in run_cfg.get("model", {}).items() if k in mc_fields}
+    if a.depth is not None:
+        run_model["depth"] = a.depth
+    mcfg = ModelConfig(**run_model)
+    run_data = run_cfg.get("data", {})
+    height = a.height or int(run_data.get("height", DataConfig.height))
+    width = a.width or int(run_data.get("width", DataConfig.width))
+    s2d = bool(run_data.get("s2d_stem", False))
+    fused = (a.fused_stem if a.fused_stem is not None
+             else bool(run_data.get("fused_stem", False))) and not s2d
+    uint8 = a.transfer_dtype == "uint8"
+
+    tree = load_npz(a.weights)
+    num_classes = a.num_classes or (
+        tree["params"]["classification_head"]["output"]["bias"].shape[0]
+        // mcfg.num_anchors)
+    model = create_retinanet(mcfg, num_classes, device=device)
+    load_jax_variables(model, tree)
+    # the predict path keeps every candidate the server might emit
+    predict = make_predict_fn(model, PredictConfig(
+        score_thresh=min(0.05, a.score_thresh), nms_impl=a.nms_impl))
+    run_predict = make_run_predict(predict, device)
+    frame_shape, frame_dtype = frame_spec(height, width, s2d, fused, uint8)
+
+    def letterbox(img):
+        """Fit any orientation into the landscape serving frame (scale =
+        min(H/h, W/w), zero pad), in the handler thread."""
+        import cv2
+
+        h, w = img.shape[:2]
+        scale = min(height / h, width / w)
+        nh, nw = int(h * scale), int(w * scale)
+        resized = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)
+        out = np.zeros((height, width, 3), np.uint8 if uint8 else np.float32)
+        if uint8:
+            out[:nh, :nw] = np.clip(np.round(resized * 255.0), 0, 255)
+        else:
+            out[:nh, :nw] = resized
+            out = normalize_image(out)
+        if s2d or fused:
+            out = space_to_depth(out[None], factor=4 if fused else 2)[0]
+        return out, scale
+
+    work: "queue.Queue" = queue.Queue()
+    threading.Thread(
+        target=device_loop, daemon=True,
+        args=(work, run_predict, frame_shape, frame_dtype),
+        kwargs=dict(max_batch=a.max_batch, batch_window_ms=a.batch_window_ms,
+                    request_ttl=a.request_ttl, score_thresh=a.score_thresh),
+    ).start()
+    # warm up through the device thread itself (cuDNN keeps its plans per
+    # thread, so a warm-up elsewhere would leave the first request to pay
+    # for them), and fail on a model/frame mismatch before taking traffic
+    warm = submit(work, np.zeros(frame_shape, frame_dtype), 1.0, a.request_ttl)
+    if warm is None or "error" in warm:
+        raise SystemExit(f"warm-up predict failed: {warm}")
+    print(f"serving on :{a.port} (batch {a.max_batch}, depth {mcfg.depth}, "
+          f"frame {height}x{width}, {device})", flush=True)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self.send_response(200)
+                self.end_headers()
+                self.wfile.write(b"ok")
+            else:
+                self.send_response(404)
+                self.end_headers()
+
+        def do_POST(self):
+            import cv2
+
+            if self.path != "/detect":
+                self.send_response(404)
+                self.end_headers()
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            arr = np.frombuffer(self.rfile.read(length), np.uint8)
+            bgr = cv2.imdecode(arr, cv2.IMREAD_COLOR)
+            if bgr is None:
+                self.send_response(400)
+                self.end_headers()
+                self.wfile.write(b'{"error": "undecodable image"}')
+                return
+            rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB).astype(np.float32) / 255
+            frame, scale = letterbox(rgb)
+            out = submit(work, frame, scale, a.request_ttl)
+            if out is None:
+                self.send_response(503)
+                self.end_headers()
+                self.wfile.write(b'{"error": "inference timeout"}')
+                return
+            body = json.dumps(out).encode()
+            self.send_response(500 if "error" in out else 200)
+            self.send_header("Content-Type", "application/json")
+            self.end_headers()
+            self.wfile.write(body)
+
+    ThreadingHTTPServer(("0.0.0.0", a.port), Handler).serve_forever()
+
+
+if __name__ == "__main__":
+    main()
