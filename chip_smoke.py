@@ -16,24 +16,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      f32 in different orders, which moves the bf16 rounding of the conv
      by at most one ulp before the bias add); float32 input must raise;
    * batched NMS, B=32, k=1024, on random boxes, an IoU-exactly-0.5
-     fixture and identical boxes: keep masks bit-identical.
+     fixture and identical boxes: keep masks bit-identical;
+   * int8 GEMM (int8 x int8 -> int32, per-column scale, optional bias,
+     bf16 out): bit-identical to its plain version at the TPU tool's
+     shape (M=62976, K=2304, N=256, scale 1e-4, no bias) and at the
+     quantized R50's GEMM shapes; float32 operands must raise.
    Times: kernel, plain version, the bound (the larger of bytes over
-   3.35 TB/s and operations over the peak rate of their type), and for
-   the stem one cuDNN call chain on the equivalent RGB batch.
+   3.35 TB/s and operations over the peak rate of their type), and one
+   library call where PyTorch has one (the stem: cuDNN's conv chain on
+   the equivalent RGB batch; the int8 GEMM: ``torch._int_mm``, the product
+   alone, without the dequantize epilogue).
 4. Main path: an R50 RetinaNet, 20 classes, bf16, seeded random weights
    (output convs random and non-zero), 608x832 uint8 fused-stem frames,
    ``nms_impl="pallas_fp"``. After one warm-up request through the serve
    device thread, with the launch counters at 0: the device loop answers
    16 requests from 4 threads at max_batch 8 (their latency printed), then
    ``make_predict_fn`` is timed at B=32 (frames resident on the card).
-   Both counters must have risen and the NMS must have seen candidates.
-   Output check: finite detections of the static shape, and the fused
-   stem path's logits against the RGB (cuDNN stem) path's on 2 frames.
-5. One JSON line of the kernels, then the ``{"ok": true, ...}`` line.
+   The stem and NMS counters must have risen (the int8 one must not) and
+   the NMS must have seen candidates. Output check: finite detections of
+   the static shape, and the fused stem path's logits against the RGB
+   (cuDNN stem) path's on 2 frames.
+5. Quantized main path (``quantize=True``: every conv but the heads'
+   outputs through the int8 GEMM) on the same model and frames, driven
+   the same way with the counters at 0 again: 16 served requests, a
+   timed B=32 predict beside the float one, its forward/post-process
+   split. All three counters must have risen, the int8 one by exactly
+   100 per R50 predict (52 backbone + 8 FPN + 2 heads x 4 convs x 5
+   levels). Output check: finite detections of the static shape, and
+   the quantized logits against the float ones on 2 frames (correlation
+   > 0.98, the bar of the JAX package's tests/test_quant.py).
+6. One JSON line of the kernels, then the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds a torch.profiler window over two B=32 predicts
-after phase 4: device time by kernel group, the device's idle share, and
-the kernel table in ``DIR/profile_predict.txt``.
+after phases 4 and 5: device time by kernel group, the device's idle
+share, and the kernel tables in ``DIR/profile_predict{,_int8}.txt``.
 """
 from __future__ import annotations
 
@@ -49,6 +65,7 @@ NUM_CLASSES = 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_FLOPS = 989e12              # H100 SXM, dense tensor cores
 FP32_FLOPS = 67e12               # H100 SXM, outside the tensor cores
+INT8_OPS = 1979e12               # H100 SXM, dense tensor cores
 NMS_OPS_PER_PAIR = 14            # 4 min/max, 2 sub, 2 clamp, mul, add, sub, max, div, cmp
 
 
@@ -205,6 +222,86 @@ def check_nms(results: dict) -> None:
         library_ms=None, shape=[32, 1024])
 
 
+# (name, M, K, N, bias): the TPU tool's shape (its default M = 63232
+# rounded down to a multiple of its bm = 512), then GEMMs of the quantized
+# R50 predict at 608x832, B=32
+INT8_SHAPES = (
+    ("tool", 62976, 2304, 256, False),
+    ("layer1 3x3", 1011712, 576, 64, False),
+    ("head trunk P3", 252928, 2304, 256, True),
+    ("layer4 3x3", 15808, 4608, 512, False),
+    ("fpn.p6", 4160, 18432, 256, True),
+    ("head trunk P7", 1120, 2304, 256, True),
+)
+
+
+def int8_bound(m: int, k: int, n: int):
+    """(bound ms, "bytes" or "operations", ops, bytes) of one int8 GEMM
+    with bf16 out: each operand read once, the output written once,
+    scale and bias."""
+    ops = 2.0 * m * k * n
+    nbytes = m * k + n * k + m * n * 2 + 8 * n
+    t_ops, t_bytes = ops / INT8_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            ops, nbytes)
+
+
+def check_int8_matmul(results: dict) -> None:
+    import torch
+
+    from cl_object_detection_tpu_torch.ops import int8_matmul as im
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    err = 0.0
+    for tag, m, k, n, with_bias in INT8_SHAPES:
+        x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        if tag == "tool":
+            scale = torch.full((n,), 1e-4, device=dev)
+        else:
+            scale = torch.rand(n, generator=g, device=dev) * 1e-4
+        bias = torch.randn(n, generator=g, device=dev) if with_bias else None
+        got = im.int8_matmul(x, w, scale, bias)
+        ref = im.int8_matmul_reference(x, w, scale, bias)
+        torch.cuda.synchronize()
+        bad = int((got != ref).sum())
+        err = max(err, float((got.float() - ref.float()).abs().max()))
+        ms = cuda_ms(lambda: im.int8_matmul(x, w, scale, bias))
+        bound, by, ops, nbytes = int8_bound(m, k, n)
+        log(f"int8 GEMM {tag} M={m} K={k} N={n}{' +bias' if with_bias else ''}: "
+            f"values differing from the plain version: {bad} of {got.numel()}; kernel "
+            f"{ms:.4f} ms, bound {bound:.4f} ms ({by}: {ops / 1e9:.1f} GOP, "
+            f"{nbytes / 1e6:.1f} MB), {ops / ms / 1e9:.1f} TOP/s")
+        if bad or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"int8 GEMM disagrees with the plain version at {tag}")
+        if tag != "tool":
+            continue
+        plain_ms = cuda_ms(lambda: im.int8_matmul_reference(x, w, scale, bias), iters=5)
+        w_kn = w.t()                                    # (K,N), K-contiguous
+        library_ms = cuda_ms(lambda: torch._int_mm(x, w_kn))
+        xb = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+        wb = torch.randn(k, n, generator=g, device=dev, dtype=torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: torch.matmul(xb, wb))
+        log(f"int8 GEMM {tag}: plain {plain_ms:.4f} ms; torch._int_mm (cuBLASLt "
+            f"int8 -> int32, the product alone, no dequantize epilogue) "
+            f"{library_ms:.4f} ms; bf16 torch.matmul at the same shape {bf16_ms:.4f} ms")
+        results["int8_matmul"] = dict(
+            name="int8_matmul", route="cuda",
+            source="cl_object_detection_tpu_torch/csrc/int8_matmul.cu",
+            replaces="tools/bench_int8_matmul.py:28",
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=library_ms, shape=[m, k, n])
+        del xb, wb
+    results["int8_matmul"]["max_abs_err"] = err
+    try:
+        im.int8_matmul(x.float(), w, scale)
+    except TypeError:
+        log("int8 GEMM f32 operands: refused by the wrapper (the kernel takes int8)")
+    else:
+        raise AssertionError("int8 GEMM wrapper accepted float32 operands")
+
+
 def build_model():
     import math
 
@@ -248,32 +345,38 @@ def make_frames(n: int, seed: int):
     return r.randint(0, 256, (n, H, W, 3)).astype(np.uint8)
 
 
-def main_path(results: dict, profile_dir: str | None = None) -> float:
+def _counters():
+    from cl_object_detection_tpu_torch.ops.int8_matmul import int8_matmul
+    from cl_object_detection_tpu_torch.ops.nms_fp import nms_fp
+    from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
+
+    return {"stem_fused": stem_fused, "nms_fp": nms_fp, "int8_matmul": int8_matmul}
+
+
+def zero_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def serve_and_time(predict, frames32, x4, tag: str):
+    """One path of the smoke: a warm-up request through the serve device
+    thread (cuDNN keeps its plans per thread), then, with every launch
+    counter at 0, 16 requests from 4 client threads at max_batch 8 and 10
+    timed B=32 predicts. Returns (images/s, ms per batch, launch counts
+    of the run, launches per timed predict, the last detections)."""
     import numpy as np
     import torch
 
     from cl_object_detection_tpu_torch.cli.serve import (
         device_loop, frame_spec, make_run_predict, submit)
-    from cl_object_detection_tpu_torch.config import PredictConfig
-    from cl_object_detection_tpu_torch.data.transforms import space_to_depth
-    from cl_object_detection_tpu_torch.eval.predictor import make_predict_fn
-    from cl_object_detection_tpu_torch.ops.nms_fp import nms_fp
-    from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
 
-    dev = torch.device("cuda")
-    torch.backends.cudnn.benchmark = True
-    model = build_model()
-    rgb = make_frames(32, 5)
-    x4 = space_to_depth(rgb, factor=4)
-    frames32 = torch.from_numpy(x4).to(dev)
-    calibrate_logits(model, frames32[:2])
-    pcfg = PredictConfig(nms_impl="pallas_fp")
-    predict = make_predict_fn(model, pcfg)
+    dev = frames32.device
     run_predict = make_run_predict(predict, dev)
     shape, dtype = frame_spec(H, W, s2d=False, fused=True, uint8=True)
-    predict(frames32)                                   # warm-up, B=32
-    torch.cuda.synchronize()
-
     work, stop = queue.Queue(), threading.Event()
     loop = threading.Thread(target=device_loop, args=(work, run_predict, shape, dtype),
                             kwargs=dict(max_batch=8, batch_window_ms=5.0,
@@ -282,15 +385,12 @@ def main_path(results: dict, profile_dir: str | None = None) -> float:
     answers: list = [None] * 16
     latency_ms: list = [0.0] * 16
     try:
-        # warm-up through the device thread, as cli.serve does: cuDNN
-        # keeps its plans per thread
         warm = submit(work, np.zeros(shape, dtype), 1.0, timeout=300.0)
         if warm is None or "error" in warm:
-            raise AssertionError(f"serve warm-up failed: {warm}")
+            raise AssertionError(f"{tag} serve warm-up failed: {warm}")
 
-        # ---- main path: counters at 0 -> serve loop -> B=32 predict ----
-        stem_fused.launches = 0
-        nms_fp.launches = 0
+        # ---- this path: counters at 0 -> serve loop -> B=32 predict ----
+        zero_counts()
         t0 = time.perf_counter()
 
         def client(c):
@@ -306,7 +406,7 @@ def main_path(results: dict, profile_dir: str | None = None) -> float:
         for t in clients:
             t.join(timeout=600)
             if t.is_alive():
-                raise AssertionError("serve client did not finish")
+                raise AssertionError(f"{tag} serve client did not finish")
     finally:
         stop.set()
         loop.join(timeout=60)
@@ -315,13 +415,12 @@ def main_path(results: dict, profile_dir: str | None = None) -> float:
         raise AssertionError("serve device loop did not stop")
     failed = [a for a in answers if a is None or "detections" not in a]
     if failed:
-        raise AssertionError(f"{len(failed)} of 16 requests unanswered: {failed[:2]}")
+        raise AssertionError(f"{tag}: {len(failed)} of 16 requests unanswered: {failed[:2]}")
+    served = read_counts()
     n_det = sum(len(a["detections"]) for a in answers)
-    log(f"serve loop: 16 requests from 4 threads at max_batch 8 answered in "
-        f"{serve_s:.3f} s, {n_det} detections above 0.3; launches stem "
-        f"{stem_fused.launches}, nms {nms_fp.launches}; request latency ms "
-        f"median {float(np.median(latency_ms)):.3f}, max {max(latency_ms):.3f}")
-    served = (stem_fused.launches, nms_fp.launches)
+    log(f"{tag} serve loop: 16 requests from 4 threads at max_batch 8 answered in "
+        f"{serve_s:.3f} s, {n_det} detections above 0.3; launches {served}; request "
+        f"latency ms median {float(np.median(latency_ms)):.3f}, max {max(latency_ms):.3f}")
 
     iters = 10
     torch.cuda.synchronize()
@@ -330,40 +429,79 @@ def main_path(results: dict, profile_dir: str | None = None) -> float:
         det = predict(frames32)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    counts = read_counts()
+    per_predict = {k: (v - served[k]) / iters for k, v in counts.items()}
     ips = 32 * iters / dt
-    launches = {"stem_fused": stem_fused.launches, "nms_fp": nms_fp.launches}
-    per_predict = {k: (v - s) / iters for (k, v), s in zip(launches.items(), served)}
-    log(f"predict B=32 608x832 R50 bf16 fused-stem pallas_fp: {dt / iters * 1e3:.3f} ms "
-        f"per batch, {ips:.2f} images/s (frames resident on the card); launches per "
-        f"predict {per_predict}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"main path never launched {name}")
-        results[name]["launches"] = n
+    log(f"{tag} predict B=32 608x832 R50 bf16 fused-stem pallas_fp: "
+        f"{dt / iters * 1e3:.3f} ms per batch, {ips:.2f} images/s (frames resident "
+        f"on the card); launches per predict {per_predict}")
+    return ips, dt / iters * 1e3, counts, per_predict, det
 
-    # where the predict time goes: the forward alone, the rest is the
-    # post-process (top-k sort, decode, clip, NMS, final top-k)
-    with torch.inference_mode():
-        fwd_ms = cuda_ms(lambda: model(frames32, enable_act=False), iters=5, warmup=1)
-    batch_ms = dt / iters * 1e3
-    log(f"predict B=32 breakdown: forward {fwd_ms:.3f} ms, post-process "
-        f"{batch_ms - fwd_ms:.3f} ms (of {batch_ms:.3f} ms); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # ---- output checks ----
+def check_detections(det, pcfg) -> None:
+    import torch
+
     if tuple(det.boxes.shape) != (32, pcfg.max_detections, 4):
         raise AssertionError(f"bad detection shape {tuple(det.boxes.shape)}")
     if not (torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()):
         raise AssertionError("non-finite detections")
     if not ((det.labels >= 0) & (det.labels < NUM_CLASSES)).all():
         raise AssertionError("label out of range")
+    if int(det.valid.sum(1).min()) < 1:
+        raise AssertionError("an image without a valid detection")
+
+
+def forward_split(apply_fn, frames32, batch_ms: float, tag: str) -> None:
+    """Where the predict time goes: the forward alone; the rest is the
+    post-process (top-k sort, decode, clip, NMS, final top-k)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        logits, reg = model(frames32, enable_act=False)
+        fwd_ms = cuda_ms(lambda: apply_fn(frames32, enable_act=False), iters=5, warmup=1)
+    log(f"{tag} predict B=32 breakdown: forward {fwd_ms:.3f} ms, post-process "
+        f"{batch_ms - fwd_ms:.3f} ms (of {batch_ms:.3f} ms); peak memory of the "
+        f"forward {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def main_path(results: dict, profile_dir: str | None = None):
+    """The float path (phase 4); returns what the quantized path reuses."""
+    import torch
+
+    from cl_object_detection_tpu_torch.config import PredictConfig
+    from cl_object_detection_tpu_torch.data.transforms import space_to_depth
+    from cl_object_detection_tpu_torch.eval.predictor import make_predict_fn
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.benchmark = True
+    model = build_model()
+    rgb = make_frames(32, 5)
+    x4 = space_to_depth(rgb, factor=4)
+    frames32 = torch.from_numpy(x4).to(dev)
+    calibrate_logits(model, frames32[:2])
+    pcfg = PredictConfig(nms_impl="pallas_fp")
+    predict = make_predict_fn(model, pcfg)
+    predict(frames32)                                   # warm-up, B=32
+    torch.cuda.synchronize()
+
+    ips, batch_ms, counts, _, det = serve_and_time(predict, frames32, x4, "float")
+    for name in ("stem_fused", "nms_fp"):
+        if counts[name] <= 0:
+            raise AssertionError(f"float path never launched {name}")
+        results[name]["launches"] = counts[name]
+    if counts["int8_matmul"]:
+        raise AssertionError("the float path launched the int8 GEMM")
+    forward_split(model, frames32, batch_ms, "float")
+
+    # ---- output checks ----
+    check_detections(det, pcfg)
+    with torch.inference_mode():
+        logits, _ = model(frames32, enable_act=False)
         n_cand = (torch.sigmoid(logits.float().amax(-1)) > pcfg.score_thresh).sum(1)
     log(f"pre-NMS candidates per image (of {logits.shape[1]} anchors): "
         f"min {int(n_cand.min())}, max {int(n_cand.max())}; valid detections per "
         f"image: min {int(det.valid.sum(1).min())}, max {int(det.valid.sum(1).max())}")
-    if int(n_cand.min()) < 1 or int(det.valid.sum(1).min()) < 1:
+    if int(n_cand.min()) < 1:
         raise AssertionError("the NMS saw no valid candidates")
     with torch.inference_mode():
         f_cls, f_reg = model(frames32[:2], enable_act=False)
@@ -377,23 +515,75 @@ def main_path(results: dict, profile_dir: str | None = None) -> float:
     if not (rel_cls < 5e-2 and rel_reg < 5e-2):
         raise AssertionError("fused-stem path disagrees with the RGB-stem path")
     if profile_dir:
-        profile_predict(predict, frames32, profile_dir)
-    return ips
+        profile_predict(predict, frames32, profile_dir, "profile_predict.txt")
+    return dict(model=model, frames32=frames32, x4=x4, ips=ips, f_cls=f_cls)
+
+
+R50_INT8_GEMMS = 52 + 8 + 2 * 4 * 5     # backbone + FPN + head trunks x levels
+
+
+def quantized_path(results: dict, ctx: dict, profile_dir: str | None = None) -> None:
+    """The int8 path (phase 5) on the float path's model and frames."""
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.config import PredictConfig
+    from cl_object_detection_tpu_torch.eval.predictor import make_predict_fn
+    from cl_object_detection_tpu_torch.ops.quant import quantized_apply
+
+    model, frames32 = ctx["model"], ctx["frames32"]
+    pcfg = PredictConfig(nms_impl="pallas_fp", quantize=True)
+    qpredict = make_predict_fn(model, pcfg)
+    qpredict(frames32)                                  # warm-up, B=32
+    torch.cuda.synchronize()
+
+    ips, batch_ms, counts, per_predict, det = serve_and_time(
+        qpredict, frames32, ctx["x4"], "int8")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"quantized path never launched {name}")
+    if per_predict["int8_matmul"] != R50_INT8_GEMMS:
+        raise AssertionError(f"{per_predict['int8_matmul']} int8 GEMMs per R50 predict, "
+                             f"not {R50_INT8_GEMMS}: the exclusion is wrong")
+    results["int8_matmul"]["launches"] = counts["int8_matmul"]
+    log(f"images/s at B=32: float {ctx['ips']:.2f}, int8 {ips:.2f} "
+        f"(int8/float {ips / ctx['ips']:.3f}, same process and card)")
+    qapply = quantized_apply(model)
+    forward_split(qapply, frames32, batch_ms, "int8")
+
+    # ---- output checks ----
+    check_detections(det, pcfg)
+    with torch.inference_mode():
+        q_cls, _ = qapply(frames32[:2], enable_act=False)
+    f = ctx["f_cls"].float().flatten().cpu().numpy()
+    q = q_cls.float().flatten().cpu().numpy()
+    corr = float(np.corrcoef(f, q)[0, 1])
+    bias = float(model.classification_head.output.bias.detach()[0])
+    rel = float(np.linalg.norm(q - f) / np.linalg.norm(f - bias))
+    log(f"int8 vs float logits (bf16, 2 frames): correlation {corr:.5f} (limit > 0.98), "
+        f"relative L2 error {rel:.3e} (of the logits less the prior bias)")
+    if not (corr > 0.98 and np.isfinite(q).all()):
+        raise AssertionError("quantized logits disagree with the float ones")
+    if profile_dir:
+        profile_predict(qpredict, frames32, profile_dir, "profile_predict_int8.txt")
 
 
 # kernel-name fragments -> the part of the predict path they belong to
 _KERNEL_GROUPS = (
     ("stem_fused", ("stem_fused",)),
     ("nms_fp", ("nms_fp",)),
+    ("int8_matmul", ("int8_matmul",)),
     ("convolution", ("conv", "xmma", "cudnn", "gemm", "cutlass", "implicit")),
     ("sort / top-k", ("sort", "radix", "topk", "scan")),
+    ("im2col concatenation", ("catarray",)),
+    ("reductions (max |x|)", ("reduce",)),
 )
 
 
-def profile_predict(predict, frames, out_dir: str) -> None:
+def profile_predict(predict, frames, out_dir: str, table_name: str) -> None:
     """Profile two B=32 predicts with torch.profiler: device time by
     kernel group and the device's idle share over the window; the full
-    table goes to ``out_dir/profile_predict.txt``."""
+    table goes to ``out_dir/table_name``."""
     import os
 
     import torch
@@ -417,13 +607,13 @@ def profile_predict(predict, frames, out_dir: str) -> None:
         group = next((g for g, keys in _KERNEL_GROUPS
                       if any(k in name for k in keys)), "elementwise / other")
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total
-    log(f"profile, 2 predicts B=32: device busy {busy_us / 2e3:.3f} ms per predict, "
-        f"idle share {1 - busy_us / wall_us:.3f} of {wall_us / 2e3:.3f} ms wall "
+    log(f"profile {table_name}, 2 predicts B=32: device busy {busy_us / 2e3:.3f} ms per "
+        f"predict, idle share {1 - busy_us / wall_us:.3f} of {wall_us / 2e3:.3f} ms wall "
         "(profiler on)")
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"  {group}: {us / 2e3:.3f} ms per predict ({us / busy_us:.3f} of device time)")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_predict.txt"), "w") as f:
+    with open(os.path.join(out_dir, table_name), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60, max_name_column_width=90))
 
@@ -435,8 +625,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
-                        help="also profile the B=32 predict and write the "
-                             "kernel table under DIR")
+                        help="also profile the float and the int8 B=32 "
+                             "predicts and write their kernel tables under DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -459,7 +649,9 @@ def main() -> int:
     results: dict = {}
     check_stem(results)
     check_nms(results)
-    main_path(results, args.profile)
+    check_int8_matmul(results)
+    ctx = main_path(results, args.profile)
+    quantized_path(results, ctx, args.profile)
 
     kernels = []
     for r in results.values():

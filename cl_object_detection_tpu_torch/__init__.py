@@ -6,11 +6,13 @@ neither JAX nor the JAX package.
 
 This slice carries the serving path: the RetinaNet forward
 (ResNet-18..152 + FPN + heads, with the 4x4 space-to-depth fused stem),
-logit top-k, decode, clip and class-aware NMS, behind
-``eval.predictor.make_predict_fn`` and ``cli.serve``. Two hand-written
-CUDA kernels for ``sm_90a`` carry it on the card: the fused stem
-(``ops/stem_fused.py`` + ``csrc/stem_fused.cu``) and the batched
-fixed-point NMS (``ops/nms_fp.py`` + ``csrc/nms_fp.cu``).
+float or int8 (``quantize=True``), logit top-k, decode, clip and
+class-aware NMS, behind ``eval.predictor.make_predict_fn`` and
+``cli.serve``. Three hand-written CUDA kernels for ``sm_90a`` carry it on
+the card: the fused stem (``ops/stem_fused.py`` + ``csrc/stem_fused.cu``),
+the batched fixed-point NMS (``ops/nms_fp.py`` + ``csrc/nms_fp.cu``) and
+the int8 GEMM of the quantized convs (``ops/int8_matmul.py`` +
+``csrc/int8_matmul.cu``, behind ``ops/quant.py``).
 """
 from __future__ import annotations
 

@@ -28,12 +28,13 @@ BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-# per-source extra flags: the NMS keeps IEEE rounding of every multiply
-# and add (no contraction into FMA), so its keep bits equal the plain
-# version's near the IoU threshold
+# per-source extra flags: the NMS and the int8 GEMM's epilogue keep IEEE
+# rounding of every multiply and add (no contraction into FMA), so their
+# results equal the plain versions' bit for bit
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "stem_fused": [],
     "nms_fp": ["--fmad=false"],
+    "int8_matmul": ["--fmad=false"],
 }
 
 _lock = threading.Lock()

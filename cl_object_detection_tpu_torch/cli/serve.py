@@ -6,15 +6,15 @@ predict path (``device_loop``), padding every batch to ``--max_batch``.
 
     python -m cl_object_detection_tpu_torch.cli.serve --weights w.npz \
         [--params_json run/params.json] [--depth 50] [--height 608 \
-        --width 832] [--fused_stem] [--nms_impl pallas_fp] [--port 8500] \
-        [--cpu]
+        --width 832] [--fused_stem] [--nms_impl pallas_fp] [--quantize] \
+        [--port 8500] [--cpu]
 
 ``--weights`` is a flat ``"/"``-keyed ``.npz`` of the JAX variable tree
 (``models/bridge.py``). Frame, depth, stem form and dtype come from the
 flags, else from the run's ``params.json``, else the config defaults;
-the class count comes from the weights. ``--quantize`` and
-``--from_export`` (the JAX package's int8 and exported-artifact paths)
-are not ported and are refused.
+the class count comes from the weights. ``--quantize`` runs the int8
+convs of ``ops/quant.py``; ``--from_export`` (the JAX package's
+exported-artifact path) is not ported and is refused.
 
 API:
   POST /detect      body: raw JPEG/PNG bytes
@@ -157,13 +157,11 @@ def main(argv=None):
     parser.add_argument("--transfer_dtype", default="uint8",
                         choices=["float32", "uint8"])
     parser.add_argument("--quantize", action="store_true",
-                        help="not ported: refused")
+                        help="int8 dynamic-PTQ convs (ops/quant.py)")
     parser.add_argument("--from_export", default=None,
                         help="not ported: refused")
     parser.add_argument("--cpu", action="store_true")
     a = parser.parse_args(argv)
-    if a.quantize:
-        parser.error("--quantize (int8 predict path) is not ported")
     if a.from_export:
         parser.error("--from_export (exported StableHLO artifacts) is not "
                      "ported; serve the weights with --weights")
@@ -202,7 +200,8 @@ def main(argv=None):
     load_jax_variables(model, tree)
     # the predict path keeps every candidate the server might emit
     predict = make_predict_fn(model, PredictConfig(
-        score_thresh=min(0.05, a.score_thresh), nms_impl=a.nms_impl))
+        score_thresh=min(0.05, a.score_thresh), nms_impl=a.nms_impl,
+        quantize=a.quantize))
     run_predict = make_run_predict(predict, device)
     frame_shape, frame_dtype = frame_spec(height, width, s2d, fused, uint8)
 
@@ -239,7 +238,8 @@ def main(argv=None):
     if warm is None or "error" in warm:
         raise SystemExit(f"warm-up predict failed: {warm}")
     print(f"serving on :{a.port} (batch {a.max_batch}, depth {mcfg.depth}, "
-          f"frame {height}x{width}, {device})", flush=True)
+          f"frame {height}x{width}, {'int8' if a.quantize else 'float'} convs, "
+          f"{device})", flush=True)
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):

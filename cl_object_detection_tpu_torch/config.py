@@ -77,4 +77,5 @@ class PredictConfig:
                                        # "pallas" aliases pallas_fp
     topk_method: str = "exact"         # "exact"; "approx" is not ported
     bbox_std: Tuple[float, float, float, float] = (0.1, 0.1, 0.2, 0.2)
-    quantize: bool = False             # int8 predict path: not ported
+    quantize: bool = False             # int8 convs on the predict path
+                                       # (ops/quant.py)

@@ -11,6 +11,7 @@ from ..config import PredictConfig
 from ..data.transforms import logical_image_hw
 from ..ops.anchors import anchors_for_shape
 from ..ops.nms import Detections, detect_batch
+from ..ops.quant import quantized_apply
 
 
 def make_predict_fn(model, predict_cfg: PredictConfig,
@@ -27,12 +28,16 @@ def make_predict_fn(model, predict_cfg: PredictConfig,
     ``nms_impl="pallas_fp"`` runs ``ops.nms_fp.nms_fp``, which picks by
     the tensors' device: the CUDA kernel on the card, its plain version
     on the CPU (identical keep masks).
+
+    ``quantize=True`` runs the model through ``ops.quant.quantized_apply``:
+    int8 convs (the int8 GEMM kernel on the card), head outputs and stem
+    float. The model itself is not changed, so float and quantized
+    predict functions of one model can be used side by side.
     """
-    if predict_cfg.quantize:
-        raise ValueError("quantize=True (int8 predict path) is not ported")
     if predict_cfg.topk_method != "exact":
         raise ValueError(f"topk_method={predict_cfg.topk_method!r} is not "
                          "ported; use 'exact'")
+    apply_fn = quantized_apply(model) if predict_cfg.quantize else model
     anchor_cache: Dict[Tuple[int, int, str], torch.Tensor] = {}
 
     @torch.inference_mode()
@@ -43,7 +48,7 @@ def make_predict_fn(model, predict_cfg: PredictConfig,
         if anchors is None:
             anchors = torch.tensor(anchors_for_shape(h, w), device=images.device)
             anchor_cache[key] = anchors
-        logits, regression = model(images, enable_act=False)
+        logits, regression = apply_fn(images, enable_act=False)
         if bic_correct is not None:
             logits = bic_correct(logits)
         elif class_scale is not None:

@@ -14,7 +14,8 @@ and every op runs in ``dtype`` (bfloat16 on the card).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from contextvars import ContextVar
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -39,9 +40,17 @@ def he_fan_out_(weight: torch.Tensor, generator: Optional[torch.Generator]) -> N
         weight.copy_(torch.randn(weight.shape, generator=generator) * std)
 
 
+# (convs, run): while set, ``Conv.forward`` of a module in ``convs``
+# returns ``run(conv, x)``. ``ops.quant.quantized_apply`` sets it for the
+# length of one call, in the calling thread only.
+conv_override: ContextVar[Optional[Tuple[frozenset, Callable]]] = ContextVar(
+    "conv_override", default=None)
+
+
 class Conv(nn.Module):
     """A conv with a float32 OIHW ``weight`` (and optional ``bias``) that
-    runs in ``dtype`` (flax ``nn.Conv`` with ``dtype``/``param_dtype``)."""
+    runs in ``dtype`` (flax ``nn.Conv`` with ``dtype``/``param_dtype``),
+    or int8 under ``ops.quant.quantized_apply`` (``conv_override``)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, bias: bool = True,
@@ -56,6 +65,11 @@ class Conv(nn.Module):
             he_fan_out_(self.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        override = conv_override.get()
+        if override is not None:
+            convs, run = override
+            if self in convs:
+                return run(self, x)
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
                         self.stride, self.padding)

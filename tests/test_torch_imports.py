@@ -33,7 +33,9 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(got["modules"]) >= 16, got["modules"]
+    assert len(got["modules"]) >= 18, got["modules"]
+    assert {"cl_object_detection_tpu_torch.ops.quant",
+            "cl_object_detection_tpu_torch.ops.int8_matmul"} <= set(got["modules"])
     assert got["jax"] == [], got["jax"]
     assert got["jax_package"] == [], got["jax_package"]
     assert got["built"] == []

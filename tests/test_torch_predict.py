@@ -86,8 +86,6 @@ def test_use_pallas_nms_does_not_reroute_pallas_fp(models, monkeypatch):
 
 def test_unported_options_are_refused(models):
     _, _, tmodel = models
-    with pytest.raises(ValueError, match="quantize"):
-        make_predict_fn(tmodel, PredictConfig(quantize=True))
     with pytest.raises(ValueError, match="approx"):
         make_predict_fn(tmodel, PredictConfig(topk_method="approx"))
 

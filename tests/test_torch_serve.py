@@ -1,7 +1,7 @@
 """The port's serve CLI end to end on the CPU: a tiny R18 run's weights
-as a flat npz plus its params.json, ``cli.serve --cpu`` in a subprocess,
-``GET /healthz`` and ``POST /detect`` over HTTP; the unported options and
-a missing GPU are refused."""
+as a flat npz plus its params.json, ``cli.serve --cpu`` (float and
+``--quantize``) in a subprocess, ``GET /healthz`` and ``POST /detect``
+over HTTP; the unported option and a missing GPU are refused."""
 import json
 import os
 import socket
@@ -52,7 +52,9 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_serve_answers_http_requests(run_dir):
+def _serve_and_detect(run_dir, *extra):
+    """Start ``cli.serve --cpu`` on the run, wait for ``/healthz``, POST one
+    PNG to ``/detect``, check the detections; returns the server's output."""
     cv2 = pytest.importorskip("cv2")
     img = (np.random.RandomState(4).rand(50, 70, 3) * 255).astype(np.uint8)
     ok, png = cv2.imencode(".png", img)
@@ -62,7 +64,7 @@ def test_serve_answers_http_requests(run_dir):
         _serve_cmd("--weights", str(run_dir / "w.npz"),
                    "--params_json", str(run_dir / "params.json"), "--cpu",
                    "--port", str(port), "--max_batch", "2",
-                   "--score_thresh", "0.01"),
+                   "--score_thresh", "0.01", *extra),
         cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     try:
@@ -89,9 +91,20 @@ def test_serve_answers_http_requests(run_dir):
     finally:
         proc.kill()
         proc.wait(timeout=30)
+    return proc.stdout.read()
 
 
-@pytest.mark.parametrize("flag", [["--quantize"], ["--from_export", "art"]])
+def test_serve_answers_http_requests(run_dir):
+    assert "float convs" in _serve_and_detect(run_dir)
+
+
+def test_serve_quantize_answers_http_requests(run_dir):
+    """``--quantize`` serves: the int8 convs run (the plain int8 GEMM on
+    the CPU) and the server answers ``/detect``."""
+    assert "int8 convs" in _serve_and_detect(run_dir, "--quantize")
+
+
+@pytest.mark.parametrize("flag", [["--from_export", "art"]])
 def test_serve_refuses_unported_options(run_dir, flag):
     out = subprocess.run(_serve_cmd("--weights", str(run_dir / "w.npz"), *flag),
                          cwd=REPO, env=_env(), capture_output=True, text=True,
