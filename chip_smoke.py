@@ -17,15 +17,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      by at most one ulp before the bias add); float32 input must raise;
    * batched NMS, B=32, k=1024, on random boxes, an IoU-exactly-0.5
      fixture and identical boxes: keep masks bit-identical;
-   * int8 GEMM (int8 x int8 -> int32, per-column scale, optional bias,
-     bf16 out): bit-identical to its plain version at the TPU tool's
-     shape (M=62976, K=2304, N=256, scale 1e-4, no bias) and at the
-     quantized R50's GEMM shapes; float32 operands must raise.
-   Times: kernel, plain version, the bound (the larger of bytes over
-   3.35 TB/s and operations over the peak rate of their type), and one
-   library call where PyTorch has one (the stem: cuDNN's conv chain on
-   the equivalent RGB batch; the int8 GEMM: ``torch._int_mm``, the product
-   alone, without the dequantize epilogue).
+   * int8 kernel, GEMM mode (int8 x int8 -> int32, per-column scale,
+     optional bias, bf16 out): bit-identical to its plain version at the
+     TPU tool's shape (M=62976, K=2304, N=256, scale 1e-4, no bias) and
+     at the quantized R50's GEMM shapes; float32 operands must raise;
+   * int8 kernel, conv mode (the 3x3 convs of the quantized R50 on their
+     NHWC int8 inputs: layer1, layer2 stride 2, head trunk P3, P4 and P7,
+     fpn.p6 stride 2): bit-identical to im2col + the plain GEMM.
+   Times (the int8 ones from CUDA graphs of 20 calls, which leave out
+   the host's time per call): kernel, plain version, the bound (the
+   larger of bytes over 3.35 TB/s and operations over the peak rate of
+   their type; a conv's input counted at its NHWC size), and one library
+   call where PyTorch has one (the stem: cuDNN's conv chain on the
+   equivalent RGB batch; the int8 kernel: ``torch._int_mm``, the product
+   alone, without the dequantize epilogue, on the explicit patches in
+   conv mode); conv mode also beside the route it replaced (im2col on
+   the card + GEMM mode).
 4. Main path: an R50 RetinaNet, 20 classes, bf16, seeded random weights
    (output convs random and non-zero), 608x832 uint8 fused-stem frames,
    ``nms_impl="pallas_fp"``. After one warm-up request through the serve
@@ -40,11 +47,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    outputs through the int8 GEMM) on the same model and frames, driven
    the same way with the counters at 0 again: 16 served requests, a
    timed B=32 predict beside the float one, its forward/post-process
-   split. All three counters must have risen, the int8 one by exactly
+   split. All counters must have risen, the int8 kernel's by exactly
    100 per R50 predict (52 backbone + 8 FPN + 2 heads x 4 convs x 5
-   levels). Output check: finite detections of the static shape, and
-   the quantized logits against the float ones on 2 frames (correlation
-   > 0.98, the bar of the JAX package's tests/test_quant.py).
+   levels), 61 of them in conv mode (the 16 + 5 + 40 3x3 convs). Output
+   check: finite detections of the static shape, and the quantized
+   logits against the float ones on 2 frames (correlation > 0.98, the
+   bar of the JAX package's tests/test_quant.py).
 6. One JSON line of the kernels, then the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds a torch.profiler window over two B=32 predicts
@@ -53,6 +61,7 @@ share, and the kernel tables in ``DIR/profile_predict{,_int8}.txt``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import queue
 import subprocess
@@ -91,6 +100,44 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@functools.cache
+def _capture_stream():
+    """One side stream for every graph capture: cuBLAS keeps a workspace
+    for each stream it has run on, so a fresh stream per capture would
+    leave memory behind."""
+    import torch
+
+    return torch.cuda.Stream()
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph and replayed between two events, so that the host's time per
+    call (a wrapper's Python, which can exceed a small kernel's time)
+    stays out of the figure. Warmed up on the capture stream first."""
+    import torch
+
+    side = _capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -223,8 +270,11 @@ def check_nms(results: dict) -> None:
 
 
 # (name, M, K, N, bias): the TPU tool's shape (its default M = 63232
-# rounded down to a multiple of its bm = 512), then GEMMs of the quantized
-# R50 predict at 608x832, B=32
+# rounded down to a multiple of its bm = 512); the im2col GEMMs of five
+# 3x3 convs of the quantized R50 predict at 608x832, B=32 (conv mode
+# runs those convs on the predict path; the GEMMs stay here as the
+# kernel's reference shapes); then the 1x1 convs that GEMM mode runs on
+# that path (layer1's expanding and reducing ones, layer3's expanding one)
 INT8_SHAPES = (
     ("tool", 62976, 2304, 256, False),
     ("layer1 3x3", 1011712, 576, 64, False),
@@ -232,6 +282,9 @@ INT8_SHAPES = (
     ("layer4 3x3", 15808, 4608, 512, False),
     ("fpn.p6", 4160, 18432, 256, True),
     ("head trunk P7", 1120, 2304, 256, True),
+    ("layer1 1x1 64->256", 1011712, 64, 256, False),
+    ("layer1 1x1 256->64", 1011712, 256, 64, False),
+    ("layer3 1x1 256->1024", 63232, 256, 1024, False),
 )
 
 
@@ -267,19 +320,20 @@ def check_int8_matmul(results: dict) -> None:
         torch.cuda.synchronize()
         bad = int((got != ref).sum())
         err = max(err, float((got.float() - ref.float()).abs().max()))
-        ms = cuda_ms(lambda: im.int8_matmul(x, w, scale, bias))
+        ms = graph_ms(lambda: im.int8_matmul(x, w, scale, bias))
+        w_kn = w.t()                                    # (K,N), K-contiguous
+        library_ms = graph_ms(lambda: torch._int_mm(x, w_kn))
         bound, by, ops, nbytes = int8_bound(m, k, n)
         log(f"int8 GEMM {tag} M={m} K={k} N={n}{' +bias' if with_bias else ''}: "
             f"values differing from the plain version: {bad} of {got.numel()}; kernel "
-            f"{ms:.4f} ms, bound {bound:.4f} ms ({by}: {ops / 1e9:.1f} GOP, "
-            f"{nbytes / 1e6:.1f} MB), {ops / ms / 1e9:.1f} TOP/s")
+            f"{ms:.4f} ms (tiles, K splits: {im.tile_plan(m, n, k)}), "
+            f"{ops / ms / 1e9:.1f} TOP/s; bound {bound:.4f} ms ({by}: {ops / 1e9:.1f} GOP, "
+            f"{nbytes / 1e6:.1f} MB); torch._int_mm {library_ms:.4f} ms")
         if bad or not torch.isfinite(got.float()).all():
             raise AssertionError(f"int8 GEMM disagrees with the plain version at {tag}")
         if tag != "tool":
             continue
         plain_ms = cuda_ms(lambda: im.int8_matmul_reference(x, w, scale, bias), iters=5)
-        w_kn = w.t()                                    # (K,N), K-contiguous
-        library_ms = cuda_ms(lambda: torch._int_mm(x, w_kn))
         xb = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
         wb = torch.randn(k, n, generator=g, device=dev, dtype=torch.bfloat16)
         bf16_ms = cuda_ms(lambda: torch.matmul(xb, wb))
@@ -300,6 +354,91 @@ def check_int8_matmul(results: dict) -> None:
         log("int8 GEMM f32 operands: refused by the wrapper (the kernel takes int8)")
     else:
         raise AssertionError("int8 GEMM wrapper accepted float32 operands")
+
+
+# (name, B, H, W, C, N, stride, bias): the 3x3 convs of the quantized R50
+# predict at 608x832, B=32, on their NHWC int8 inputs (padding 1); the
+# kernels JSON line carries head trunk P4, the conv the TPU tool's GEMM
+# shape stands for (M = 32*38*52 = 63232)
+CONV_SHAPES = (
+    ("layer1 3x3", 32, 152, 208, 64, 64, 1, False),
+    ("layer2 3x3 stride 2", 32, 152, 208, 128, 128, 2, False),
+    ("head trunk P3", 32, 76, 104, 256, 256, 1, True),
+    ("head trunk P4", 32, 38, 52, 256, 256, 1, True),
+    ("fpn.p6 stride 2", 32, 19, 26, 2048, 256, 2, True),
+    ("head trunk P7", 32, 5, 7, 256, 256, 1, True),
+)
+
+
+def conv_bound(b: int, h: int, w: int, c: int, n: int, m: int):
+    """(bound ms, "bytes" or "operations", ops, bytes) of one int8 3x3
+    conv with bf16 out: the NHWC input read once, the weight once, the
+    output written once, scale and bias."""
+    k = 9 * c
+    ops = 2.0 * m * k * n
+    nbytes = b * h * w * c + n * k + m * n * 2 + 8 * n
+    t_ops, t_bytes = ops / INT8_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            ops, nbytes)
+
+
+def check_int8_conv(results: dict) -> None:
+    import torch
+
+    from cl_object_detection_tpu_torch.ops import int8_matmul as im
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    err = 0.0
+    for tag, b, h, w, c, n, stride, with_bias in CONV_SHAPES:
+        x = torch.randint(-127, 128, (b, h, w, c), generator=g, device=dev, dtype=torch.int8)
+        wt = torch.randint(-127, 128, (n, 9 * c), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand(n, generator=g, device=dev) * 1e-4
+        bias = torch.randn(n, generator=g, device=dev) if with_bias else None
+        kw = dict(kernel=3, stride=stride, padding=1)
+
+        def conv():
+            return im.int8_conv_nhwc(x, wt, scale, bias, **kw)
+
+        def old_route():                      # im2col on the card + GEMM mode
+            cols = im.im2col(x, 3, stride, 1)
+            return im.int8_matmul(cols.reshape(-1, 9 * c), wt, scale, bias)
+
+        got = conv()
+        ref = im.int8_conv_nhwc_reference(x, wt, scale, bias, **kw)
+        torch.cuda.synchronize()
+        bad = int((got != ref).sum())
+        err = max(err, float((got.float() - ref.float()).abs().max()))
+        _, ho, wo, _ = got.shape
+        m = b * ho * wo
+        del ref
+        ms = graph_ms(conv)
+        old_ms = graph_ms(old_route)
+        cols = im.im2col(x, 3, stride, 1).reshape(m, 9 * c)
+        w_kn = wt.t()
+        library_ms = graph_ms(lambda: torch._int_mm(cols, w_kn))
+        bound, by, ops, nbytes = conv_bound(b, h, w, c, n, m)
+        log(f"int8 conv {tag} ({b},{h},{w},{c}) -> N={n}{' +bias' if with_bias else ''}: "
+            f"values differing from im2col + the plain GEMM: {bad} of {got.numel()}; "
+            f"kernel {ms:.4f} ms (tiles, K splits: {im.tile_plan(m, n, 9 * c, True)}), "
+            f"{ops / ms / 1e9:.1f} TOP/s; bound {bound:.4f} ms ({by}: {ops / 1e9:.1f} GOP, "
+            f"{nbytes / 1e6:.1f} MB); im2col + GEMM mode {old_ms:.4f} ms; torch._int_mm "
+            f"on the explicit patches {library_ms:.4f} ms")
+        if bad or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"int8 conv disagrees with im2col + the plain GEMM at {tag}")
+        if tag == "head trunk P4":
+            plain_ms = cuda_ms(lambda: im.int8_conv_nhwc_reference(x, wt, scale, bias, **kw),
+                               iters=3, warmup=1)
+            log(f"int8 conv {tag}: plain (im2col + float64 product) {plain_ms:.4f} ms")
+            results["int8_conv_nhwc"] = dict(
+                name="int8_conv_nhwc", route="cuda",
+                source="cl_object_detection_tpu_torch/csrc/int8_matmul.cu",
+                replaces="tools/bench_int8_matmul.py:28",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=library_ms,
+                shape=[b, h, w, c, n])
+        del x, wt, got, cols
+    results["int8_conv_nhwc"]["max_abs_err"] = err
 
 
 def build_model():
@@ -346,11 +485,12 @@ def make_frames(n: int, seed: int):
 
 
 def _counters():
-    from cl_object_detection_tpu_torch.ops.int8_matmul import int8_matmul
+    from cl_object_detection_tpu_torch.ops.int8_matmul import int8_conv_nhwc, int8_matmul
     from cl_object_detection_tpu_torch.ops.nms_fp import nms_fp
     from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
 
-    return {"stem_fused": stem_fused, "nms_fp": nms_fp, "int8_matmul": int8_matmul}
+    return {"stem_fused": stem_fused, "nms_fp": nms_fp, "int8_matmul": int8_matmul,
+            "int8_conv_nhwc": int8_conv_nhwc}
 
 
 def zero_counts() -> None:
@@ -489,8 +629,8 @@ def main_path(results: dict, profile_dir: str | None = None):
         if counts[name] <= 0:
             raise AssertionError(f"float path never launched {name}")
         results[name]["launches"] = counts[name]
-    if counts["int8_matmul"]:
-        raise AssertionError("the float path launched the int8 GEMM")
+    if counts["int8_matmul"] or counts["int8_conv_nhwc"]:
+        raise AssertionError("the float path launched the int8 kernel")
     forward_split(model, frames32, batch_ms, "float")
 
     # ---- output checks ----
@@ -520,6 +660,7 @@ def main_path(results: dict, profile_dir: str | None = None):
 
 
 R50_INT8_GEMMS = 52 + 8 + 2 * 4 * 5     # backbone + FPN + head trunks x levels
+R50_INT8_CONVS = 16 + 5 + 2 * 4 * 5     # of them 3x3: backbone + FPN + head trunks
 
 
 def quantized_path(results: dict, ctx: dict, profile_dir: str | None = None) -> None:
@@ -543,9 +684,13 @@ def quantized_path(results: dict, ctx: dict, profile_dir: str | None = None) -> 
         if n <= 0:
             raise AssertionError(f"quantized path never launched {name}")
     if per_predict["int8_matmul"] != R50_INT8_GEMMS:
-        raise AssertionError(f"{per_predict['int8_matmul']} int8 GEMMs per R50 predict, "
+        raise AssertionError(f"{per_predict['int8_matmul']} int8 launches per R50 predict, "
                              f"not {R50_INT8_GEMMS}: the exclusion is wrong")
-    results["int8_matmul"]["launches"] = counts["int8_matmul"]
+    if per_predict["int8_conv_nhwc"] != R50_INT8_CONVS:
+        raise AssertionError(f"{per_predict['int8_conv_nhwc']} conv-mode launches per R50 "
+                             f"predict, not {R50_INT8_CONVS}: the routing is wrong")
+    for name in ("int8_matmul", "int8_conv_nhwc"):
+        results[name]["launches"] = counts[name]
     log(f"images/s at B=32: float {ctx['ips']:.2f}, int8 {ips:.2f} "
         f"(int8/float {ips / ctx['ips']:.3f}, same process and card)")
     qapply = quantized_apply(model)
@@ -572,7 +717,9 @@ def quantized_path(results: dict, ctx: dict, profile_dir: str | None = None) -> 
 _KERNEL_GROUPS = (
     ("stem_fused", ("stem_fused",)),
     ("nms_fp", ("nms_fp",)),
-    ("int8_matmul", ("int8_matmul",)),
+    ("int8 kernel, conv mode", ("int8_matmul_kernel<64, true>", "int8_matmul_kernel<128, true>",
+                                "int8_matmul_kernel<256, true>")),
+    ("int8 kernel, GEMM mode", ("int8_matmul",)),
     ("convolution", ("conv", "xmma", "cudnn", "gemm", "cutlass", "implicit")),
     ("sort / top-k", ("sort", "radix", "topk", "scan")),
     ("im2col concatenation", ("catarray",)),
@@ -650,6 +797,7 @@ def main() -> int:
     check_stem(results)
     check_nms(results)
     check_int8_matmul(results)
+    check_int8_conv(results)
     ctx = main_path(results, args.profile)
     quantized_path(results, ctx, args.profile)
 

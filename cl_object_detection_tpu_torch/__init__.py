@@ -11,8 +11,9 @@ class-aware NMS, behind ``eval.predictor.make_predict_fn`` and
 ``cli.serve``. Three hand-written CUDA kernels for ``sm_90a`` carry it on
 the card: the fused stem (``ops/stem_fused.py`` + ``csrc/stem_fused.cu``),
 the batched fixed-point NMS (``ops/nms_fp.py`` + ``csrc/nms_fp.cu``) and
-the int8 GEMM of the quantized convs (``ops/int8_matmul.py`` +
-``csrc/int8_matmul.cu``, behind ``ops/quant.py``).
+the int8 kernel of the quantized convs, a GEMM that can gather a conv's
+patches itself (``ops/int8_matmul.py`` + ``csrc/int8_matmul.cu``, behind
+``ops/quant.py``).
 """
 from __future__ import annotations
 

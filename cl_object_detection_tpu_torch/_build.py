@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
 use by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` (beside the package, listed in ``.gitignore``),
 then loaded with ``ctypes``. The library's file name carries a hash of
-its source and flags, so an edited source is rebuilt and a current one is
-reused. ``build_all`` starts one ``nvcc`` per source at once.
+its source, of the ``csrc/`` headers it includes (``#include "..."``,
+followed through headers) and of its flags, so an edited source or
+header is rebuilt and a current one is reused. ``build_all`` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -54,11 +56,32 @@ def _nvcc() -> str:
                        "build from csrc/ at first use")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header under ``csrc/`` it includes,
+    directly or through another header, in the order first met."""
+    found: List[Path] = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            header = path.parent / inc.decode()
+            if header.exists():
+                todo.append(header)
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    flags = " ".join(BASE_FLAGS + EXTRA_FLAGS[name]).encode()
-    digest = hashlib.sha1(src + b"\0" + flags).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(BASE_FLAGS + EXTRA_FLAGS[name]).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

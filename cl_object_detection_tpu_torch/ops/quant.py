@@ -10,8 +10,14 @@ formula as in JAX:
     q(v, s) = clip(round(v / s), -127, 127) as int8   (round half to even)
 
 PyTorch has no int8 convolution on the card, so a quantized conv is
-quantize -> im2col on the card -> ``ops.int8_matmul.int8_matmul`` (the
-CUDA kernel, with the dequantize in its epilogue).
+quantize -> the int8 kernel of ``ops/int8_matmul.py`` (dequantize in its
+epilogue), routed by shape:
+
+* a 3x3 conv whose input channels are a multiple of 16:
+  ``int8_conv_nhwc``, the kernel's conv mode, which gathers its patches
+  from the quantized NHWC activation (no im2col copy);
+* a 1x1 conv: ``int8_matmul`` on the (strided) pixels, GEMM mode;
+* any other conv: ``im2col`` on the card, then ``int8_matmul``.
 
 ``quantized_apply(model)`` runs every ``models.resnet.Conv`` of the model
 through ``quantized_conv``, except the ones whose attribute name is in
@@ -27,31 +33,15 @@ import functools
 from typing import Callable, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
 from ..models.resnet import Conv, conv_override
-from .int8_matmul import int8_matmul
+from .int8_matmul import im2col, int8_conv_nhwc, int8_matmul
 
 
 def _quantize(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """clip(round(f32(v) / s), -127, 127) as int8 (in place on the
     quotient, a fresh tensor)."""
     return (v.float() / s).round_().clamp_(-127, 127).to(torch.int8)
-
-
-def _im2col(x_q: torch.Tensor, kernel: int, stride: int, padding: int) -> torch.Tensor:
-    """(B,H,W,C) int8 -> (B,Ho,Wo,kernel*kernel*C) patches, K ordered
-    (kh, kw, c): a reshape for a 1x1 stride-1 conv, else zero padding and
-    kernel*kernel shifted strided views side by side."""
-    if kernel == 1 and padding == 0:
-        return x_q[:, ::stride, ::stride]
-    b, h, w, c = x_q.shape
-    ho = (h + 2 * padding - kernel) // stride + 1
-    wo = (w + 2 * padding - kernel) // stride + 1
-    xp = F.pad(x_q, (0, 0, padding, padding, padding, padding))
-    return torch.cat([xp[:, i:i + stride * (ho - 1) + 1:stride,
-                         j:j + stride * (wo - 1) + 1:stride]
-                      for i in range(kernel) for j in range(kernel)], dim=3)
 
 
 def quantized_conv(x: torch.Tensor, weight: torch.Tensor,
@@ -81,15 +71,22 @@ def quantized_conv(x: torch.Tensor, weight: torch.Tensor,
     nhwc = x.permute(0, 2, 3, 1)
     if kh == 1 and padding == 0:
         nhwc, stride = nhwc[:, ::stride, ::stride], 1
-    cols = _im2col(_quantize(nhwc, s_x), kh, stride, padding)
-    b, ho, wo, k = cols.shape
-    y = int8_matmul(cols.reshape(b * ho * wo, k), w_nk, s_x * s_w,
-                    None if bias is None else bias.float(), out_dtype)
-    return y.view(b, ho, wo, o).permute(0, 3, 1, 2)
+    x_q = _quantize(nhwc, s_x)
+    scale, b_f = s_x * s_w, None if bias is None else bias.float()
+    if kh == 3 and i % 16 == 0:
+        y = int8_conv_nhwc(x_q, w_nk, scale, b_f, kernel=3, stride=stride, padding=padding,
+                           out_dtype=out_dtype)
+    else:
+        cols = x_q if kh == 1 and padding == 0 else im2col(x_q, kh, stride, padding)
+        b, ho, wo, k = cols.shape
+        y = int8_matmul(cols.reshape(b * ho * wo, k), w_nk, scale, b_f,
+                        out_dtype).view(b, ho, wo, o)
+    return y.permute(0, 3, 1, 2)
 
 
 def _run_quantized(conv: Conv, x: torch.Tensor) -> torch.Tensor:
-    # ``quantized_conv`` is looked up per call, so a test can spy on it
+    # ``quantized_conv`` (and the wrappers it calls) are looked up per
+    # call, so a test can spy on them
     return quantized_conv(x, conv.weight, conv.bias, stride=conv.stride,
                           padding=conv.padding, out_dtype=conv.dtype)
 

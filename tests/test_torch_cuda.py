@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes the main path does not give them: ragged stem tiles, a batch of
-one, k that is not a multiple of 32, int8 GEMMs with ragged M, N and K,
-and the wrappers' refusals.
+one, k that is not a multiple of 32, int8 GEMMs with ragged M, N and K
+(every tile width and K split the kernel chooses), int8 convs with
+ragged images, strides and paddings, and the wrappers' refusals.
 
 Marked ``cuda``. Without a CUDA device every test skips: a kernel has no
 CPU mode, and the CPU tests hold the plain versions to the JAX package.
@@ -142,19 +143,35 @@ def test_detect_batch_pallas_fp_equals_iterative_on_the_card(dev, topk):
         assert torch.equal(g, x)
 
 
-@pytest.mark.parametrize("m", [1, 17, 1000])
-@pytest.mark.parametrize("k", [16, 288, 2304, 18432])
-@pytest.mark.parametrize("n", [64, 200, 256])
+def _int8(dev, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+def _epilogue_inputs(dev, n, with_bias, seed):
+    r = np.random.RandomState(seed)
+    scale = torch.from_numpy((r.rand(n) * 1e-4).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(r.randn(n).astype(np.float32)).to(dev) if with_bias else None
+    return scale, bias
+
+
+GEMM_M = (1, 17, 64, 1000, 4160)
+GEMM_K = (16, 288, 2304, 18432)
+GEMM_N = (64, 128, 200, 256, 512)
+
+
+@pytest.mark.parametrize("m", GEMM_M)
+@pytest.mark.parametrize("k", GEMM_K)
+@pytest.mark.parametrize("n", GEMM_N)
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_int8_matmul_kernel_bit_identical_to_plain(dev, m, k, n, with_bias, out_dtype):
-    """Bit-identical: the int32 sum is exact on both sides, and the
-    epilogue rounds the same f32 steps (the kernel never fuses them)."""
-    r = np.random.RandomState(m * 7 + k + n)
-    x = torch.from_numpy(r.randint(-128, 128, (m, k)).astype(np.int8)).to(dev)
-    w = torch.from_numpy(r.randint(-128, 128, (n, k)).astype(np.int8)).to(dev)
-    scale = torch.from_numpy((r.rand(n) * 1e-4).astype(np.float32)).to(dev)
-    bias = torch.from_numpy(r.randn(n).astype(np.float32)).to(dev) if with_bias else None
+    """Bit-identical: the int32 sum is exact on both sides (split K adds
+    exact int32 partial sums), and the epilogue rounds the same f32 steps
+    (the kernel never fuses them)."""
+    seed = m * 7 + k + n
+    x, w = _int8(dev, (m, k), seed), _int8(dev, (n, k), seed + 1)
+    scale, bias = _epilogue_inputs(dev, n, with_bias, seed)
     before = im.int8_matmul.launches
     got = im.int8_matmul(x, w, scale, bias, out_dtype)
     torch.cuda.synchronize()
@@ -162,6 +179,74 @@ def test_int8_matmul_kernel_bit_identical_to_plain(dev, m, k, n, with_bias, out_
     want = im.int8_matmul_reference(x, w, scale, bias, out_dtype)
     assert got.shape == (m, n) and got.dtype == out_dtype
     assert torch.equal(got, want)
+
+
+# (B, H, W, C, N, kernel, stride, padding): one pixel, ragged odd images,
+# every tile width (256 at the P5-sized shape), C = 16..2048 (K split at
+# the fpn.p6 shape), 1x1 and 5x5 kernels, and a strided layer2 3x3 of the
+# R50 at 608x832 (B=4). With the GEMM grid above, they run every tile
+# plan (tests/test_torch_int8_conv.py checks the cover).
+CONV_SHAPES = [
+    (1, 1, 1, 16, 8, 3, 1, 1),
+    (2, 7, 9, 16, 24, 3, 1, 1),
+    (2, 7, 9, 32, 64, 3, 2, 1),
+    (1, 13, 11, 64, 130, 3, 2, 0),
+    (3, 5, 6, 48, 256, 3, 1, 0),
+    (2, 19, 26, 2048, 256, 3, 2, 1),
+    (2, 9, 7, 16, 40, 1, 2, 0),
+    (1, 8, 8, 16, 16, 1, 1, 1),
+    (1, 9, 9, 16, 32, 5, 2, 2),
+    (2, 76, 104, 32, 256, 3, 1, 1),
+    (4, 152, 208, 128, 128, 3, 2, 1),
+]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_conv_kernel_bit_identical_to_plain(dev, shape, with_bias, out_dtype):
+    """Conv mode against im2col + the plain GEMM, bit for bit."""
+    b, h, w, c, n, ksize, stride, pad = shape
+    seed = sum(shape)
+    x, wt = _int8(dev, (b, h, w, c), seed), _int8(dev, (n, ksize * ksize * c), seed + 1)
+    scale, bias = _epilogue_inputs(dev, n, with_bias, seed)
+    kw = dict(kernel=ksize, stride=stride, padding=pad, out_dtype=out_dtype)
+    before = (im.int8_matmul.launches, im.int8_conv_nhwc.launches)
+    got = im.int8_conv_nhwc(x, wt, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert (im.int8_matmul.launches, im.int8_conv_nhwc.launches) == (before[0] + 1, before[1] + 1)
+    want = im.int8_conv_nhwc_reference(x, wt, scale, bias, **kw)
+    assert got.shape == want.shape and got.dtype == out_dtype
+    assert torch.equal(got, want)
+
+
+def test_int8_conv_kernel_takes_a_view(dev):
+    """A channels-last activation seen through an NHWC permute is what
+    ops/quant.py hands the kernel; a sliced view is made contiguous."""
+    x = _int8(dev, (2, 12, 10, 32), 4)
+    wt = _int8(dev, (48, 9 * 32), 5)
+    scale, bias = _epilogue_inputs(dev, 48, True, 6)
+    view = x[:, 1:11, 2:9]
+    kw = dict(kernel=3, stride=1, padding=1)
+    assert torch.equal(im.int8_conv_nhwc(view, wt, scale, bias, **kw),
+                       im.int8_conv_nhwc(view.contiguous(), wt, scale, bias, **kw))
+
+
+def test_int8_conv_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(1, 5, 5, 24, dtype=torch.int8, device=dev)
+    w = torch.zeros(8, 9 * 24, dtype=torch.int8, device=dev)
+    scale = torch.ones(8, device=dev)
+    kw = dict(kernel=3, stride=1, padding=1)
+    before = im.int8_conv_nhwc.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        im.int8_conv_nhwc(x, w, scale, **kw)
+    with pytest.raises(TypeError):
+        im.int8_conv_nhwc(x[..., :16].float(), w[:, :144], scale, **kw)
+    with pytest.raises(ValueError):
+        im.int8_conv_nhwc(x[..., :16], w, scale, **kw)
+    with pytest.raises(TypeError):
+        im.int8_conv_nhwc(x[..., :16], w[:, :144], scale, out_dtype=torch.float16, **kw)
+    assert im.int8_conv_nhwc.launches == before
 
 
 def test_int8_matmul_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -200,9 +285,11 @@ def _small_model(dtype):
 @pytest.mark.parametrize("dtype,form", [("float32", "rgb"), ("bfloat16", "fused_uint8")])
 def test_quantized_model_on_the_card_runs_only_the_kernel(dev, monkeypatch, dtype, form):
     """The quantized R18 on the card: every int8 conv launches the kernel
-    (19 backbone + 8 FPN + 2 heads x 2 convs x 5 levels), the plain GEMM
-    never runs, and cuDNN runs only the float convs (the heads' 10 output
-    convs, plus the RGB stem). In float32 it correlates > 0.999 with the
+    (19 backbone + 8 FPN + 2 heads x 2 convs x 5 levels), 41 of them in
+    conv mode (16 backbone + 5 FPN + 2 x 2 x 5 head 3x3 convs) and 6 in
+    GEMM mode (3 downsample + 3 lateral 1x1 convs); neither im2col nor a
+    plain version ever runs, and cuDNN runs only the float convs (the
+    heads' 10 output convs, plus the RGB stem). In float32 it correlates > 0.999 with the
     same model quantized on the CPU (TF32 off). Not closer: the float
     parts sum in other orders, so a dynamic scale max|x|/127 moves by an
     ulp and values near a rounding boundary flip by a whole int8 step;
@@ -225,18 +312,23 @@ def test_quantized_model_on_the_card_runs_only_the_kernel(dev, monkeypatch, dtyp
         space_to_depth(img, factor=4)
     x = torch.from_numpy(np.ascontiguousarray(x))
 
-    def no_plain(*a, **k):
-        raise AssertionError("the plain int8 GEMM ran on the card")
+    def refuse(name):
+        def fail(*a, **k):
+            raise AssertionError(f"{name} ran on the card")
+        return fail
 
     convs = []
     real_conv2d = F.conv2d
-    monkeypatch.setattr(im, "int8_matmul_reference", no_plain)
+    for mod, name in ((im, "int8_matmul_reference"), (im, "int8_conv_nhwc_reference"),
+                      (im, "im2col"), (tq, "im2col")):
+        monkeypatch.setattr(mod, name, refuse(name))
     monkeypatch.setattr(F, "conv2d", lambda *a, **k: convs.append(1) or real_conv2d(*a, **k))
-    before = im.int8_matmul.launches
+    before = (im.int8_matmul.launches, im.int8_conv_nhwc.launches)
     with torch.inference_mode():
         q_cls, q_reg = tq.quantized_apply(model)(x.to(dev), enable_act=False)
     torch.cuda.synchronize()
-    assert im.int8_matmul.launches - before == 19 + 8 + 2 * 2 * 5
+    assert im.int8_matmul.launches - before[0] == 19 + 8 + 2 * 2 * 5
+    assert im.int8_conv_nhwc.launches - before[1] == 16 + 5 + 2 * 2 * 5
     assert len(convs) == 10 + (form == "rgb")
     monkeypatch.undo()
     assert torch.isfinite(q_cls.float()).all() and torch.isfinite(q_reg.float()).all()
