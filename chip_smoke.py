@@ -14,9 +14,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    * fused stem, bf16, (8,152,208,64) and (32,152,208,64): within 2 bf16
      ulps of |plain| + max|bias| per value (the kernel and cuDNN sum in
      f32 in different orders, which moves the bf16 rounding of the conv
-     by at most one ulp before the bias add); float32 input must raise;
-   * batched NMS, B=32, k=1024, on random boxes, an IoU-exactly-0.5
-     fixture and identical boxes: keep masks bit-identical;
+     by at most one ulp before the bias add); float32, (8,152,208,64),
+     through the kernel's float32 form (FMA units) against the plain
+     version with TF32 off: |diff| <= 1e-4 * (1 + |plain|);
+   * batched NMS, B=32, k=1024 (the shared-memory bitmask) and k=2048
+     (the global workspace), on random boxes, an IoU-exactly-0.5 fixture
+     and identical boxes: keep masks bit-identical;
    * int8 kernel, GEMM mode (int8 x int8 -> int32, per-column scale,
      optional bias, bf16 out): bit-identical to its plain version at the
      TPU tool's shape (M=62976, K=2304, N=256, scale 1e-4, no bias) and
@@ -27,7 +30,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Times (the int8 ones from CUDA graphs of 20 calls, which leave out
    the host's time per call): kernel, plain version, the bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of
-   their type; a conv's input counted at its NHWC size), and one library
+   their type; a conv's input counted at its NHWC size; for the stem the
+   operations of the packed 3x3 GEMM, and beside it the bound of the
+   operations its 8x16 windows compute, halo included, and that of the
+   7x7 conv the stem stands for), and one library
    call where PyTorch has one (the stem: cuDNN's conv chain on the
    equivalent RGB batch; the int8 kernel: ``torch._int_mm``, the product
    alone, without the dequantize epilogue, on the explicit patches in
@@ -53,7 +59,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    check: finite detections of the static shape, and the quantized
    logits against the float ones on 2 frames (correlation > 0.98, the
    bar of the JAX package's tests/test_quant.py).
-6. One JSON line of the kernels, then the ``{"ok": true, ...}`` line.
+6. Float32 path: the same R50 built with ``compute_dtype="float32"`` (TF32
+   off), counters at 0, three B=8 predicts on the same fused frames. The
+   float32 stem kernel and the NMS counters must have risen, the bf16
+   stem's and the int8 one's not. Output check: finite detections of the
+   static shape, and the fused stem path's logits against the RGB stem
+   path's on 2 frames (relative L2 < 1e-3).
+7. One JSON line of the kernels, then the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds a torch.profiler window over two B=32 predicts
 after phases 4 and 5: device time by kernel group, the device's idle
@@ -76,6 +88,8 @@ BF16_FLOPS = 989e12              # H100 SXM, dense tensor cores
 FP32_FLOPS = 67e12               # H100 SXM, outside the tensor cores
 INT8_OPS = 1979e12               # H100 SXM, dense tensor cores
 NMS_OPS_PER_PAIR = 14            # 4 min/max, 2 sub, 2 clamp, mul, add, sub, max, div, cmp
+STEM_OUT = (7, 15)               # pooled outputs of one stem-kernel unit (csrc/stem_fused.cu)
+STEM_WINDOW = 8 * 16             # conv pixels the unit computes, the pool's halo included
 
 
 def log(msg: str) -> None:
@@ -197,6 +211,17 @@ def check_stem(results: dict) -> None:
             f"conv+bias+relu+pool {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
             f"({'operations' if t_ops >= t_bytes else 'bytes'}: {ops / 1e9:.1f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB)")
+        # the kernel computes 8x16 conv windows for 7x15 pooled outputs
+        # (the pool's halo), ragged edges included
+        units = b * -(-(H // 4) // STEM_OUT[0]) * -(-(W // 4) // STEM_OUT[1])
+        halo = units * STEM_WINDOW / m
+        log(f"stem B={b}: bound with the kernel's halo recompute (x{halo:.4f}: {units} "
+            f"units of {STEM_WINDOW} conv pixels) {ops * halo / BF16_FLOPS * 1e3:.4f} ms "
+            f"(operations: {ops * halo / 1e9:.1f} GFLOP)")
+        conv_ops = stem_conv_ops(b)
+        log(f"stem B={b}: bound of the 7x7/2 conv itself (the packed GEMM's 576 x 256 "
+            f"product is 74% zero blocks) {conv_ops / BF16_FLOPS * 1e3:.4f} ms "
+            f"(operations: {conv_ops / 1e9:.1f} GFLOP)")
         results["stem_fused"] = dict(
             name="stem_fused", route="cuda",
             source="cl_object_detection_tpu_torch/csrc/stem_fused.cu",
@@ -205,19 +230,77 @@ def check_stem(results: dict) -> None:
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=library_ms, shape=[b, H // 4, W // 4, 64])
+    check_stem_f32(results, x[:8], x4[:8].float(), k7, bias4)
+
+
+def stem_conv_ops(b: int) -> float:
+    """Operations of the 7x7/2 conv (3 -> 64 channels) that the stem
+    computes, on b frames of H x W."""
+    return 2.0 * b * (H // 2) * (W // 2) * 7 * 7 * 3 * 64
+
+
+def check_stem_f32(results: dict, x, x4, k7, bias4) -> None:
+    """The float32 form on the FMA units, TF32 off for the plain version
+    and cuDNN."""
+    import torch
+    import torch.nn.functional as F
+
+    from cl_object_detection_tpu_torch.ops import stem_fused as sf
+
+    b = x4.shape[0]
+    k3 = sf.pack_stem_kernel(k7)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
     try:
-        sf.stem_fused(x4[:1].float(), k3, bias4)
-    except TypeError:
-        log("stem f32: refused by the wrapper (the kernel takes bf16)")
-    else:
-        raise AssertionError("stem wrapper accepted float32")
+        before = (sf.stem_fused.launches, sf.stem_fused_f32.launches)
+        got = sf.stem_fused(x4, k3, bias4)
+        ref = sf.stem_fused_reference(x4, k3, bias4)
+        torch.cuda.synchronize()
+        if (sf.stem_fused.launches, sf.stem_fused_f32.launches) != (before[0], before[1] + 1):
+            raise AssertionError("stem f32 did not launch the float32 form")
+        diff = (got - ref).abs()
+        bad = int((diff > 1e-4 * (1 + ref.abs())).sum())
+        err = float(diff.max())
+        log(f"stem f32 B={b}: max_abs_err {err:.6g}, values beyond 1e-4 * (1 + |plain|): "
+            f"{bad} of {diff.numel()}")
+        if bad or not torch.isfinite(got).all():
+            raise AssertionError("stem f32 kernel disagrees with the plain version")
+        ms = cuda_ms(lambda: sf.stem_fused(x4, k3, bias4))
+        plain_ms = cuda_ms(lambda: sf.stem_fused_reference(x4, k3, bias4))
+        rgb = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        w7 = k7.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        library_ms = cuda_ms(lambda: F.max_pool2d(
+            F.relu(F.conv2d(rgb, w7, bias4[:64], stride=2, padding=3)), 3, 2, 1))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    m = b * (H // 4) * (W // 4)
+    ops = 2.0 * m * 576 * 256
+    nbytes = 2 * x4.numel() * 4 + 576 * 256 * 4 + 256 * 4
+    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    units = b * -(-(H // 4) // STEM_OUT[0]) * -(-(W // 4) // STEM_OUT[1])
+    halo = units * STEM_WINDOW / m
+    conv_ops = stem_conv_ops(b)
+    log(f"stem f32 B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
+        f"conv+bias+relu+pool (f32, TF32 off) {library_ms:.4f} ms, bound "
+        f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
+        f"{ops / 1e9:.1f} GFLOP at the float32 rate, {nbytes / 1e6:.1f} MB); with the "
+        f"halo (x{halo:.4f}) {ops * halo / FP32_FLOPS * 1e3:.4f} ms; the 7x7 conv itself "
+        f"{conv_ops / FP32_FLOPS * 1e3:.4f} ms")
+    results["stem_fused_f32"] = dict(
+        name="stem_fused_f32", route="cuda",
+        source="cl_object_detection_tpu_torch/csrc/stem_fused.cu",
+        replaces="cl_object_detection_tpu/ops/stem_pallas.py:94",
+        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=library_ms, shape=list(x4.shape))
 
 
-def _nms_inputs(dev):
+def _nms_inputs(dev, k: int):
     import numpy as np
     import torch
 
-    b, k = 32, 1024
+    b = 32
     r = np.random.RandomState(3)
     bb = r.rand(b, k, 4).astype(np.float32) * 600
     bb[..., 2:] = bb[..., :2] + 10 + r.rand(b, k, 2).astype(np.float32) * 60
@@ -240,33 +323,39 @@ def check_nms(results: dict) -> None:
     from cl_object_detection_tpu_torch.ops import nms_fp as nf
 
     dev = torch.device("cuda")
-    boxes, scores = _nms_inputs(dev)
-    got = nf.nms_fp(boxes, scores, 0.5)
-    ref = nf.nms_fp_reference(boxes, scores, 0.5)
-    torch.cuda.synchronize()
-    mismatches = int((got != ref).sum())
-    log(f"nms B=32 k=1024: keep bits differing from the plain version: "
-        f"{mismatches}; kept per image {got.sum(1)[:4].tolist()}...")
-    if mismatches or int(got[1].sum()) != 1:
-        raise AssertionError("nms kernel keep masks differ from the plain version")
-    ms = cuda_ms(lambda: nf.nms_fp(boxes, scores, 0.5))
-    plain_ms = cuda_ms(lambda: nf.nms_fp_reference(boxes, scores, 0.5), iters=5)
-    n_valid = (scores > 0).sum(1).double()
-    pairs = float((n_valid * (n_valid - 1) / 2).sum())
-    ops = NMS_OPS_PER_PAIR * pairs
-    nbytes = boxes.numel() * 4 + scores.numel() * 4 + scores.numel()
-    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"nms B=32 k=1024: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{max(t_ops, t_bytes):.5f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
-        f"{pairs:.0f} valid pairs)")
-    results["nms_fp"] = dict(
-        name="nms_fp", route="cuda",
-        source="cl_object_detection_tpu_torch/csrc/nms_fp.cu",
-        replaces="cl_object_detection_tpu/ops/nms_pallas.py:48",
-        launches=0, max_abs_err=float(mismatches), ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None, shape=[32, 1024])
+    # k = 1024, the main path's (its bitmask in shared memory), then 2048
+    # (beyond nf.max_k(): the bitmask in the global workspace)
+    for k in (1024, 2048):
+        boxes, scores = _nms_inputs(dev, k)
+        got = nf.nms_fp(boxes, scores, 0.5)
+        ref = nf.nms_fp_reference(boxes, scores, 0.5)
+        torch.cuda.synchronize()
+        mismatches = int((got != ref).sum())
+        log(f"nms B=32 k={k}: keep bits differing from the plain version: "
+            f"{mismatches}; kept per image {got.sum(1)[:4].tolist()}...")
+        if mismatches or int(got[1].sum()) != 1:
+            raise AssertionError(f"nms kernel keep masks differ from the plain version at k={k}")
+        ms = cuda_ms(lambda: nf.nms_fp(boxes, scores, 0.5))
+        plain_ms = cuda_ms(lambda: nf.nms_fp_reference(boxes, scores, 0.5),
+                           iters=5 if k <= 1024 else 2, warmup=1)
+        n_valid = (scores > 0).sum(1).double()
+        pairs = float((n_valid * (n_valid - 1) / 2).sum())
+        ops = NMS_OPS_PER_PAIR * pairs
+        nbytes = boxes.numel() * 4 + scores.numel() * 4 + scores.numel()
+        t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"nms B=32 k={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{max(t_ops, t_bytes):.5f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
+            f"{pairs:.0f} valid pairs)")
+        if k == 1024:
+            results["nms_fp"] = dict(
+                name="nms_fp", route="cuda",
+                source="cl_object_detection_tpu_torch/csrc/nms_fp.cu",
+                replaces="cl_object_detection_tpu/ops/nms_pallas.py:48",
+                launches=0, max_abs_err=float(mismatches), ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None, shape=[32, 1024])
+        del boxes, scores, got, ref
 
 
 # (name, M, K, N, bias): the TPU tool's shape (its default M = 63232
@@ -441,7 +530,7 @@ def check_int8_conv(results: dict) -> None:
     results["int8_conv_nhwc"]["max_abs_err"] = err
 
 
-def build_model():
+def build_model(dtype: str = "bfloat16"):
     import math
 
     import torch
@@ -450,7 +539,7 @@ def build_model():
     from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
 
     gen = torch.Generator().manual_seed(0)
-    model = create_retinanet(ModelConfig(depth=50, compute_dtype="bfloat16"),
+    model = create_retinanet(ModelConfig(depth=50, compute_dtype=dtype),
                              NUM_CLASSES, device="cuda", generator=gen)
     with torch.no_grad():
         for head in (model.classification_head, model.regression_head):
@@ -487,10 +576,10 @@ def make_frames(n: int, seed: int):
 def _counters():
     from cl_object_detection_tpu_torch.ops.int8_matmul import int8_conv_nhwc, int8_matmul
     from cl_object_detection_tpu_torch.ops.nms_fp import nms_fp
-    from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
+    from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused, stem_fused_f32
 
-    return {"stem_fused": stem_fused, "nms_fp": nms_fp, "int8_matmul": int8_matmul,
-            "int8_conv_nhwc": int8_conv_nhwc}
+    return {"stem_fused": stem_fused, "stem_fused_f32": stem_fused_f32, "nms_fp": nms_fp,
+            "int8_matmul": int8_matmul, "int8_conv_nhwc": int8_conv_nhwc}
 
 
 def zero_counts() -> None:
@@ -578,10 +667,10 @@ def serve_and_time(predict, frames32, x4, tag: str):
     return ips, dt / iters * 1e3, counts, per_predict, det
 
 
-def check_detections(det, pcfg) -> None:
+def check_detections(det, pcfg, batch: int = 32) -> None:
     import torch
 
-    if tuple(det.boxes.shape) != (32, pcfg.max_detections, 4):
+    if tuple(det.boxes.shape) != (batch, pcfg.max_detections, 4):
         raise AssertionError(f"bad detection shape {tuple(det.boxes.shape)}")
     if not (torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()):
         raise AssertionError("non-finite detections")
@@ -629,8 +718,8 @@ def main_path(results: dict, profile_dir: str | None = None):
         if counts[name] <= 0:
             raise AssertionError(f"float path never launched {name}")
         results[name]["launches"] = counts[name]
-    if counts["int8_matmul"] or counts["int8_conv_nhwc"]:
-        raise AssertionError("the float path launched the int8 kernel")
+    if counts["int8_matmul"] or counts["int8_conv_nhwc"] or counts["stem_fused_f32"]:
+        raise AssertionError("the float path launched the int8 kernel or the f32 stem")
     forward_split(model, frames32, batch_ms, "float")
 
     # ---- output checks ----
@@ -656,7 +745,7 @@ def main_path(results: dict, profile_dir: str | None = None):
         raise AssertionError("fused-stem path disagrees with the RGB-stem path")
     if profile_dir:
         profile_predict(predict, frames32, profile_dir, "profile_predict.txt")
-    return dict(model=model, frames32=frames32, x4=x4, ips=ips, f_cls=f_cls)
+    return dict(model=model, frames32=frames32, x4=x4, rgb=rgb, ips=ips, f_cls=f_cls)
 
 
 R50_INT8_GEMMS = 52 + 8 + 2 * 4 * 5     # backbone + FPN + head trunks x levels
@@ -681,8 +770,10 @@ def quantized_path(results: dict, ctx: dict, profile_dir: str | None = None) -> 
     ips, batch_ms, counts, per_predict, det = serve_and_time(
         qpredict, frames32, ctx["x4"], "int8")
     for name, n in counts.items():
-        if n <= 0:
+        if name != "stem_fused_f32" and n <= 0:
             raise AssertionError(f"quantized path never launched {name}")
+    if counts["stem_fused_f32"]:
+        raise AssertionError("the quantized bf16 path launched the f32 stem")
     if per_predict["int8_matmul"] != R50_INT8_GEMMS:
         raise AssertionError(f"{per_predict['int8_matmul']} int8 launches per R50 predict, "
                              f"not {R50_INT8_GEMMS}: the exclusion is wrong")
@@ -711,6 +802,59 @@ def quantized_path(results: dict, ctx: dict, profile_dir: str | None = None) -> 
         raise AssertionError("quantized logits disagree with the float ones")
     if profile_dir:
         profile_predict(qpredict, frames32, profile_dir, "profile_predict_int8.txt")
+
+
+def f32_path(results: dict, ctx: dict) -> None:
+    """The float32 model (phase 6) on the float path's frames, TF32 off."""
+    import torch
+
+    from cl_object_detection_tpu_torch.config import PredictConfig
+    from cl_object_detection_tpu_torch.eval.predictor import make_predict_fn
+
+    frames = ctx["frames32"][:8]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = build_model("float32")
+        calibrate_logits(model, frames[:2])
+        pcfg = PredictConfig(nms_impl="pallas_fp")
+        predict = make_predict_fn(model, pcfg)
+        predict(frames)                                 # warm-up, B=8
+        torch.cuda.synchronize()
+
+        # ---- this path: counters at 0 -> three B=8 predicts ----
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            det = predict(frames)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 3
+        counts = read_counts()
+        log(f"f32 predict B=8 608x832 R50 float32 fused-stem pallas_fp (TF32 off): "
+            f"{dt * 1e3:.3f} ms per batch, {8 / dt:.2f} images/s; launches {counts}")
+        if counts["stem_fused_f32"] <= 0 or counts["nms_fp"] <= 0:
+            raise AssertionError("the f32 path never launched the f32 stem or the NMS")
+        if counts["stem_fused"] or counts["int8_matmul"] or counts["int8_conv_nhwc"]:
+            raise AssertionError("the f32 path launched a bf16 or int8 kernel")
+        results["stem_fused_f32"]["launches"] = counts["stem_fused_f32"]
+
+        # ---- output checks ----
+        check_detections(det, pcfg, batch=8)
+        with torch.inference_mode():
+            f_cls, f_reg = model(frames[:2], enable_act=False)
+            rgb2 = torch.from_numpy(ctx["rgb"][:2]).to(frames.device)
+            r_cls, r_reg = model(rgb2, enable_act=False)
+        if f_cls.dtype != torch.float32:
+            raise AssertionError(f"the f32 model computed in {f_cls.dtype}")
+        bias = model.classification_head.output.bias.detach()[0]
+        rel_cls = float((f_cls - r_cls).norm() / (r_cls - bias).norm())
+        rel_reg = float((f_reg - r_reg).norm() / r_reg.norm())
+        log(f"fused-stem vs RGB-stem path (float32, TF32 off, 2 frames): relative L2 "
+            f"error cls {rel_cls:.3e}, reg {rel_reg:.3e} (limit 1e-3)")
+        if not (rel_cls < 1e-3 and rel_reg < 1e-3):
+            raise AssertionError("f32 fused-stem path disagrees with the RGB-stem path")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 # kernel-name fragments -> the part of the predict path they belong to
@@ -800,6 +944,7 @@ def main() -> int:
     check_int8_conv(results)
     ctx = main_path(results, args.profile)
     quantized_path(results, ctx, args.profile)
+    f32_path(results, ctx)
 
     kernels = []
     for r in results.values():

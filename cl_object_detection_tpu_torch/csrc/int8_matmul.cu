@@ -395,25 +395,6 @@ __global__ void int8_matmul_finish(const int* __restrict__ partial,
 
 // ---------------------------------------------------------------- host side
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a (rows, cols) row-major matrix of 1- or 2-byte elements, in boxes of
 // box_rows x 128 bytes in the 128-byte swizzle; loads read zeros outside
 // it, stores skip what lies outside it
@@ -457,16 +438,8 @@ int launch_bn(const void* a, const void* w, Params p, cudaStream_t s) {
     map_out = map_b;                        // unused
   else if (!make_map(&map_out, p.out, p.M, p.N, 64, true))
     return int(cudaErrorInvalidValue);
-  int dev = 0;
-  cudaGetDevice(&dev);
-  static bool configured[64] = {};          // per device, set before any graph capture
-  if (dev >= 64) return int(cudaErrorInvalidDevice);
-  if (!configured[dev]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        int8_matmul_kernel<BN, CONV>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return int(e);
-    configured[dev] = true;
-  }
+  const cudaError_t e = allow_dynamic_smem<&int8_matmul_kernel<BN, CONV>>(C::SMEM);
+  if (e != cudaSuccess) return int(e);
   const long units = long(p.tiles_m) * p.tiles_n * p.splits;
   const int sms = sm_count();
   const int grid = int(units < sms ? units : sms);

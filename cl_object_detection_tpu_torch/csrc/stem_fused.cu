@@ -7,201 +7,450 @@
 //
 //   y4[b,I,J,n] = sum_{T,U,c} x4[b,I+T-1,J+U-1,c] * w[(T*3+U)*64+c, n]
 //                 (3x3 stride-1 conv, zero padding, K = 576, N = 256)
-//   y4 = relu(bf16(y4) + bf16(bias[n]))         (bias after the cast)
+//   y4 = relu(bf16(bf16(y4) + bf16(bias[n])))   (bias after the cast)
 //   out[b,I,J,o] = max over conv rows {2I-1,2I,2I+1} x cols {2J-1,2J,2J+1}
 //                  of the phase-packed y4[..., (a*2+b)*64+o],
 //                  with conv row/col -1 at -inf
 //
-// What bounds it on an H100: the packed GEMM, 2*M*576*256 operations for
-// M = B*H4*W4 pixels, against ~0.4 KB of traffic per pixel: it sits
-// above the card's bf16 ridge point, so the tensor cores are the limit.
+// What bounds it on an H100 (989 bf16 TFLOP/s, 3.35 TB/s): the packed
+// GEMM does 2*576*256 operations per pixel against ~0.26 KB of device
+// memory traffic per pixel, far above the card's ridge point, so the
+// tensor cores bound it. But each unit (below) re-reads the whole 295 KB
+// weight and each input pixel once per tap, from L2: about 2.9 GB of
+// weight and 1.45 GB of patches at B=32, 608x832, which may set the pace
+// before the tensor cores do.
 //
-// Design: the (576, 256) packed weight is 295 KB, more than a block's
-// shared memory, and re-reading it per spatial tile would make the L2 the
-// limit. So each persistent block owns one quarter of the output
-// channels (16 pooled channels = 64 GEMM columns, 4 phases x 16): its
-// 72 KB weight slice stays resident in shared memory for the whole run,
-// and the block walks over spatial tiles. A tile is 15x15 pooled pixels;
-// the block computes 16x16 conv pixels (one halo row above and one halo
-// column to the left for the pool) from an 18x18x64 input tile (the conv
-// halo, zero outside the image), with 16 warps each running one row of
-// 16 pixels through bf16 WMMA (f32 accumulation). The f32 tile goes to
-// shared memory; the epilogue casts, adds the bias, applies ReLU and
-// pools, and writes only the 16 pooled channels of its quarter. Ragged
-// edges are masked; there is no constraint on H4 or W4.
+// Design: an implicit GEMM on the pipeline of int8_matmul.cu's conv
+// mode, with bf16 operands and the pool in the epilogue.
+// * A unit is an 8 x 16 window of conv pixels, the 128 GEMM rows of one
+//   tile: conv rows I0-1 .. I0+6 and cols J0-1 .. J0+14, which hold the
+//   pool's halo above and to the left, for 7 x 15 pooled outputs (ragged
+//   edges masked). One tile is all N = 256 columns (4 phases x 64
+//   channels), so a block computes every output channel of its pixels.
+//   K is 9 slices of 128 bytes, one per tap: the 64 bf16 channels of the
+//   input pixel shifted by (T-1, U-1).
+// * Warpgroup 0 produces: its 128 threads gather each tap's A slice with
+//   16-byte cp.async into a 128-byte-swizzled stage (zero fill is the
+//   conv's padding), each thread's copies arriving on the stage's barrier
+//   as they land; one thread loads the tap's B slice, rows 0..255 x bytes
+//   [t*128, t*128+128) of the (256, 576) K-major weight, by TMA in the
+//   same swizzle. A ring of 3 stages of 48 KB.
+// * Warpgroups 1 and 2 consume: wgmma m64n256k16 bf16 x bf16 -> f32 on
+//   their 64 rows, 4 k-steps per slice, 128 accumulators a thread.
+// * Epilogue: each consumer thread rounds its fragment to bf16, adds the
+//   bf16 bias, applies ReLU (conv row or col -1 becomes -inf), and writes
+//   it to a 128 x 256 bf16 tile in shared memory (rows padded by 16
+//   bytes, so the fragment's 4-byte writes hit 32 banks). After a named
+//   barrier the 256 consumer threads take the max over 9 phase-block
+//   values per pooled output, 8 channels at a time, and store 16 bytes.
+// * Blocks are persistent (one per SM) and walk the units, so the
+//   producer loads the next unit's slices while the consumers pool.
+// A float32 stem runs the second kernel below, stem_fused_f32_kernel: the
+// same windows and pool on the FMA units, in float32 throughout.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TR = 15;          // pooled rows per tile
-constexpr int TC = 15;          // pooled cols per tile
-constexpr int HR = TR + 1;      // conv rows computed (pool halo above)
-constexpr int HC = TC + 1;      // conv cols computed (pool halo left) = 16
-constexpr int XR = TR + 3;      // input rows (conv halo)
-constexpr int XC = TC + 3;      // input cols
-constexpr int CIN = 64;
-constexpr int XS = 80;          // x tile pixel stride, elements (160 B)
-constexpr int KDIM = 576;
-constexpr int NQ = 64;          // GEMM columns per block: 4 phases x 16
-constexpr int WS = 72;          // weight slice row stride, elements
-constexpr int AS = 68;          // f32 accumulator row stride, elements
-constexpr int WARPS = HR;       // one warp per conv row of the tile
-constexpr int THREADS = WARPS * 32;
-constexpr int QUARTERS = 4;
+using namespace hopper;
 
-constexpr size_t X_BYTES = size_t(XR) * XC * XS * 2;
-constexpr size_t W_BYTES = size_t(KDIM) * WS * 2;
-constexpr size_t A_BYTES = size_t(HR) * HC * AS * 4;
-constexpr size_t SMEM_BYTES = X_BYTES + W_BYTES + A_BYTES;
+constexpr int CIN = 64;                   // packed input channels: 128 bytes, one slice
+constexpr int TAPS = 9;
+constexpr int N = 256;                    // GEMM columns: 4 phases x 64 channels
+constexpr int WIN_R = 8, WIN_C = 16;      // conv pixels of a unit
+constexpr int OUT_R = WIN_R - 1, OUT_C = WIN_C - 1;   // pooled outputs of a unit
+constexpr int BM = WIN_R * WIN_C;         // 128 GEMM rows: two consumer warpgroups of 64
+constexpr int BK = 128;                   // bytes of K per stage
+constexpr int THREADS = 384;              // producer warpgroup + two consumer warpgroups
+constexpr int STAGES = 3;
+constexpr int A_STAGE = BM * BK;          // 16 KB
+constexpr int B_STAGE = N * BK;           // 32 KB
+constexpr int TILE_ROW = N * 2 + 16;      // bytes per row of the epilogue tile
+constexpr int TILE = BM * TILE_ROW;
+constexpr int SMEM = STAGES * (A_STAGE + B_STAGE) + TILE + 1024 + 2 * STAGES * 8;
 
-static_assert(HC == 16, "one WMMA row fragment per conv row");
-static_assert((XS * 2) % 32 == 0 && (WS * 16 * 2) % 32 == 0, "alignment");
+static_assert(CIN * 2 == BK, "one tap is one 128-byte slice");
+static_assert(SMEM + N * 4 <= 232448, "shared memory");
 
-__device__ __forceinline__ float stem_value(const float* acc, int hr, int hc,
-                                            int p, int j, float bias_b,
-                                            int I0, int J0) {
-  // conv pixel (I0-1+hr, J0-1+hc) of phase p, channel j of the quarter
-  if (I0 - 1 + hr < 0 || J0 - 1 + hc < 0) return -__int_as_float(0x7f800000);  // -inf
-  float y = __bfloat162float(__float2bfloat16_rn(acc[(hr * HC + hc) * AS + p * 16 + j]));
-  float v = __bfloat162float(__float2bfloat16_rn(y + bias_b));
-  return fmaxf(v, 0.0f);
+struct Params {
+  const __nv_bfloat16* x;   // (B,H4,W4,64)
+  const float* bias;        // (256,)
+  __nv_bfloat16* out;       // (B,H4,W4,64)
+  int B, H4, W4, tiles_h, tiles_w;
+};
+
+// conv value -> bf16, + bf16 bias, -> bf16, ReLU (as stem_fused_reference)
+__device__ __forceinline__ float stem_value(float acc, float bias_b) {
+  const float y = __bfloat162float(__float2bfloat16_rn(acc));
+  return fmaxf(__bfloat162float(__float2bfloat16_rn(y + bias_b)), 0.0f);
+}
+
+__device__ __forceinline__ uint4 max8(uint4 a, uint4 b) {
+  uint4 m;
+  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+  __nv_bfloat162* pm = reinterpret_cast<__nv_bfloat162*>(&m);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pm[i] = __hmax2(pa[i], pb[i]);
+  return m;
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
-stem_fused_kernel(const __nv_bfloat16* __restrict__ x,    // (B,H4,W4,64)
-                  const __nv_bfloat16* __restrict__ w,    // (576,256)
-                  const float* __restrict__ bias,         // (256,)
-                  __nv_bfloat16* __restrict__ out,        // (B,H4,W4,64)
-                  int B, int H4, int W4) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem + X_BYTES);
-  float* acc_s = reinterpret_cast<float*>(smem + X_BYTES + W_BYTES);
+stem_fused_kernel(__grid_constant__ const CUtensorMap map_w,   // (256, 576) bf16
+                  __grid_constant__ const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float bias_s[N];               // bf16-rounded bias
+  // stages at multiples of 1024 bytes (the swizzle's period), then the
+  // epilogue tile, then the barriers
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t a_tiles = base;
+  const uint32_t b_tiles = base + STAGES * A_STAGE;
+  const uint32_t tile = b_tiles + STAGES * B_STAGE;
+  const uint32_t full = tile + TILE;        // STAGES x 8 bytes
+  const uint32_t empty = full + STAGES * 8;
+  uint8_t* tile_ptr = smem_raw + (tile - raw);
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int q = blockIdx.x % QUARTERS;
-  const int slot = blockIdx.x / QUARTERS;
-  const int nslots = gridDim.x / QUARTERS;
-
-  // resident weight slice: column p*16+j <- w[:, p*64 + q*16 + j]
-  for (int idx = tid; idx < KDIM * 8; idx += THREADS) {
-    int k = idx >> 3, part = idx & 7;        // 8 x 16 B per row
-    int p = part >> 1, half = part & 1;
-    const uint4* src = reinterpret_cast<const uint4*>(
-        w + size_t(k) * 256 + p * 64 + q * 16 + half * 8);
-    *reinterpret_cast<uint4*>(w_s + k * WS + p * 16 + half * 8) = *src;
-  }
-  __shared__ float bias_s[NQ];
-  if (tid < NQ) {
-    int p = tid >> 4, j = tid & 15;
-    bias_s[tid] = __bfloat162float(__float2bfloat16_rn(bias[p * 64 + q * 16 + j]));
-  }
-
-  const int tiles_h = (H4 + TR - 1) / TR;
-  const int tiles_w = (W4 + TC - 1) / TC;
-  const int ntiles = B * tiles_h * tiles_w;
-
-  for (int tile = slot; tile < ntiles; tile += nslots) {
-    const int b = tile / (tiles_h * tiles_w);
-    const int rem = tile % (tiles_h * tiles_w);
-    const int I0 = (rem / tiles_w) * TR;
-    const int J0 = (rem % tiles_w) * TC;
-
-    __syncthreads();  // previous tile's epilogue is done with x_s/acc_s
-    for (int idx = tid; idx < XR * XC * 8; idx += THREADS) {
-      int pix = idx >> 3, v = idx & 7;
-      int gi = I0 - 2 + pix / XC;
-      int gj = J0 - 2 + pix % XC;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gi >= 0 && gi < H4 && gj >= 0 && gj < W4)
-        val = reinterpret_cast<const uint4*>(
-            x + ((size_t(b) * H4 + gi) * W4 + gj) * CIN)[v];
-      *reinterpret_cast<uint4*>(x_s + pix * XS + v * 8) = val;
+  const int wg = threadIdx.x / 128;
+  const int per_image = p.tiles_h * p.tiles_w;
+  const int units = p.B * per_image;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // full: the B transaction's arrival plus one per producer thread
+      // for its gathered chunks; empty: one per consumer warp
+      mbar_init(full + 8 * s, 129);
+      mbar_init(empty + 8 * s, 8);
     }
-    __syncthreads();
+    fence_mbar_init();
+  }
+  for (int n = threadIdx.x; n < N; n += THREADS)
+    bias_s[n] = __bfloat162float(__float2bfloat16_rn(p.bias[n]));
+  __syncthreads();
 
-    {
-      const int r = warp;  // conv row r of the tile = global row I0-1+r
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    const int pt = threadIdx.x;           // 0..127
+    const int chunk = pt & 7;             // 16-byte chunk of the 128-byte row
+    const int col = pt >> 3;              // window column; GEMM rows col + 16*r, r < 8
+    // the swizzle puts chunk c of row m at c ^ (m % 8), and m % 8 == col % 8
+    const uint32_t dst0 = col * BK + ((chunk ^ (col & 7)) << 4);
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int b = u / per_image, rem = u - b * per_image;
+      const int ti = rem / p.tiles_w;
+      const int I0 = ti * OUT_R, J0 = (rem - ti * p.tiles_w) * OUT_C;
+      // tap (T,U) of window pixel (r, col) reads input (I0-2+r+T, J0-2+col+U)
+      const __nv_bfloat16* xb = p.x + size_t(b) * p.H4 * p.W4 * CIN + chunk * 8;
+      for (int t = 0; t < TAPS; ++t, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        if (pt == 0) {
+          mbar_arrive_expect_tx(full + 8 * s, B_STAGE);
+          tma_load_2d(b_tiles + s * B_STAGE, &map_w, full + 8 * s, t * CIN, 0);
+        }
+        const int T = t / 3, U = t - 3 * T;
+        const int gj = J0 - 2 + col + U;
+        const bool col_ok = unsigned(gj) < unsigned(p.W4);
+        const uint32_t dst = a_tiles + s * A_STAGE + dst0;
 #pragma unroll
-      for (int p = 0; p < 4; ++p) wmma::fill_fragment(acc[p], 0.0f);
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-#pragma unroll 1
-      for (int t = 0; t < 9; ++t) {
-        const int T = t / 3, U = t % 3;
-        const __nv_bfloat16* arow = x_s + ((r + T) * XC + U) * XS;
+        for (int r = 0; r < WIN_R; ++r) {
+          const int gi = I0 - 2 + r + T;
+          const bool ok = col_ok && unsigned(gi) < unsigned(p.H4);
+          const __nv_bfloat16* src = ok ? xb + (size_t(gi) * p.W4 + gj) * CIN : p.x;
+          cp_async16(dst + r * WIN_C * BK, src, ok);
+        }
+        cp_async_arrive(full + 8 * s);    // arrives when this thread's copies land
+      }
+    }
+    cp_async_wait_all();
+  } else {
+    // ------------------------------------------------------------ consumers
+    const int cw = wg - 1;                // GEMM rows cw*64 .. cw*64+63
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4, q = lane % 4;
+    const int r = cw * 4 + warp;          // this warp's window row; its cols g, g + 8
+    float acc[N / 2];
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int b = u / per_image, rem = u - b * per_image;
+      const int ti = rem / p.tiles_w;
+      const int I0 = ti * OUT_R, J0 = (rem - ti * p.tiles_w) * OUT_C;
 #pragma unroll
-        for (int c4 = 0; c4 < 4; ++c4) {
-          wmma::load_matrix_sync(a, arow + c4 * 16, XS);
-          const __nv_bfloat16* brow = w_s + (t * CIN + c4 * 16) * WS;
+      for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+      for (int t = 0; t < TAPS; ++t, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(full + 8 * s, (it / STAGES) & 1);
+        fence_proxy_async();              // the gathered A was written by cp.async
+        const uint64_t da = sw128_desc(a_tiles + s * A_STAGE + cw * 64 * BK);
+        const uint64_t db = sw128_desc(b_tiles + s * B_STAGE);
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            wmma::load_matrix_sync(bf, brow + p * 16, WS);
-            wmma::mma_sync(acc[p], a, bf, acc[p]);
-          }
+        for (int k16 = 0; k16 < BK / 32; ++k16)   // +32 bytes = +2 in the address field
+          wgmma_bf16<N>(acc, da + 2 * k16, db + 2 * k16, 1);
+        wgmma_commit();
+        fence_regs(acc);
+        wgmma_wait<1>();                  // the previous slice's products are done
+        fence_regs(acc);
+        if (t > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+
+      // ---- epilogue: bf16 tile in shared memory, then the pool
+      named_barrier(1, 256);              // the last unit's pool has read the tile
+      const bool row_pad = I0 - 1 + r < 0;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int n = 8 * j + 2 * q;
+        const float b0 = bias_s[n], b1 = bias_s[n + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = g + 8 * h;
+          float v0 = stem_value(acc[4 * j + 2 * h], b0);
+          float v1 = stem_value(acc[4 * j + 2 * h + 1], b1);
+          if (row_pad || J0 - 1 + c < 0) v0 = v1 = __int_as_float(0xff800000);   // -inf
+          *reinterpret_cast<__nv_bfloat162*>(tile_ptr + (r * WIN_C + c) * TILE_ROW + 2 * n) =
+              __floats2bfloat162_rn(v0, v1);
         }
       }
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        wmma::store_matrix_sync(acc_s + r * HC * AS + p * 16, acc[p], AS,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < TR * TC * 16; idx += THREADS) {
-      const int j = idx & 15;
-      const int pix = idx >> 4;
-      const int i = pix / TC, jj = pix % TC;
-      const int gI = I0 + i, gJ = J0 + jj;
-      if (gI >= H4 || gJ >= W4) continue;
-      const int up = i, cur = i + 1, left = jj, ccur = jj + 1;
-      float m = stem_value(acc_s, up, left, 3, j, bias_s[48 + j], I0, J0);
-      m = fmaxf(m, stem_value(acc_s, up, ccur, 2, j, bias_s[32 + j], I0, J0));
-      m = fmaxf(m, stem_value(acc_s, up, ccur, 3, j, bias_s[48 + j], I0, J0));
-      m = fmaxf(m, stem_value(acc_s, cur, left, 1, j, bias_s[16 + j], I0, J0));
-      m = fmaxf(m, stem_value(acc_s, cur, ccur, 0, j, bias_s[j], I0, J0));
-      m = fmaxf(m, stem_value(acc_s, cur, ccur, 1, j, bias_s[16 + j], I0, J0));
-      m = fmaxf(m, stem_value(acc_s, cur, left, 3, j, bias_s[48 + j], I0, J0));
-      m = fmaxf(m, stem_value(acc_s, cur, ccur, 2, j, bias_s[32 + j], I0, J0));
-      m = fmaxf(m, stem_value(acc_s, cur, ccur, 3, j, bias_s[48 + j], I0, J0));
-      out[((size_t(b) * H4 + gI) * W4 + gJ) * CIN + q * 16 + j] =
-          __float2bfloat16_rn(m);
+      named_barrier(1, 256);
+      // pooled output (pi, pj) of the unit: window rows pi (up), pi+1
+      // (cur), cols pj (left), pj+1; 8 channels of phase block ph at byte
+      // ph*128 + ch8*16 of a window pixel's row
+      for (int idx = threadIdx.x - 128; idx < OUT_R * OUT_C * 8; idx += 256) {
+        const int ch8 = idx & 7, pix = idx >> 3;
+        const int pi = pix / OUT_C, pj = pix - pi * OUT_C;
+        const int I = I0 + pi, J = J0 + pj;
+        if (I >= p.H4 || J >= p.W4) continue;
+        const uint8_t* w0 = tile_ptr + (pi * WIN_C + pj) * TILE_ROW + ch8 * 16;
+        auto at = [&](int dr, int dc, int ph) {
+          return *reinterpret_cast<const uint4*>(w0 + (dr * WIN_C + dc) * TILE_ROW + ph * 128);
+        };
+        uint4 m = at(0, 0, 3);            // conv row 2I-1: the up row's a = 1 blocks
+        m = max8(m, at(0, 1, 2));
+        m = max8(m, at(0, 1, 3));
+        m = max8(m, at(1, 0, 1));         // conv rows 2I, 2I+1: the cur row's blocks
+        m = max8(m, at(1, 0, 3));
+        m = max8(m, at(1, 1, 0));
+        m = max8(m, at(1, 1, 1));
+        m = max8(m, at(1, 1, 2));
+        m = max8(m, at(1, 1, 3));
+        *reinterpret_cast<uint4*>(p.out + ((size_t(b) * p.H4 + I) * p.W4 + J) * CIN + ch8 * 8) = m;
+      }
     }
   }
+}
+
+// ------------------------------------------------------ the float32 form
+//
+// The tensor cores have no float32 product (TF32 keeps 10 bits of the
+// mantissa), so a float32 stem runs on the FMA units, on the same 8 x 16
+// windows: a block is one window x 16 output channels o, whose 4 phase
+// blocks are 64 GEMM columns (grid: units x 4). Each of its 256 threads
+// holds 4 pixels of a window row x 8 columns (8 channels of one phase
+// block). K runs in 4 chunks of 16 input channels; a chunk's 10 x 18
+// input pixels (the window and the conv's halo, zero outside the image)
+// and its 9 x 16 x 64 weights are staged in shared memory. The epilogue
+// adds the bias, applies ReLU (-inf at conv row or col -1) into a
+// 128 x 64 tile on the same shared memory, and takes the max over the 9
+// phase-block values of each pooled output. Rounding is float32
+// throughout, as stem_fused_reference in float32.
+
+constexpr int F_OC = 16;                  // output channels of a block
+constexpr int F_COLS = 4 * F_OC;          // their 4 phase blocks
+constexpr int F_CC = 16;                  // input channels of a chunk
+constexpr int F_IN_R = WIN_R + 2, F_IN_C = WIN_C + 2;   // input pixels a window reads
+constexpr int F_PLANE = F_IN_R * F_IN_C;
+constexpr int F_THREADS = 256;
+constexpr int F_IN = F_CC * F_PLANE;      // floats of a chunk's input, [c][row][col]
+constexpr int F_W = TAPS * F_CC * F_COLS; // floats of a chunk's weight, [tap][c][column]
+constexpr int F_TILE_ROW = F_COLS + 1;    // the epilogue tile's row, padded against bank conflicts
+
+static_assert(BM * F_TILE_ROW <= F_IN + F_W, "the epilogue tile reuses the chunk buffers");
+static_assert((F_IN + F_W) * 4 <= 48 * 1024, "static shared memory");
+static_assert(BM * F_COLS == F_THREADS * 4 * 8, "4 pixels x 8 columns a thread");
+
+__global__ void __launch_bounds__(F_THREADS)
+stem_fused_f32_kernel(const float* __restrict__ x,      // (B,H4,W4,64)
+                      const float* __restrict__ w,      // (576, 256): k3.reshape(576, 256)
+                      const float* __restrict__ bias,   // (256,)
+                      float* __restrict__ out,          // (B,H4,W4,64)
+                      int H4, int W4, int tiles_h, int tiles_w) {
+  __shared__ __align__(16) float smem[F_IN + F_W];
+  float* in_s = smem;
+  float* w_s = smem + F_IN;               // column ph*16 + oo is channel o0 + oo of phase ph
+
+  const int per_image = tiles_h * tiles_w;
+  const int b = blockIdx.x / per_image, rem = blockIdx.x - b * per_image;
+  const int ti = rem / tiles_w;
+  const int I0 = ti * OUT_R, J0 = (rem - ti * tiles_w) * OUT_C;
+  const int o0 = blockIdx.y * F_OC;
+  const int t = threadIdx.x;
+  const int cg = t & 7;                   // columns cg*8 .. cg*8+7
+  const int r = t >> 5, c0 = ((t >> 3) & 3) * 4;   // window row r, cols c0 .. c0+3
+  const float* xb = x + size_t(b) * H4 * W4 * CIN;
+
+  float acc[4][8];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[p][j] = 0.0f;
+
+  for (int cc = 0; cc < CIN; cc += F_CC) {
+    __syncthreads();                      // the last chunk's reads are done
+    // input pixel (ir, ic) of the window's reach is (I0-2+ir, J0-2+ic)
+    for (int i = t; i < F_PLANE * (F_CC / 4); i += F_THREADS) {
+      const int q = i & 3, pix = i >> 2;
+      const int ir = pix / F_IN_C, gi = I0 - 2 + ir, gj = J0 - 2 + pix - ir * F_IN_C;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // the conv's zero padding
+      if (unsigned(gi) < unsigned(H4) && unsigned(gj) < unsigned(W4))
+        v = __ldg(reinterpret_cast<const float4*>(xb + (size_t(gi) * W4 + gj) * CIN + cc) + q);
+      float* d = in_s + 4 * q * F_PLANE + pix;
+      d[0] = v.x;
+      d[F_PLANE] = v.y;
+      d[2 * F_PLANE] = v.z;
+      d[3 * F_PLANE] = v.w;
+    }
+    for (int i = t; i < TAPS * F_CC * (F_COLS / 4); i += F_THREADS) {
+      const int q = i & 15, row = i >> 4;                  // row = tap * F_CC + c
+      const int tap = row / F_CC, c = row - tap * F_CC;
+      reinterpret_cast<float4*>(w_s)[i] = __ldg(reinterpret_cast<const float4*>(
+          w + size_t(tap * CIN + cc + c) * N + (q >> 2) * CIN + o0 + 4 * (q & 3)));
+    }
+    __syncthreads();
+    for (int c = 0; c < F_CC; ++c) {
+#pragma unroll
+      for (int T = 0; T < 3; ++T) {
+        const float* src = in_s + (c * F_IN_R + r + T) * F_IN_C + c0;
+        float a[6];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) a[i] = src[i];
+#pragma unroll
+        for (int U = 0; U < 3; ++U) {
+          const float4* wp = reinterpret_cast<const float4*>(
+              w_s + ((T * 3 + U) * F_CC + c) * F_COLS + cg * 8);
+          const float4 w0 = wp[0], w1 = wp[1];
+          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[p][j] = fmaf(a[p + U], wv[j], acc[p][j]);
+        }
+      }
+    }
+  }
+
+  __syncthreads();                        // the chunk buffers become the tile
+  float* tile = smem;                     // [window pixel][column]
+  const int nb = (cg >> 1) * CIN + o0 + (cg & 1) * 8;   // GEMM column of j = 0
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const bool pad = I0 - 1 + r < 0 || J0 - 1 + c0 + p < 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float v = fmaxf(acc[p][j] + __ldg(bias + nb + j), 0.0f);
+      tile[(r * WIN_C + c0 + p) * F_TILE_ROW + cg * 8 + j] = pad ? __int_as_float(0xff800000) : v;
+    }
+  }
+  __syncthreads();
+  // pooled output (pi, pj): window rows pi (up), pi+1 (cur), cols pj
+  // (left), pj+1, as in the bf16 form's pool
+  for (int i = t; i < OUT_R * OUT_C * F_OC; i += F_THREADS) {
+    const int oo = i % F_OC, pix = i / F_OC;
+    const int pi = pix / OUT_C, pj = pix - pi * OUT_C;
+    const int I = I0 + pi, J = J0 + pj;
+    if (I >= H4 || J >= W4) continue;
+    const float* t0 = tile + (pi * WIN_C + pj) * F_TILE_ROW + oo;
+    auto at = [&](int dr, int dc, int ph) { return t0[(dr * WIN_C + dc) * F_TILE_ROW + ph * F_OC]; };
+    float m = at(0, 0, 3);
+    m = fmaxf(m, at(0, 1, 2));
+    m = fmaxf(m, at(0, 1, 3));
+    m = fmaxf(m, at(1, 0, 1));
+    m = fmaxf(m, at(1, 0, 3));
+    m = fmaxf(m, at(1, 1, 0));
+    m = fmaxf(m, at(1, 1, 1));
+    m = fmaxf(m, at(1, 1, 2));
+    m = fmaxf(m, at(1, 1, 3));
+    out[((size_t(b) * H4 + I) * W4 + J) * CIN + o0 + oo] = m;
+  }
+}
+
+// ---------------------------------------------------------------- host side
+
+// the (256, 576) bf16 weight in boxes of 256 rows x 128 bytes (one tap),
+// in the 128-byte swizzle
+bool make_weight_map(CUtensorMap* map, const void* w) {
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(TAPS * CIN), cuuint64_t(N)};
+  const cuuint64_t strides[1] = {cuuint64_t(TAPS * CIN * 2)};
+  const cuuint32_t box[2] = {cuuint32_t(CIN), cuuint32_t(N)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x4 (B,H4,W4,64) bf16, w (576,256) bf16, bias (256,) f32, out like x4;
+// x4 (B,H4,W4,64) bf16, w (256,576) bf16 (the packed kernel K-major: row
+// n is output channel n over K = (T,U,c)), bias (256,) f32, out like x4;
 // all contiguous, 16-byte aligned. Launches on `stream`; returns
-// cudaGetLastError().
+// cudaGetLastError() (or cudaErrorInvalidValue for shapes it does not
+// take).
 int stem_fused_bf16(const void* x, const void* w, const void* bias, void* out,
                     int B, int H4, int W4, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      stem_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(SMEM_BYTES));
-  if (err != cudaSuccess) return int(err);
+  if (B < 0 || H4 < 0 || W4 < 0) return int(cudaErrorInvalidValue);
+  Params p{};
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.B = B;
+  p.H4 = H4;
+  p.W4 = W4;
+  p.tiles_h = (H4 + OUT_R - 1) / OUT_R;
+  p.tiles_w = (W4 + OUT_C - 1) / OUT_C;
+  const long units = long(B) * p.tiles_h * p.tiles_w;
+  if (units == 0) return int(cudaGetLastError());   // empty batch
+  if (units > 0x7fffffffL) return int(cudaErrorInvalidValue);
+  CUtensorMap map_w;
+  if (!make_weight_map(&map_w, w)) return int(cudaErrorInvalidValue);
+  const cudaError_t e = allow_dynamic_smem<&stem_fused_kernel>(SMEM);
+  if (e != cudaSuccess) return int(e);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long ntiles = long(B) * ((H4 + TR - 1) / TR) * ((W4 + TC - 1) / TC);
-  long slots = sms / QUARTERS;
-  if (slots < 1) slots = 1;
-  if (slots > ntiles) slots = ntiles;
-  if (slots < 1) return int(cudaGetLastError());   // empty batch
-  stem_fused_kernel<<<int(slots * QUARTERS), THREADS, SMEM_BYTES,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), B, H4, W4);
+  const int grid = int(units < sms ? units : (sms > 0 ? sms : 1));
+  stem_fused_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(map_w, p);
+  return int(cudaGetLastError());
+}
+
+// The float32 form: x4 (B,H4,W4,64) f32, w (576, 256) f32 (the packed
+// kernel, row (T*3+U)*64+c), bias (256,) f32, out like x4; all
+// contiguous, 16-byte aligned. Launches on `stream`; returns
+// cudaGetLastError() (or cudaErrorInvalidValue for shapes it does not
+// take).
+int stem_fused_f32(const void* x, const void* w, const void* bias, void* out,
+                   int B, int H4, int W4, void* stream) {
+  if (B < 0 || H4 < 0 || W4 < 0) return int(cudaErrorInvalidValue);
+  const int tiles_h = (H4 + OUT_R - 1) / OUT_R, tiles_w = (W4 + OUT_C - 1) / OUT_C;
+  const long units = long(B) * tiles_h * tiles_w;
+  if (units == 0) return int(cudaGetLastError());   // empty batch
+  if (units > 0x7fffffffL) return int(cudaErrorInvalidValue);
+  stem_fused_f32_kernel<<<dim3(unsigned(units), CIN / F_OC), F_THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(out), H4, W4, tiles_h, tiles_w);
   return int(cudaGetLastError());
 }
 

@@ -102,7 +102,7 @@ def detect_batch(
 
     ``nms_impl``: ``"scan"`` (sequential greedy), ``"iterative"``
     (fixed-point) or ``"pallas_fp"`` (``ops.nms_fp.nms_fp``: the CUDA
-    kernel for CUDA tensors at any k it can hold, its plain version for CPU
+    kernel for CUDA tensors at any k, its plain version for CPU
     tensors; legacy ``"pallas"`` aliases it). All give identical keep
     masks."""
     impl = nms_impl or "scan"

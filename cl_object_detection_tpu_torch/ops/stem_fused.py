@@ -7,8 +7,13 @@ kernel (``pack_stem_kernel``): output channel (a*2+b)*64+o holds conv
 pixel (2I+a, 2J+b, o), and the 3x3/2 pool becomes a shift-only max over
 phase blocks (``ops.pool.phase_pool``).
 
-``stem_fused`` takes the kernel for a CUDA tensor and the plain version
-(``stem_fused_reference``) for a CPU tensor; there is no other fallback.
+Which version runs: a CPU tensor runs ``stem_fused_reference``; a CUDA
+tensor launches the kernel of its dtype, or raises. bfloat16 takes the
+tensor-core kernel (``wgmma``, f32 sums rounded to bf16 as the reference
+rounds them); float32 takes the kernel's float32 form on the FMA units
+(``stem_fused_f32``), since the tensor cores have no float32 product
+(only TF32, which would not be float32). Any other dtype on the card
+raises ``TypeError``. There is no fallback on failure.
 """
 from __future__ import annotations
 
@@ -64,33 +69,54 @@ def stem_fused_reference(x4: torch.Tensor, k3: torch.Tensor,
     return phase_pool(y4)
 
 
-def stem_fused(x4: torch.Tensor, k3: torch.Tensor,
-               bias4: torch.Tensor) -> torch.Tensor:
-    """Fused stem on a (B, H/4, W/4, 64) NHWC batch -> pooled
-    (B, H/4, W/4, 64). A CUDA tensor goes through the kernel (bfloat16
-    only; other dtypes raise), a CPU tensor through
-    ``stem_fused_reference``."""
-    if x4.device.type == "cpu":
-        return stem_fused_reference(x4, k3, bias4)
+def stem_weight_kmajor(k3: torch.Tensor) -> torch.Tensor:
+    """(3,3,64,256) packed kernel -> the (256, 576) K-major weight the
+    kernel loads (in bf16): row n holds output channel n over
+    K = (T, U, c), so the 64 channels of tap t = T*3+U are the 128 bytes
+    at [t*64, t*64+64)."""
+    return k3.reshape(576, 256).t().contiguous()
+
+
+def _check_shapes(x4: torch.Tensor, k3: torch.Tensor, bias4: torch.Tensor) -> None:
     if x4.device.type != "cuda":
         raise ValueError(f"stem_fused: unsupported device {x4.device}")
-    if x4.dtype != torch.bfloat16:
-        raise TypeError(f"stem_fused kernel takes bfloat16, got {x4.dtype}")
     if x4.dim() != 4 or x4.shape[-1] != 64:
         raise ValueError(f"stem_fused expects (B,H4,W4,64), got {tuple(x4.shape)}")
     if tuple(k3.shape) != (3, 3, 64, 256) or bias4.numel() != 256:
         raise ValueError(f"bad stem weights {tuple(k3.shape)} / {tuple(bias4.shape)}")
+
+
+def _launch(entry: str, x4: torch.Tensor, w: torch.Tensor,
+            bias4: torch.Tensor) -> torch.Tensor:
     x4 = x4.contiguous()
-    w = k3.reshape(576, 256).to(device=x4.device, dtype=torch.bfloat16).contiguous()
     b = bias4.reshape(256).to(device=x4.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(x4)
     B, H4, W4, _ = x4.shape
     lib = _lib()
     stream = torch.cuda.current_stream(x4.device).cuda_stream
     with torch.cuda.device(x4.device):
-        status = lib.stem_fused_bf16(x4.data_ptr(), w.data_ptr(), b.data_ptr(),
+        status = getattr(lib, entry)(x4.data_ptr(), w.data_ptr(), b.data_ptr(),
                                      out.data_ptr(), B, H4, W4, stream)
     _build.check(lib, "stem_fused", status)
+    return out
+
+
+def stem_fused(x4: torch.Tensor, k3: torch.Tensor,
+               bias4: torch.Tensor) -> torch.Tensor:
+    """Fused stem on a (B, H/4, W/4, 64) NHWC batch -> pooled
+    (B, H/4, W/4, 64). A CPU tensor runs ``stem_fused_reference``; a
+    bfloat16 CUDA tensor launches the tensor-core kernel (counted in
+    ``stem_fused.launches``), a float32 one ``stem_fused_f32``; another
+    dtype on the card raises ``TypeError`` (module docstring)."""
+    if x4.device.type == "cpu":
+        return stem_fused_reference(x4, k3, bias4)
+    if x4.dtype == torch.float32:
+        return stem_fused_f32(x4, k3, bias4)
+    _check_shapes(x4, k3, bias4)
+    if x4.dtype != torch.bfloat16:
+        raise TypeError(f"stem_fused on the card takes bfloat16 or float32, got {x4.dtype}")
+    w = stem_weight_kmajor(k3.to(device=x4.device, dtype=torch.bfloat16))
+    out = _launch("stem_fused_bf16", x4, w, bias4)
     stem_fused.launches += 1
     return out
 
@@ -98,11 +124,31 @@ def stem_fused(x4: torch.Tensor, k3: torch.Tensor,
 stem_fused.launches = 0
 
 
+def stem_fused_f32(x4: torch.Tensor, k3: torch.Tensor,
+                   bias4: torch.Tensor) -> torch.Tensor:
+    """The float32 form: a float32 CUDA batch launches the kernel's FMA
+    form (counted in ``stem_fused_f32.launches``), a CPU one runs
+    ``stem_fused_reference``; another dtype raises ``TypeError``."""
+    if x4.dtype != torch.float32:
+        raise TypeError(f"stem_fused_f32 takes float32, got {x4.dtype}")
+    if x4.device.type == "cpu":
+        return stem_fused_reference(x4, k3, bias4)
+    _check_shapes(x4, k3, bias4)
+    w = k3.to(device=x4.device, dtype=torch.float32).reshape(576, 256).contiguous()
+    out = _launch("stem_fused_f32", x4, w, bias4)
+    stem_fused_f32.launches += 1
+    return out
+
+
+stem_fused_f32.launches = 0
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("stem_fused")
     if not getattr(lib, "_typed", False):
-        lib.stem_fused_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.stem_fused_bf16.restype = ctypes.c_int
+        for entry in (lib.stem_fused_bf16, lib.stem_fused_f32):
+            entry.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            entry.restype = ctypes.c_int
         lib.stem_fused_error_string.argtypes = [ctypes.c_int]
         lib.stem_fused_error_string.restype = ctypes.c_char_p
         lib._typed = True

@@ -2,7 +2,8 @@
 shapes the main path does not give them: ragged stem tiles, a batch of
 one, k that is not a multiple of 32, int8 GEMMs with ragged M, N and K
 (every tile width and K split the kernel chooses), int8 convs with
-ragged images, strides and paddings, and the wrappers' refusals.
+ragged images, strides and paddings, NMS beyond the shared-memory
+bitmask, the stem's float32 form, and the wrappers' refusals.
 
 Marked ``cuda``. Without a CUDA device every test skips: a kernel has no
 CPU mode, and the CPU tests hold the plain versions to the JAX package.
@@ -30,14 +31,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _stem_inputs(dev, b, h4, w4, seed):
+def _stem_inputs(dev, b, h4, w4, seed, dtype=torch.bfloat16):
     r = np.random.RandomState(seed)
     x4 = np.zeros((b, h4, w4, 64), np.float32)
     x4[..., :48] = r.randn(b, h4, w4, 48)
     k7 = (r.randn(7, 7, 3, 64) * 0.05).astype(np.float32)
     bias4 = np.tile((r.randn(64) * 0.1).astype(np.float32), 4)
-    x = torch.from_numpy(x4).to(dev, torch.bfloat16)
-    k3 = sf.pack_stem_kernel(torch.from_numpy(k7).to(dev)).to(torch.bfloat16)
+    x = torch.from_numpy(x4).to(dev, dtype)
+    k3 = sf.pack_stem_kernel(torch.from_numpy(k7).to(dev)).to(dtype)
     return x, k3, torch.from_numpy(bias4).to(dev)
 
 
@@ -46,8 +47,13 @@ def _bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 37, 53), (2, 15, 15),
-                                   (3, 16, 31), (2, 152, 208)])
+STEM_SHAPES = [(1, 1, 1), (1, 37, 53), (2, 15, 15), (3, 16, 31), (2, 152, 208),
+               # more units than SMs, and every ragged edge of the
+               # kernel's 7 x 15 unit
+               (5, 22, 29), (32, 152, 208)]
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
 def test_stem_kernel_matches_plain(dev, shape):
     """Within 2 bf16 ulps of the conv value before the bias: the kernel
     and cuDNN sum the 576 products in f32 in different orders, which can
@@ -71,14 +77,62 @@ def test_stem_kernel_takes_a_strided_view(dev):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+def test_stem_f32_kernel_matches_plain(dev, monkeypatch, shape):
+    """The float32 form against the plain version in float32 (TF32 off),
+    rtol = atol = 1e-4: the two sum the 576 products in different orders,
+    and cuDNN may transform the conv (Winograd, FFT) on the way."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, k3, b4 = _stem_inputs(dev, *shape, seed=sum(shape), dtype=torch.float32)
+    before = (sf.stem_fused.launches, sf.stem_fused_f32.launches)
+    got = sf.stem_fused(x, k3, b4)
+    want = sf.stem_fused_reference(x, k3, b4)
+    torch.cuda.synchronize()
+    assert (sf.stem_fused.launches, sf.stem_fused_f32.launches) == (before[0], before[1] + 1)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_stem_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    """float16 has no kernel: TypeError (float32 has its own form, counted
+    apart from the bf16 kernel). A wrong shape raises."""
     x, k3, b4 = _stem_inputs(dev, 1, 8, 8, seed=6)
-    before = sf.stem_fused.launches
+    before = (sf.stem_fused.launches, sf.stem_fused_f32.launches)
     with pytest.raises(TypeError):
-        sf.stem_fused(x.float(), k3, b4)
+        sf.stem_fused(x.half(), k3, b4)
+    with pytest.raises(TypeError):
+        sf.stem_fused_f32(x, k3, b4)
     with pytest.raises(ValueError):
         sf.stem_fused(x[..., :48], k3, b4)
-    assert sf.stem_fused.launches == before
+    with pytest.raises(ValueError):
+        sf.stem_fused(x[..., :48].float(), k3, b4)
+    assert (sf.stem_fused.launches, sf.stem_fused_f32.launches) == before
+    got = sf.stem_fused(x.float(), k3, b4)
+    assert got.dtype == torch.float32
+    assert (sf.stem_fused.launches, sf.stem_fused_f32.launches) == (before[0], before[1] + 1)
+
+
+def test_fp32_fused_stem_model_runs_on_the_card(dev, monkeypatch):
+    """ModelConfig(compute_dtype="float32") on 4x4 space-to-depth frames:
+    the fused stem launches the kernel's float32 form once, and the
+    forward equals the RGB-stem forward (TF32 off) at the CPU bar of
+    tests/test_torch_stem.py, rtol = atol = 2e-4."""
+    from cl_object_detection_tpu_torch.data.transforms import space_to_depth
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    _, model = _small_model("float32")
+    img = np.random.RandomState(13).randint(0, 256, (2, 64, 96, 3)).astype(np.uint8)
+    fused = torch.from_numpy(space_to_depth(img, factor=4)).to(dev)
+    before = (sf.stem_fused.launches, sf.stem_fused_f32.launches)
+    with torch.inference_mode():
+        f_cls, f_reg = model(fused, enable_act=False)
+        r_cls, r_reg = model(torch.from_numpy(img).to(dev), enable_act=False)
+    torch.cuda.synchronize()
+    assert (sf.stem_fused.launches, sf.stem_fused_f32.launches) == (before[0], before[1] + 1)
+    assert f_cls.dtype == torch.float32
+    for got, want in ((f_cls, r_cls), (f_reg, r_reg)):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
 def _nms_inputs(b, k, seed, near_threshold=False):
@@ -112,18 +166,27 @@ def test_nms_kernel_bit_identical_to_plain(dev, b, k, near_threshold):
     assert torch.equal(got.cpu(), want_cpu)
 
 
-def test_nms_kernel_refuses_k_beyond_shared_memory(dev):
-    k = nf.max_k() + 32
+@pytest.mark.parametrize("k", [1280, 1300, 2048, 4096])
+@pytest.mark.parametrize("near_threshold", [False, True])
+def test_nms_kernel_beyond_shared_memory_bit_identical_to_plain(dev, k, near_threshold):
+    """k above max_k() (1248): the bitmask in the global workspace, one
+    launch, keep masks bit-identical to nms_iterative."""
+    assert k > nf.max_k()
+    bb, ss = _nms_inputs(2, k, seed=k, near_threshold=near_threshold)
+    boxes, scores = torch.from_numpy(bb).to(dev), torch.from_numpy(ss).to(dev)
     before = nf.nms_fp.launches
-    with pytest.raises(ValueError, match="shared-memory"):
-        nf.nms_fp(torch.zeros(1, k, 4, device=dev), torch.zeros(1, k, device=dev))
-    assert nf.nms_fp.launches == before
+    got = nf.nms_fp(boxes, scores, 0.5)
+    torch.cuda.synchronize()
+    assert nf.nms_fp.launches == before + 1
+    want = tn.nms_iterative(boxes, scores, 0.5)
+    assert int(want.sum()) > 0
+    assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("topk", [512, 1000, 200])
+@pytest.mark.parametrize("topk", [512, 1000, 200, 2048])
 def test_detect_batch_pallas_fp_equals_iterative_on_the_card(dev, topk):
-    """pallas_fp launches the kernel at every k it can hold, not only at
-    multiples of 256."""
+    """pallas_fp launches the kernel at every k, not only at multiples of
+    256, and beyond the shared-memory bitmask (2048)."""
     from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
 
     h, w = 128, 192

@@ -66,6 +66,26 @@ def test_wrapper_on_cpu_runs_the_plain_version_without_counting():
     assert tsf.stem_fused.launches == before
 
 
+def test_f32_wrapper_on_cpu_matches_jax_reference_without_counting():
+    """The float32 form's wrapper on a CPU tensor: the plain version, held
+    to JAX's reference at rtol = atol = 1e-5, no launch counted."""
+    x4, k7, b4 = _stem_inputs(9, 36, 44)
+    k3 = jsp.pack_stem_kernel(jnp.asarray(k7))
+    want = np.asarray(jsp.stem_fused_reference(jnp.asarray(x4), k3, jnp.asarray(b4)))
+    before = tsf.stem_fused_f32.launches
+    got = tsf.stem_fused_f32(torch.from_numpy(x4), torch.from_numpy(np.array(k3)),
+                             torch.from_numpy(b4))
+    assert tsf.stem_fused_f32.launches == before
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_f32_wrapper_refuses_other_dtypes():
+    x4, k7, b4 = _stem_inputs(10, 32, 32)
+    k3 = tsf.pack_stem_kernel(torch.from_numpy(k7))
+    with pytest.raises(TypeError):
+        tsf.stem_fused_f32(torch.from_numpy(x4).to(torch.bfloat16), k3, torch.from_numpy(b4))
+
+
 def _randomize_bn(bb, seed):
     r = np.random.RandomState(seed)
     with torch.no_grad():
