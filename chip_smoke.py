@@ -15,11 +15,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ulps of |plain| + max|bias| per value (the kernel and cuDNN sum in
      f32 in different orders, which moves the bf16 rounding of the conv
      by at most one ulp before the bias add); float32, (8,152,208,64),
-     through the kernel's float32 form (FMA units) against the plain
-     version with TF32 off: |diff| <= 1e-4 * (1 + |plain|);
-   * batched NMS, B=32, k=1024 (the shared-memory bitmask) and k=2048
-     (the global workspace), on random boxes, an IoU-exactly-0.5 fixture
-     and identical boxes: keep masks bit-identical;
+     through the kernel's float32 form (FMA units, the 7x7 conv from the
+     compact weight) against the plain version with TF32 off:
+     |diff| <= 1e-4 * (1 + |plain|);
+   * batched NMS (mask kernel + banded scan), B=32, k=1024 and k=2048,
+     on random boxes, an IoU-exactly-0.5 fixture and identical boxes:
+     keep masks bit-identical;
    * int8 kernel, GEMM mode (int8 x int8 -> int32, per-column scale,
      optional bias, bf16 out): bit-identical to its plain version at the
      TPU tool's shape (M=62976, K=2304, N=256, scale 1e-4, no bias) and
@@ -28,12 +29,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      NHWC int8 inputs: layer1, layer2 stride 2, head trunk P3, P4 and P7,
      fpn.p6 stride 2): bit-identical to im2col + the plain GEMM.
    Times (the int8 ones from CUDA graphs of 20 calls, which leave out
-   the host's time per call): kernel, plain version, the bound (the
+   the host's time per call; the others per call with it, the NMS also
+   from a CUDA graph in the log): kernel, plain version, the bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of
    their type; a conv's input counted at its NHWC size; for the stem the
-   operations of the packed 3x3 GEMM, and beside it the bound of the
-   operations its 8x16 windows compute, halo included, and that of the
-   7x7 conv the stem stands for), and one library
+   operations of the 7x7/2 conv it computes, and beside it the bounds of
+   the packed 3x3 GEMM and of the operations its 8x16 windows compute,
+   halo included), and one library
    call where PyTorch has one (the stem: cuDNN's conv chain on the
    equivalent RGB batch; the int8 kernel: ``torch._int_mm``, the product
    alone, without the dequantize epilogue, on the explicit patches in
@@ -208,7 +210,8 @@ def check_stem(results: dict) -> None:
         nbytes = 2 * x4.numel() * 2 + 576 * 256 * 2 + 256 * 4
         t_ops, t_bytes = ops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         log(f"stem B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
-            f"conv+bias+relu+pool {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+            f"conv+bias+relu+pool {library_ms:.4f} ms, bound of the packed GEMM "
+            f"{max(t_ops, t_bytes):.4f} ms "
             f"({'operations' if t_ops >= t_bytes else 'bytes'}: {ops / 1e9:.1f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB)")
         # the kernel computes 8x16 conv windows for 7x15 pooled outputs
@@ -219,16 +222,17 @@ def check_stem(results: dict) -> None:
             f"units of {STEM_WINDOW} conv pixels) {ops * halo / BF16_FLOPS * 1e3:.4f} ms "
             f"(operations: {ops * halo / 1e9:.1f} GFLOP)")
         conv_ops = stem_conv_ops(b)
-        log(f"stem B={b}: bound of the 7x7/2 conv itself (the packed GEMM's 576 x 256 "
-            f"product is 74% zero blocks) {conv_ops / BF16_FLOPS * 1e3:.4f} ms "
+        conv_bound = conv_ops / BF16_FLOPS * 1e3
+        log(f"stem B={b}: bound of the 7x7/2 conv itself (the kernel's bound_ms; the packed "
+            f"GEMM's 576 x 256 product is 74% zero blocks) {conv_bound:.4f} ms "
             f"(operations: {conv_ops / 1e9:.1f} GFLOP)")
         results["stem_fused"] = dict(
             name="stem_fused", route="cuda",
             source="cl_object_detection_tpu_torch/csrc/stem_fused.cu",
             replaces="cl_object_detection_tpu/ops/stem_pallas.py:94",
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_ms=max(conv_bound, t_bytes),
+            bound_by="operations" if conv_bound >= t_bytes else "bytes",
             library_ms=library_ms, shape=[b, H // 4, W // 4, 64])
     check_stem_f32(results, x[:8], x4[:8].float(), k7, bias4)
 
@@ -240,8 +244,11 @@ def stem_conv_ops(b: int) -> float:
 
 
 def check_stem_f32(results: dict, x, x4, k7, bias4) -> None:
-    """The float32 form on the FMA units, TF32 off for the plain version
-    and cuDNN."""
+    """The float32 form on the FMA units (the 7x7 conv from the compact
+    weight), TF32 off for the plain version and cuDNN. Checked and timed
+    through ``stem_fused`` on the packed kernel, as the model calls it
+    (the device-side pack check, then the kernel); the kernel's own
+    wrapper ``stem_fused_f32`` on the 7x7 kernel is timed beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -255,9 +262,12 @@ def check_stem_f32(results: dict, x, x4, k7, bias4) -> None:
         before = (sf.stem_fused.launches, sf.stem_fused_f32.launches)
         got = sf.stem_fused(x4, k3, bias4)
         ref = sf.stem_fused_reference(x4, k3, bias4)
+        direct = sf.stem_fused_f32(x4, k7, bias4)
         torch.cuda.synchronize()
-        if (sf.stem_fused.launches, sf.stem_fused_f32.launches) != (before[0], before[1] + 1):
+        if (sf.stem_fused.launches, sf.stem_fused_f32.launches) != (before[0], before[1] + 2):
             raise AssertionError("stem f32 did not launch the float32 form")
+        if not torch.equal(direct, got):
+            raise AssertionError("stem f32 differs between the packed and the 7x7 entry")
         diff = (got - ref).abs()
         bad = int((diff > 1e-4 * (1 + ref.abs())).sum())
         err = float(diff.max())
@@ -266,6 +276,7 @@ def check_stem_f32(results: dict, x, x4, k7, bias4) -> None:
         if bad or not torch.isfinite(got).all():
             raise AssertionError("stem f32 kernel disagrees with the plain version")
         ms = cuda_ms(lambda: sf.stem_fused(x4, k3, bias4))
+        direct_ms = cuda_ms(lambda: sf.stem_fused_f32(x4, k7, bias4))
         plain_ms = cuda_ms(lambda: sf.stem_fused_reference(x4, k3, bias4))
         rgb = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         w7 = k7.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -274,18 +285,20 @@ def check_stem_f32(results: dict, x, x4, k7, bias4) -> None:
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     m = b * (H // 4) * (W // 4)
-    ops = 2.0 * m * 576 * 256
-    nbytes = 2 * x4.numel() * 4 + 576 * 256 * 4 + 256 * 4
-    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    packed_ops = 2.0 * m * 576 * 256
+    conv_ops = stem_conv_ops(b)
+    nbytes = 2 * x4.numel() * 4 + 147 * 64 * 4 + 256 * 4
+    t_ops, t_bytes = conv_ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     units = b * -(-(H // 4) // STEM_OUT[0]) * -(-(W // 4) // STEM_OUT[1])
     halo = units * STEM_WINDOW / m
-    conv_ops = stem_conv_ops(b)
-    log(f"stem f32 B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
-        f"conv+bias+relu+pool (f32, TF32 off) {library_ms:.4f} ms, bound "
-        f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
-        f"{ops / 1e9:.1f} GFLOP at the float32 rate, {nbytes / 1e6:.1f} MB); with the "
-        f"halo (x{halo:.4f}) {ops * halo / FP32_FLOPS * 1e3:.4f} ms; the 7x7 conv itself "
-        f"{conv_ops / FP32_FLOPS * 1e3:.4f} ms")
+    log(f"stem f32 B={b}: kernel through stem_fused with the device-side pack check "
+        f"{ms:.4f} ms, through stem_fused_f32 on the 7x7 kernel {direct_ms:.4f} ms "
+        f"({conv_ops / direct_ms / 1e9:.1f} TFLOP/s of the 7x7 conv), plain "
+        f"{plain_ms:.4f} ms, cuDNN conv+bias+relu+pool (f32, TF32 off) {library_ms:.4f} ms; "
+        f"bound {max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
+        f"the 7x7 conv's {conv_ops / 1e9:.1f} GFLOP at the float32 rate, {nbytes / 1e6:.1f} MB); "
+        f"with the windows' halo (x{halo:.4f}) {conv_ops * halo / FP32_FLOPS * 1e3:.4f} ms; "
+        f"the packed GEMM's {packed_ops / 1e9:.1f} GFLOP {packed_ops / FP32_FLOPS * 1e3:.4f} ms")
     results["stem_fused_f32"] = dict(
         name="stem_fused_f32", route="cuda",
         source="cl_object_detection_tpu_torch/csrc/stem_fused.cu",
@@ -323,8 +336,7 @@ def check_nms(results: dict) -> None:
     from cl_object_detection_tpu_torch.ops import nms_fp as nf
 
     dev = torch.device("cuda")
-    # k = 1024, the main path's (its bitmask in shared memory), then 2048
-    # (beyond nf.max_k(): the bitmask in the global workspace)
+    # k = 1024, the main path's, then 2048 (four times the pairs)
     for k in (1024, 2048):
         boxes, scores = _nms_inputs(dev, k)
         got = nf.nms_fp(boxes, scores, 0.5)
@@ -336,6 +348,7 @@ def check_nms(results: dict) -> None:
         if mismatches or int(got[1].sum()) != 1:
             raise AssertionError(f"nms kernel keep masks differ from the plain version at k={k}")
         ms = cuda_ms(lambda: nf.nms_fp(boxes, scores, 0.5))
+        in_graph_ms = graph_ms(lambda: nf.nms_fp(boxes, scores, 0.5))
         plain_ms = cuda_ms(lambda: nf.nms_fp_reference(boxes, scores, 0.5),
                            iters=5 if k <= 1024 else 2, warmup=1)
         n_valid = (scores > 0).sum(1).double()
@@ -343,9 +356,10 @@ def check_nms(results: dict) -> None:
         ops = NMS_OPS_PER_PAIR * pairs
         nbytes = boxes.numel() * 4 + scores.numel() * 4 + scores.numel()
         t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"nms B=32 k={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{max(t_ops, t_bytes):.5f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
-            f"{pairs:.0f} valid pairs)")
+        log(f"nms B=32 k={k}: kernel (mask + scan) {ms:.4f} ms a call with the wrapper's "
+            f"host time, {in_graph_ms:.4f} ms from a CUDA graph, plain {plain_ms:.4f} ms, "
+            f"bound {max(t_ops, t_bytes):.5f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
+            f"{pairs:.0f} valid pairs); workspace {nf.workspace_words(32, k) * 4 / 2**20:.2f} MiB")
         if k == 1024:
             results["nms_fp"] = dict(
                 name="nms_fp", route="cuda",
@@ -860,7 +874,7 @@ def f32_path(results: dict, ctx: dict) -> None:
 # kernel-name fragments -> the part of the predict path they belong to
 _KERNEL_GROUPS = (
     ("stem_fused", ("stem_fused",)),
-    ("nms_fp", ("nms_fp",)),
+    ("nms_fp", ("nms_mask_kernel", "nms_scan_kernel")),
     ("int8 kernel, conv mode", ("int8_matmul_kernel<64, true>", "int8_matmul_kernel<128, true>",
                                 "int8_matmul_kernel<256, true>")),
     ("int8 kernel, GEMM mode", ("int8_matmul",)),

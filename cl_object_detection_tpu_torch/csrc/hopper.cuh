@@ -83,9 +83,27 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
+// 4 bytes global -> shared (through L1, the only way for fewer than 16
+// bytes); 4 zero bytes when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
 // waits for every cp.async this thread issued
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// closes this thread's group of cp.async copies issued since the last one
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // one arrival on `bar` once every cp.async this thread issued before has

@@ -14,211 +14,246 @@
 // differently and flips keep bits for IoUs within an ulp of the threshold.
 //
 // What bounds it on an H100: the k(k-1)/2 IoU tests per image, ~14 fp32
-// operations each outside the tensor cores, then a scan whose length is
-// the number of kept boxes; the bytes (k boxes in, k bytes out) are
-// negligible. Design: one block per image. The strictly-lower suppression
-// matrix is built as a bitmask (row i, word w holds j = 32w..32w+31 > i),
-// then one warp runs the greedy scan word by word: only kept boxes cost
-// an iteration (OR of their row into the `removed` words). Two forms of
-// the bitmask:
-// * shared memory, while it fits (k <= 1248): the boxes and areas go
-//   there too, and rows are padded by one word so that the 32 lanes of a
-//   warp, which build 32 consecutive rows, write to 32 different banks.
-//   The scan keeps the `removed` words in registers, two per lane.
-// * otherwise a global-memory workspace of k x words words per image that
-//   the wrapper allocates. The boxes are read through L1 and the areas
-//   recomputed (the same IEEE operations, so the same bits); consecutive
-//   threads build consecutive words of one row, so the stores coalesce.
-//   The `removed` words live in shared memory; shared memory then holds
-//   three bit rows, 12 bytes per 32 boxes, which is the only cap on k.
+// operations each outside the tensor cores, then a greedy scan whose steps
+// depend on each other; the bytes (k boxes in, k bytes out) are
+// negligible. Design: two launches on the caller's stream.
+// * nms_mask_kernel builds the strictly-upper suppression bitmask of every
+//   image across the whole card, into a global workspace of k rows of
+//   `wp` words per image (row i, word w holds j = 32w..32w+31 > i; wp is
+//   ceil(k/32) rounded up to 4 words, so that rows start 16-byte
+//   aligned). A block is one image x 64 rows x 64 columns (2 words), and
+//   only blocks on or above the diagonal are launched. It stages its 64
+//   column boxes and their areas in shared memory; each of its 64 threads
+//   tests one row against them and writes two words. At B=32, k=1024 the
+//   workspace is 4.2 MB and stays in L2.
+// * nms_scan_kernel runs the greedy scan, one warp per image, in bands of
+//   32 rows. Band w's rows, words [w & ~3, wp), and its 32 scores are
+//   copied into shared memory with cp.async as tiles of up to 128 words,
+//   in a ring of 4 tiles kept 3 tiles ahead of the scan, so the L2
+//   latency is paid once at the start and not per kept box. For each band
+//   the warp resolves the 32 candidates (valid and not yet removed) with
+//   the band's diagonal words in registers (a shuffle per kept box), then
+//   ORs the kept rows of the band's tiles into the `removed` words in
+//   shared memory; the lanes meet at __syncwarp, never at a block
+//   barrier. Shared memory holds the tiles and 4 bytes per 32 boxes for
+//   the removed bits: k up to ~1.3 million, where one image's workspace
+//   (k^2/8 bytes) would be 216 GB.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 512;
-constexpr size_t SMEM_MAX = 232448;   // shared memory a block may use on sm_90
+using namespace hopper;
+
+constexpr int MASK_ROWS = 64;            // rows (and columns) of a mask block
+constexpr int TILE_WORDS = 128;          // columns of a scan tile
+constexpr int TILE_ROW = TILE_WORDS + 4; // a tile row in shared memory, 16-byte aligned
+constexpr int TILE = 32 * TILE_ROW + 32; // words of a tile: a band of 32 rows, its scores
+constexpr int STAGES = 4;                // tiles in the ring
+constexpr size_t SMEM_MAX = 232448;      // shared memory a block may use on sm_90
 
 __device__ __forceinline__ float box_area(float4 v) {
   return fmaxf(v.z - v.x, 0.0f) * fmaxf(v.w - v.y, 0.0f);
 }
 
-// the suppression bits of box i against boxes j = 32w..32w+31 (j > i);
-// the areas from `area`, or recomputed from the boxes when RECOMPUTE
-template <bool RECOMPUTE>
-__device__ __forceinline__ uint32_t suppress_word(float4 bi, float ai, int i, int w, int k,
-                                                  const float4* bx, const float* area,
-                                                  float thresh) {
-  uint32_t bits = 0;
-  if (w * 32 + 31 <= i) return bits;
-  for (int t = 0; t < 32; ++t) {
-    const int j = w * 32 + t;
-    if (j <= i || j >= k) continue;
-    const float4 bj = bx[j];
-    const float aj = RECOMPUTE ? box_area(bj) : area[j];
-    const float iw = fmaxf(fminf(bi.z, bj.z) - fmaxf(bi.x, bj.x), 0.0f);
-    const float ih = fmaxf(fminf(bi.w, bj.w) - fmaxf(bi.y, bj.y), 0.0f);
-    const float inter = iw * ih;
-    const float uni = fmaxf(ai + aj - inter, 1e-8f);
-    if (inter / uni > thresh) bits |= 1u << t;
-  }
-  return bits;
+// the IoU test of ops/nms.py `_iou_matrix`, in its IEEE operations
+__device__ __forceinline__ bool suppresses(float4 bi, float ai, float4 bj, float aj,
+                                           float thresh) {
+  const float iw = fmaxf(fminf(bi.z, bj.z) - fmaxf(bi.x, bj.x), 0.0f);
+  const float ih = fmaxf(fminf(bi.w, bj.w) - fmaxf(bi.y, bj.y), 0.0f);
+  const float inter = iw * ih;
+  const float uni = fmaxf(ai + aj - inter, 1e-8f);
+  return inter / uni > thresh;
 }
 
-// the three bit rows (valid, keep, removed) at the start of shared memory,
-// padded so that the boxes after them are 16-byte aligned
-__host__ __device__ inline size_t bits_bytes(int k) {
-  const size_t words = (size_t(k) + 31) / 32;
-  return (3 * words * 4 + 15) & ~size_t(15);
-}
-
-template <bool GLOBAL_MASK>
-__global__ void __launch_bounds__(THREADS)
-nms_fp_kernel(const float4* __restrict__ boxes,   // (B,k) xyxy
-              const float* __restrict__ scores,   // (B,k)
-              unsigned char* __restrict__ keep,   // (B,k) 0/1
-              uint32_t* __restrict__ work,        // (B,k,words) when GLOBAL_MASK
-              int k, float thresh) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int words = (k + 31) >> 5;
-  uint32_t* valid_bits = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* keep_bits = valid_bits + words;
-  uint32_t* removed = keep_bits + words;
-  // shared form: boxes, areas and the padded k x (words+1) bitmask after
-  // the bit rows
-  float4* bx = reinterpret_cast<float4*>(smem + bits_bytes(k));
-  float* area = reinterpret_cast<float*>(bx + k);
-  const int stride = GLOBAL_MASK ? words : words + 1;   // row length, in words
-
-  const int b = blockIdx.x;
+__global__ void __launch_bounds__(MASK_ROWS)
+nms_mask_kernel(const float4* __restrict__ boxes,   // (B,k) xyxy
+                uint32_t* __restrict__ work,        // (B,k,wp)
+                int B, int k, int wp, int nb, float thresh) {
+  __shared__ float4 col_box[MASK_ROWS];
+  __shared__ float col_area[MASK_ROWS];
+  // blockIdx.x -> (row block rb, column block cb >= rb): counted from the
+  // last row block, whose single block is q = 0, row block nb-1-R holds
+  // q in [R(R+1)/2, (R+1)(R+2)/2)
+  const long q = long(nb) * (nb + 1) / 2 - 1 - blockIdx.x;
+  int R = int((sqrt(8.0 * double(q) + 1.0) - 1.0) * 0.5);
+  while (long(R) * (R + 1) / 2 > q) --R;
+  while (long(R + 1) * (R + 2) / 2 <= q) ++R;
+  const int rb = nb - 1 - R;
+  const int cb = nb - 1 - int(q - long(R) * (R + 1) / 2);
   const int tid = threadIdx.x;
-  const float4* bb = boxes + size_t(b) * k;
+  const int i = rb * MASK_ROWS + tid;
+  const int words = (k + 31) >> 5;
+
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const float4* bb = boxes + size_t(b) * k;
+    __syncthreads();                      // the last image's reads are done
+    const int jt = cb * MASK_ROWS + tid;
+    if (jt < k) {
+      const float4 v = bb[jt];
+      col_box[tid] = v;
+      col_area[tid] = box_area(v);
+    }
+    __syncthreads();
+    if (i >= k) continue;
+    const float4 bi = bb[i];
+    const float ai = box_area(bi);
+    uint32_t* row = work + (size_t(b) * k + i) * wp;
+    // off the diagonal and inside k, every column j > i counts
+    const bool full = cb > rb && (cb + 1) * MASK_ROWS <= k;
+#pragma unroll
+    for (int h = 0; h < MASK_ROWS / 32; ++h) {
+      const int w = cb * (MASK_ROWS / 32) + h;
+      if (w >= words) break;
+      uint32_t bits = 0;
+#pragma unroll 8
+      for (int t = 0; t < 32; ++t) {
+        const int j = w * 32 + t;
+        if (!full && (j <= i || j >= k)) continue;
+        if (suppresses(bi, ai, col_box[h * 32 + t], col_area[h * 32 + t], thresh))
+          bits |= 1u << t;
+      }
+      row[w] = bits;
+    }
+  }
+}
+
+// the scan's tiles in order: band w, then its chunks c of TILE_WORDS
+// columns from w & ~3 up to wp
+struct Tile {
+  int w, c;
+};
+
+__device__ __forceinline__ Tile next_tile(Tile t, int wp) {
+  if ((t.w & ~3) + (t.c + 1) * TILE_WORDS < wp) return {t.w, t.c + 1};
+  return {t.w + 1, 0};
+}
+
+// a band's rows (zeros past k) at dst, then with its first tile the
+// band's 32 scores (zero, so not valid, past k)
+__device__ __forceinline__ void load_tile(uint32_t* dst, const uint32_t* wb, const float* ss,
+                                          Tile t, int k, int wp, int words) {
+  const int lane = threadIdx.x;
+  if (t.w < words) {
+    const int col0 = (t.w & ~3) + t.c * TILE_WORDS;
+    const int chunks = min(TILE_WORDS, wp - col0) / 4;   // 16-byte chunks of a row
+    for (int idx = lane; idx < 32 * chunks; idx += 32) {
+      const int r = idx / chunks, ch = idx - r * chunks;
+      const int i = t.w * 32 + r;
+      const bool ok = i < k;
+      cp_async16(smem_addr(dst + r * TILE_ROW + 4 * ch),
+                 ok ? wb + size_t(i) * wp + col0 + 4 * ch : wb, ok);
+    }
+    if (t.c == 0) {
+      const int i = t.w * 32 + lane;
+      cp_async4(smem_addr(dst + 32 * TILE_ROW + lane), i < k ? ss + i : ss, i < k);
+    }
+  }
+  cp_async_commit();                      // an empty group past the last tile
+}
+
+__global__ void __launch_bounds__(32)
+nms_scan_kernel(const uint32_t* __restrict__ work,   // (B,k,wp)
+                const float* __restrict__ scores,    // (B,k)
+                unsigned char* __restrict__ keep,    // (B,k) 0/1
+                int k, int wp) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* tiles = smem;                             // STAGES x TILE
+  uint32_t* removed = tiles + STAGES * TILE;          // wp words
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int words = (k + 31) >> 5;
+  const uint32_t* wb = work + size_t(b) * k * wp;
   const float* ss = scores + size_t(b) * k;
-  uint32_t* mask = GLOBAL_MASK ? work + size_t(b) * k * words
-                               : reinterpret_cast<uint32_t*>(area + k);
 
-  if (!GLOBAL_MASK) {
-    for (int i = tid; i < k; i += THREADS) {
-      const float4 v = bb[i];
-      bx[i] = v;
-      area[i] = box_area(v);
-    }
+  Tile ahead{0, 0};
+  for (int s = 0; s < STAGES - 1; ++s) {
+    load_tile(tiles + s * TILE, wb, ss, ahead, k, wp, words);
+    ahead = next_tile(ahead, wp);
   }
-  for (int w = tid; w < words; w += THREADS) {
-    uint32_t bits = 0;
-    for (int t = 0; t < 32; ++t) {
-      const int j = w * 32 + t;
-      if (j < k && ss[j] > 0.0f) bits |= 1u << t;
-    }
-    valid_bits[w] = bits;
-    removed[w] = 0;                              // read by the global form only
-  }
-  __syncthreads();
+  for (int w = lane; w < wp; w += 32) removed[w] = 0;
 
-  if (!GLOBAL_MASK) {
-    // consecutive threads take consecutive rows i of one word w, so box j
-    // is a shared-memory broadcast
-    for (int idx = tid; idx < words * k; idx += THREADS) {
-      const int w = idx / k, i = idx - w * k;
-      mask[i * stride + w] = suppress_word<false>(bx[i], area[i], i, w, k, bx, area, thresh);
-    }
-  } else {
-    // consecutive threads take consecutive words w of one row i
-    for (long idx = tid; idx < long(words) * k; idx += THREADS) {
-      const int i = int(idx / words), w = int(idx - long(i) * words);
-      const float4 bi = bb[i];
-      mask[size_t(i) * stride + w] = suppress_word<true>(bi, box_area(bi), i, w, k, bb, nullptr, thresh);
-    }
-  }
-  __syncthreads();
-
-  if (tid < 32) {
-    const int lane = tid;
-    if constexpr (!GLOBAL_MASK) {
-      // k <= 1248, at most 39 words: lane l holds the `removed` bits of
-      // words l and l + 32 in registers
-      uint32_t rem[2] = {0, 0};
-      for (int w = 0; w < words; ++w) {
-        const uint32_t rem_w = __shfl_sync(0xffffffffu, w < 32 ? rem[0] : rem[1], w & 31);
-        uint32_t cand = valid_bits[w] & ~rem_w;
-        uint32_t kept = 0;
-        while (cand) {
-          const int t = __ffs(cand) - 1;
-          const uint32_t* row = mask + (w * 32 + t) * stride;
-          kept |= 1u << t;
-          if (lane < words) rem[0] |= row[lane];
-          if (lane + 32 < words) rem[1] |= row[lane + 32];
-          cand &= ~row[w];
-          cand &= ~(1u << t);
-        }
-        if (lane == 0) keep_bits[w] = kept;
+  uint32_t kept = 0;                      // the current band's kept boxes
+  int n = 0;                              // tiles consumed
+  for (Tile cur{0, 0}; cur.w < words; cur = next_tile(cur, wp), ++n) {
+    // the buffer of tile n - 1, which every lane has left at the last
+    // __syncwarp
+    load_tile(tiles + ((n + STAGES - 1) % STAGES) * TILE, wb, ss, ahead, k, wp, words);
+    ahead = next_tile(ahead, wp);
+    cp_async_wait_group<STAGES - 1>();    // this lane's copies of tile n landed
+    __syncwarp();                         // every lane's did
+    const uint32_t* tile = tiles + (n % STAGES) * TILE;
+    const int col0 = (cur.w & ~3) + cur.c * TILE_WORDS;
+    if (cur.c == 0) {
+      const float score = __uint_as_float(tile[32 * TILE_ROW + lane]);
+      // row 32w + lane's diagonal word (its bits j > i inside word w)
+      const uint32_t diag = tile[lane * TILE_ROW + (cur.w - col0)];
+      uint32_t cand = __ballot_sync(0xffffffffu, score > 0.0f) & ~removed[cur.w];
+      kept = 0;
+      while (cand) {
+        const int t = __ffs(cand) - 1;
+        kept |= 1u << t;
+        cand &= ~__shfl_sync(0xffffffffu, diag, t);
+        cand &= ~(1u << t);
       }
-    } else {
-      // any k: lane l ORs words w + l, w + l + 32, ... of a kept row into
-      // `removed` in shared memory (row i has no bits before its own
-      // word); the __syncwarp() orders each word's writes before the next
-      // word's reads, whichever lanes made them
-      for (int w = 0; w < words; ++w) {
-        __syncwarp();
-        uint32_t cand = valid_bits[w] & ~removed[w];
-        uint32_t kept = 0;
-        while (cand) {
-          const int t = __ffs(cand) - 1;
-          const uint32_t* row = mask + size_t(w * 32 + t) * stride;
-          kept |= 1u << t;
-          for (int ww = w + lane; ww < words; ww += 32) removed[ww] |= row[ww];
-          cand &= ~row[w];
-          cand &= ~(1u << t);
-        }
-        if (lane == 0) keep_bits[w] = kept;
+      const int i = cur.w * 32 + lane;
+      if (i < k) keep[size_t(b) * k + i] = (kept >> lane) & 1u;
+    }
+    if (kept != 0) {
+      const int ncols = min(TILE_WORDS, wp - col0);
+      for (int col = lane; col < ncols; col += 32) {
+        if (col0 + col <= cur.w) continue;   // only the words after the band's own
+        uint32_t acc = 0;
+#pragma unroll
+        for (int t = 0; t < 32; ++t)
+          if ((kept >> t) & 1u) acc |= tile[t * TILE_ROW + col];
+        removed[col0 + col] |= acc;
       }
     }
+    __syncwarp();                         // removed is current; tile n's buffer is free
   }
-  __syncthreads();
-
-  for (int i = tid; i < k; i += THREADS)
-    keep[size_t(b) * k + i] = (keep_bits[i >> 5] >> (i & 31)) & 1u;
+  cp_async_wait_all();
 }
 
-// the shared-memory form's bytes (ops/nms_fp.py `smem_bytes` mirrors it)
-size_t smem_bytes(int k) {
-  const size_t words = (size_t(k) + 31) / 32;
-  return bits_bytes(k) + size_t(k) * 16 + size_t(k) * 4 + size_t(k) * (words + 1) * 4;
-}
-
-template <bool GLOBAL_MASK>
-int launch(const void* boxes, const void* scores, void* keep, void* work, int B, int k,
-           float thresh, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      nms_fp_kernel<GLOBAL_MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  if (B > 0 && k > 0)
-    nms_fp_kernel<GLOBAL_MASK><<<B, THREADS, smem, stream>>>(
-        static_cast<const float4*>(boxes), static_cast<const float*>(scores),
-        static_cast<unsigned char*>(keep), static_cast<uint32_t*>(work), k, thresh);
-  return int(cudaGetLastError());
+size_t scan_smem_bytes(int wp) {
+  return (size_t(STAGES) * TILE + size_t(wp)) * 4;
 }
 
 }  // namespace
 
 extern "C" {
 
-// boxes (B,k,4) f32, scores (B,k) f32, keep (B,k) 1-byte bool; contiguous,
-// boxes 16-byte aligned. `work`: null for the shared-memory form, else a
-// B*k*ceil(k/32) uint32 workspace (no need to clear it) for the global
-// form, which takes any k whose bit rows fit. Launches on `stream`;
-// returns cudaGetLastError() (cudaErrorInvalidValue for a form that does
-// not fit).
+// boxes (B,k,4) f32, scores (B,k) f32, keep (B,k) 1-byte bool, `work` a
+// (B, k, wp) uint32 workspace with wp = ceil(k/32) rounded up to a
+// multiple of 4 (ops/nms_fp.py `workspace_words`; no need to clear it);
+// contiguous, boxes and work 16-byte aligned. Launches the mask kernel
+// then the scan on `stream`; returns cudaGetLastError()
+// (cudaErrorInvalidValue for shapes it does not take).
 int nms_fp(const void* boxes, const void* scores, void* keep, void* work, int B, int k,
            float thresh, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 0 || B < 0) return int(cudaErrorInvalidValue);
-  if (work == nullptr) {
-    if (smem_bytes(k) > SMEM_MAX) return int(cudaErrorInvalidValue);
-    return launch<false>(boxes, scores, keep, work, B, k, thresh, smem_bytes(k), s);
-  }
-  if (bits_bytes(k) > SMEM_MAX) return int(cudaErrorInvalidValue);
-  return launch<true>(boxes, scores, keep, work, B, k, thresh, bits_bytes(k), s);
+  if (B == 0 || k == 0) return int(cudaGetLastError());
+  const int words = (k + 31) / 32;
+  const int wp = (words + 3) & ~3;
+  const size_t smem = scan_smem_bytes(wp);
+  if (smem > SMEM_MAX) return int(cudaErrorInvalidValue);
+  const int nb = (k + MASK_ROWS - 1) / MASK_ROWS;
+  const long blocks = long(nb) * (nb + 1) / 2;
+  if (blocks > 0x7fffffffL) return int(cudaErrorInvalidValue);
+  cudaError_t e = allow_dynamic_smem<&nms_scan_kernel>(int(SMEM_MAX));
+  if (e != cudaSuccess) return int(e);
+  nms_mask_kernel<<<dim3(unsigned(blocks), unsigned(B < 65535 ? B : 65535)), MASK_ROWS, 0, s>>>(
+      static_cast<const float4*>(boxes), static_cast<uint32_t*>(work), B, k, wp, nb, thresh);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  nms_scan_kernel<<<B, 32, smem, s>>>(
+      static_cast<const uint32_t*>(work), static_cast<const float*>(scores),
+      static_cast<unsigned char*>(keep), k, wp);
+  return int(cudaGetLastError());
 }
 
 const char* nms_fp_error_string(int code) {

@@ -46,7 +46,8 @@
 // * Blocks are persistent (one per SM) and walk the units, so the
 //   producer loads the next unit's slices while the consumers pool.
 // A float32 stem runs the second kernel below, stem_fused_f32_kernel: the
-// same windows and pool on the FMA units, in float32 throughout.
+// 7x7 conv itself on the FMA units (no packed zeros), on the same windows
+// and with the same pool, in float32 throughout.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -251,41 +252,61 @@ stem_fused_kernel(__grid_constant__ const CUtensorMap map_w,   // (256, 576) bf1
 // ------------------------------------------------------ the float32 form
 //
 // The tensor cores have no float32 product (TF32 keeps 10 bits of the
-// mantissa), so a float32 stem runs on the FMA units, on the same 8 x 16
-// windows: a block is one window x 16 output channels o, whose 4 phase
-// blocks are 64 GEMM columns (grid: units x 4). Each of its 256 threads
-// holds 4 pixels of a window row x 8 columns (8 channels of one phase
-// block). K runs in 4 chunks of 16 input channels; a chunk's 10 x 18
-// input pixels (the window and the conv's halo, zero outside the image)
-// and its 9 x 16 x 64 weights are staged in shared memory. The epilogue
-// adds the bias, applies ReLU (-inf at conv row or col -1) into a
-// 128 x 64 tile on the same shared memory, and takes the max over the 9
-// phase-block values of each pooled output. Rounding is float32
+// mantissa), so a float32 stem runs on the FMA units. There the packed
+// GEMM would waste most of its work: of its 576 K-rows per column, the 16
+// pad channels of each tap are zeros, and of a phase's 9 x 16 (T,alpha,
+// U,beta) tap rows only 49 fall inside the 7x7 support, so only 147 of
+// 576 products are not zero. This form computes the 7x7/2 conv itself,
+// 147 products per output, from a compact (147, 64) weight: the 7x7
+// kernel k7[kh,kw,c,o] (BN scale folded in) in the order the loop walks,
+// row (kh*3 + c)*7 + kw (ops/stem_fused.py `stem_weight_f32`).
+//
+// What bounds it on an H100: 147 x 64 FMAs (2*147*64 operations) per
+// conv pixel against the frame read once, far above the float32 ridge point; at
+// 67 TFLOP/s the conv takes 0.284 ms at B=8, 608x832, and the 8 x 16
+// windows (the pool's halo, ragged edges) add a quarter.
+//
+// Design: a block is one window of the bf16 form (8 x 16 grid pixels =
+// 16 x 32 conv pixels, for 7 x 15 pooled outputs) x 32 output channels
+// (grid: units x 2). It stages the window's input reach in shared memory
+// once, de-interleaved from the space-to-depth frame into an RGB tile of
+// 3 x 40 x 72 pixels (grid rows I0-2 .. I0+7, cols J0-2 .. J0+15, zeros
+// outside the frame; the 16 pad channels are never read), and the
+// block's 147 x 32 weights. Each of its 256 threads holds one conv row x
+// 8 consecutive conv columns x 8 channels (64 sums): per (kh, c) it reads
+// the 21 input pixels its 8 outputs x 7 kw taps touch with six 16-byte
+// loads, then per kw two 16-byte weight loads (the same for every thread
+// of a channel group: a broadcast) feed 64 FMAs. The epilogue adds the
+// phase's bias, applies ReLU (-inf at conv row or col -1) into a
+// 16 x 32 x 32 tile over the same shared memory, and takes the max over
+// the 3 x 3 conv pixels of each pooled output. Rounding is float32
 // throughout, as stem_fused_reference in float32.
 
-constexpr int F_OC = 16;                  // output channels of a block
-constexpr int F_COLS = 4 * F_OC;          // their 4 phase blocks
-constexpr int F_CC = 16;                  // input channels of a chunk
-constexpr int F_IN_R = WIN_R + 2, F_IN_C = WIN_C + 2;   // input pixels a window reads
-constexpr int F_PLANE = F_IN_R * F_IN_C;
+constexpr int F_OC = 32;                  // output channels of a block
 constexpr int F_THREADS = 256;
-constexpr int F_IN = F_CC * F_PLANE;      // floats of a chunk's input, [c][row][col]
-constexpr int F_W = TAPS * F_CC * F_COLS; // floats of a chunk's weight, [tap][c][column]
-constexpr int F_TILE_ROW = F_COLS + 1;    // the epilogue tile's row, padded against bank conflicts
+constexpr int F_CONV_R = 2 * WIN_R, F_CONV_C = 2 * WIN_C;   // conv pixels of a window
+constexpr int F_IN_R = 4 * (WIN_R + 2), F_IN_C = 4 * (WIN_C + 2);   // RGB pixels staged
+constexpr int F_IN = 3 * F_IN_R * F_IN_C; // floats of the input tile, [c][row][col]
+constexpr int F_STAGE = (WIN_R + 2) * (WIN_C + 2) * 12;   // 16-byte loads of the reach
+constexpr int F_STAGE_ITERS = (F_STAGE + F_THREADS - 1) / F_THREADS;
+constexpr int F_TAPS = 7 * 3 * 7;         // rows of the compact weight, (kh, c, kw)
+constexpr int F_W = F_TAPS * F_OC;        // floats of the block's weights, [tap][o]
+constexpr int F_TILE = F_CONV_R * F_CONV_C * F_OC;   // epilogue tile, [row][col][o]
+constexpr int F_SMEM = (F_IN + F_W > F_TILE ? F_IN + F_W : F_TILE) * 4;
 
-static_assert(BM * F_TILE_ROW <= F_IN + F_W, "the epilogue tile reuses the chunk buffers");
-static_assert((F_IN + F_W) * 4 <= 48 * 1024, "static shared memory");
-static_assert(BM * F_COLS == F_THREADS * 4 * 8, "4 pixels x 8 columns a thread");
+static_assert(F_CONV_R * (F_CONV_C / 8) * (F_OC / 8) == F_THREADS,
+              "a thread: one conv row x 8 columns x 8 channels");
+static_assert(F_SMEM <= 232448, "shared memory");
 
-__global__ void __launch_bounds__(F_THREADS)
+__global__ void __launch_bounds__(F_THREADS, 2)
 stem_fused_f32_kernel(const float* __restrict__ x,      // (B,H4,W4,64)
-                      const float* __restrict__ w,      // (576, 256): k3.reshape(576, 256)
-                      const float* __restrict__ bias,   // (256,)
+                      const float* __restrict__ w,      // (147, 64) compact 7x7 weight
+                      const float* __restrict__ bias,   // (256,) phase-packed
                       float* __restrict__ out,          // (B,H4,W4,64)
                       int H4, int W4, int tiles_h, int tiles_w) {
-  __shared__ __align__(16) float smem[F_IN + F_W];
-  float* in_s = smem;
-  float* w_s = smem + F_IN;               // column ph*16 + oo is channel o0 + oo of phase ph
+  extern __shared__ __align__(16) float fsmem[];
+  float* in_s = fsmem;
+  float* w_s = fsmem + F_IN;
 
   const int per_image = tiles_h * tiles_w;
   const int b = blockIdx.x / per_image, rem = blockIdx.x - b * per_image;
@@ -293,92 +314,112 @@ stem_fused_f32_kernel(const float* __restrict__ x,      // (B,H4,W4,64)
   const int I0 = ti * OUT_R, J0 = (rem - ti * tiles_w) * OUT_C;
   const int o0 = blockIdx.y * F_OC;
   const int t = threadIdx.x;
-  const int cg = t & 7;                   // columns cg*8 .. cg*8+7
-  const int r = t >> 5, c0 = ((t >> 3) & 3) * 4;   // window row r, cols c0 .. c0+3
+  const int cg = t & 3;                   // channels o0 + cg*8 .. +7
+  const int qg = (t >> 2) & 3;            // conv columns qg*8 .. qg*8+7 of the window
+  const int p = t >> 4;                   // conv row of the window
   const float* xb = x + size_t(b) * H4 * W4 * CIN;
 
-  float acc[4][8];
+  // grid pixel (gr, gc) of the reach is (I0-2+gr, J0-2+gc); its channel
+  // (al*4 + be)*3 + c is RGB pixel (4*gr + al, 4*gc + be), channel c
+  // all of a thread's loads are issued before its stores, so their L2
+  // latencies overlap
+  float4 staged[F_STAGE_ITERS];
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int it = 0; it < F_STAGE_ITERS; ++it) {
+    const int i = t + it * F_THREADS;
+    const int q4 = i % 12, pix = i / 12;
+    const int gr = pix / (WIN_C + 2), gi = I0 - 2 + gr, gj = J0 - 2 + pix - gr * (WIN_C + 2);
+    staged[it] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // the conv's zero padding
+    if (i < F_STAGE && unsigned(gi) < unsigned(H4) && unsigned(gj) < unsigned(W4))
+      staged[it] = __ldg(reinterpret_cast<const float4*>(xb + (size_t(gi) * W4 + gj) * CIN) + q4);
+  }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[p][j] = 0.0f;
+  for (int it = 0; it < F_STAGE_ITERS; ++it) {
+    const int i = t + it * F_THREADS;
+    if (i >= F_STAGE) break;
+    const int q4 = i % 12, pix = i / 12;
+    const int gr = pix / (WIN_C + 2), gc = pix - gr * (WIN_C + 2);
+    const float vs[4] = {staged[it].x, staged[it].y, staged[it].z, staged[it].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ch = 4 * q4 + e, al = ch / 12, be = (ch % 12) / 3, c = ch % 3;
+      in_s[(c * F_IN_R + 4 * gr + al) * F_IN_C + 4 * gc + be] = vs[e];
+    }
+  }
+  for (int i = t; i < F_TAPS * (F_OC / 4); i += F_THREADS) {
+    const int row = i / (F_OC / 4), q = i - row * (F_OC / 4);
+    reinterpret_cast<float4*>(w_s)[i] =
+        __ldg(reinterpret_cast<const float4*>(w + size_t(row) * CIN + o0) + q);
+  }
+  __syncthreads();
 
-  for (int cc = 0; cc < CIN; cc += F_CC) {
-    __syncthreads();                      // the last chunk's reads are done
-    // input pixel (ir, ic) of the window's reach is (I0-2+ir, J0-2+ic)
-    for (int i = t; i < F_PLANE * (F_CC / 4); i += F_THREADS) {
-      const int q = i & 3, pix = i >> 2;
-      const int ir = pix / F_IN_C, gi = I0 - 2 + ir, gj = J0 - 2 + pix - ir * F_IN_C;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // the conv's zero padding
-      if (unsigned(gi) < unsigned(H4) && unsigned(gj) < unsigned(W4))
-        v = __ldg(reinterpret_cast<const float4*>(xb + (size_t(gi) * W4 + gj) * CIN + cc) + q);
-      float* d = in_s + 4 * q * F_PLANE + pix;
-      d[0] = v.x;
-      d[F_PLANE] = v.y;
-      d[2 * F_PLANE] = v.z;
-      d[3 * F_PLANE] = v.w;
-    }
-    for (int i = t; i < TAPS * F_CC * (F_COLS / 4); i += F_THREADS) {
-      const int q = i & 15, row = i >> 4;                  // row = tap * F_CC + c
-      const int tap = row / F_CC, c = row - tap * F_CC;
-      reinterpret_cast<float4*>(w_s)[i] = __ldg(reinterpret_cast<const float4*>(
-          w + size_t(tap * CIN + cc + c) * N + (q >> 2) * CIN + o0 + 4 * (q & 3)));
-    }
-    __syncthreads();
-    for (int c = 0; c < F_CC; ++c) {
+  // conv pixel (p, q) of the window is conv (2*(I0-1) + p, 2*(J0-1) + q);
+  // its tap (kh, kw) reads RGB pixel (2p + kh + 1, 2q + kw + 1) of the tile
+  float acc[8][8];
 #pragma unroll
-      for (int T = 0; T < 3; ++T) {
-        const float* src = in_s + (c * F_IN_R + r + T) * F_IN_C + c0;
-        float a[6];
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int i = 0; i < 6; ++i) a[i] = src[i];
+    for (int c = 0; c < 8; ++c) acc[j][c] = 0.0f;
+  for (int kh = 0; kh < 7; ++kh) {
 #pragma unroll
-        for (int U = 0; U < 3; ++U) {
-          const float4* wp = reinterpret_cast<const float4*>(
-              w_s + ((T * 3 + U) * F_CC + c) * F_COLS + cg * 8);
-          const float4 w0 = wp[0], w1 = wp[1];
-          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    for (int c = 0; c < 3; ++c) {
+      const float4* src =
+          reinterpret_cast<const float4*>(in_s + (c * F_IN_R + 2 * p + kh + 1) * F_IN_C + 16 * qg);
+      float a[24];
 #pragma unroll
-          for (int p = 0; p < 4; ++p)
+      for (int v = 0; v < 6; ++v) {
+        const float4 s4 = src[v];
+        a[4 * v] = s4.x;
+        a[4 * v + 1] = s4.y;
+        a[4 * v + 2] = s4.z;
+        a[4 * v + 3] = s4.w;
+      }
+      const float* wr = w_s + (kh * 3 + c) * 7 * F_OC + cg * 8;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[p][j] = fmaf(a[p + U], wv[j], acc[p][j]);
-        }
+      for (int kw = 0; kw < 7; ++kw) {
+        const float4 w0 = *reinterpret_cast<const float4*>(wr + kw * F_OC);
+        const float4 w1 = *reinterpret_cast<const float4*>(wr + kw * F_OC + 4);
+        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int o = 0; o < 8; ++o) acc[j][o] = fmaf(a[2 * j + kw + 1], wv[o], acc[j][o]);
       }
     }
   }
 
-  __syncthreads();                        // the chunk buffers become the tile
-  float* tile = smem;                     // [window pixel][column]
-  const int nb = (cg >> 1) * CIN + o0 + (cg & 1) * 8;   // GEMM column of j = 0
+  __syncthreads();                        // the input and weights become the tile
+  float* tile = fsmem;
+  const int a_ph = p & 1;                 // the conv row's phase
+  const bool row_pad = 2 * (I0 - 1) + p < 0;
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const bool pad = I0 - 1 + r < 0 || J0 - 1 + c0 + p < 0;
+  for (int j = 0; j < 8; ++j) {
+    const int q = 8 * qg + j;
+    const bool pad = row_pad || 2 * (J0 - 1) + q < 0;
+    const float* bp = bias + (a_ph * 2 + (j & 1)) * CIN + o0 + cg * 8;
+    float v[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float v = fmaxf(acc[p][j] + __ldg(bias + nb + j), 0.0f);
-      tile[(r * WIN_C + c0 + p) * F_TILE_ROW + cg * 8 + j] = pad ? __int_as_float(0xff800000) : v;
-    }
+    for (int o = 0; o < 8; ++o)
+      v[o] = pad ? __int_as_float(0xff800000) : fmaxf(acc[j][o] + __ldg(bp + o), 0.0f);
+    float4* dst = reinterpret_cast<float4*>(tile + (p * F_CONV_C + q) * F_OC + cg * 8);
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
   __syncthreads();
-  // pooled output (pi, pj): window rows pi (up), pi+1 (cur), cols pj
-  // (left), pj+1, as in the bf16 form's pool
+  // pooled output (pi, pj) of the unit: conv rows 2pi+1 .. 2pi+3 and
+  // cols 2pj+1 .. 2pj+3 of the window, i.e. conv rows 2I-1 .. 2I+1
   for (int i = t; i < OUT_R * OUT_C * F_OC; i += F_THREADS) {
-    const int oo = i % F_OC, pix = i / F_OC;
+    const int o = i % F_OC, pix = i / F_OC;
     const int pi = pix / OUT_C, pj = pix - pi * OUT_C;
     const int I = I0 + pi, J = J0 + pj;
     if (I >= H4 || J >= W4) continue;
-    const float* t0 = tile + (pi * WIN_C + pj) * F_TILE_ROW + oo;
-    auto at = [&](int dr, int dc, int ph) { return t0[(dr * WIN_C + dc) * F_TILE_ROW + ph * F_OC]; };
-    float m = at(0, 0, 3);
-    m = fmaxf(m, at(0, 1, 2));
-    m = fmaxf(m, at(0, 1, 3));
-    m = fmaxf(m, at(1, 0, 1));
-    m = fmaxf(m, at(1, 0, 3));
-    m = fmaxf(m, at(1, 1, 0));
-    m = fmaxf(m, at(1, 1, 1));
-    m = fmaxf(m, at(1, 1, 2));
-    m = fmaxf(m, at(1, 1, 3));
-    out[((size_t(b) * H4 + I) * W4 + J) * CIN + o0 + oo] = m;
+    const float* t0 = tile + ((2 * pi + 1) * F_CONV_C + 2 * pj + 1) * F_OC + o;
+    float m = t0[0];
+#pragma unroll
+    for (int dr = 0; dr < 3; ++dr)
+#pragma unroll
+      for (int dc = 0; dc < 3; ++dc) m = fmaxf(m, t0[(dr * F_CONV_C + dc) * F_OC]);
+    out[((size_t(b) * H4 + I) * W4 + J) * CIN + o0 + o] = m;
   }
 }
 
@@ -435,8 +476,8 @@ int stem_fused_bf16(const void* x, const void* w, const void* bias, void* out,
   return int(cudaGetLastError());
 }
 
-// The float32 form: x4 (B,H4,W4,64) f32, w (576, 256) f32 (the packed
-// kernel, row (T*3+U)*64+c), bias (256,) f32, out like x4; all
+// The float32 form: x4 (B,H4,W4,64) f32, w (147, 64) f32 (the compact
+// 7x7 weight, row (kh*3 + c)*7 + kw), bias (256,) f32, out like x4; all
 // contiguous, 16-byte aligned. Launches on `stream`; returns
 // cudaGetLastError() (or cudaErrorInvalidValue for shapes it does not
 // take).
@@ -447,7 +488,9 @@ int stem_fused_f32(const void* x, const void* w, const void* bias, void* out,
   const long units = long(B) * tiles_h * tiles_w;
   if (units == 0) return int(cudaGetLastError());   // empty batch
   if (units > 0x7fffffffL) return int(cudaErrorInvalidValue);
-  stem_fused_f32_kernel<<<dim3(unsigned(units), CIN / F_OC), F_THREADS, 0,
+  const cudaError_t e = allow_dynamic_smem<&stem_fused_f32_kernel>(F_SMEM);
+  if (e != cudaSuccess) return int(e);
+  stem_fused_f32_kernel<<<dim3(unsigned(units), CIN / F_OC), F_THREADS, F_SMEM,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(out), H4, W4, tiles_h, tiles_w);

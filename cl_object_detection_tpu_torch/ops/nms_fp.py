@@ -1,4 +1,4 @@
-"""Batched greedy-NMS keep masks in one CUDA kernel (``csrc/nms_fp.cu``).
+"""Batched greedy-NMS keep masks in two CUDA kernels (``csrc/nms_fp.cu``).
 
 The port of the JAX package's ``ops/nms_pallas.py``
 (``nms_pallas_batched``): per image, over k score-sorted class-offset
@@ -7,10 +7,11 @@ boxes, the keep mask of greedy hard NMS, bit-identical to
 kernel for CUDA tensors and the plain version (``nms_fp_reference``) for
 CPU tensors; there is no other fallback.
 
-The kernel takes any k. Up to ``max_k()`` (1248) the suppression bitmask
-lives in the block's shared memory; beyond it the wrapper allocates a
-global-memory workspace of B x k x ceil(k/32) words for it (4 k^2 / 32
-bytes per image: 16 MB at B=32, k=2048), with the same keep masks.
+The kernel takes any k, in two launches on the caller's stream: one
+builds every image's suppression bitmask across the card, into a
+workspace the wrapper allocates (``workspace_words``: B x k rows of
+ceil(k/32) words rounded up to 4, about k^2/8 bytes per image: 4.2 MB
+at B=32, k=1024), the other scans it greedily, one warp per image.
 """
 from __future__ import annotations
 
@@ -22,25 +23,14 @@ import torch
 from .. import _build
 from .nms import nms_iterative
 
-# dynamic shared memory a block may use on sm_90
-MAX_SMEM_BYTES = 232448
 
-
-def smem_bytes(k: int) -> int:
-    """Shared memory of one block for k boxes with the bitmask in shared
-    memory (csrc/nms_fp.cu ``smem_bytes``): three bit rows (padded to 16
-    bytes), boxes, areas and the padded k x (words+1) bitmask."""
+def workspace_words(b: int, k: int) -> int:
+    """32-bit words of the bitmask workspace for b images of k boxes
+    (csrc/nms_fp.cu): k rows per image, each of ceil(k/32) words rounded
+    up to a multiple of 4, so that every row starts 16-byte aligned for
+    the scan's copies."""
     words = (k + 31) // 32
-    return (3 * words * 4 + 15) // 16 * 16 + k * 16 + k * 4 + k * (words + 1) * 4
-
-
-def max_k() -> int:
-    """Largest k whose suppression bitmask fits one block's shared
-    memory; a larger k takes the global workspace."""
-    k = 32
-    while smem_bytes(k + 32) <= MAX_SMEM_BYTES:
-        k += 32
-    return k
+    return b * k * ((words + 3) // 4 * 4)
 
 
 def nms_fp_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -65,15 +55,12 @@ def nms_fp(boxes: torch.Tensor, scores: torch.Tensor,
     boxes = boxes.to(torch.float32).contiguous()
     scores = scores.to(device=boxes.device, dtype=torch.float32).contiguous()
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-    work = None
-    if smem_bytes(k) > MAX_SMEM_BYTES:
-        work = torch.empty(b * k * ((k + 31) // 32), dtype=torch.int32, device=boxes.device)
+    work = torch.empty(workspace_words(b, k), dtype=torch.int32, device=boxes.device)
     lib = _lib()
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     with torch.cuda.device(boxes.device):
         status = lib.nms_fp(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
-                            None if work is None else work.data_ptr(),
-                            b, k, float(np.float32(iou_thresh)), stream)
+                            work.data_ptr(), b, k, float(np.float32(iou_thresh)), stream)
     _build.check(lib, "nms_fp", status)
     nms_fp.launches += 1
     return keep

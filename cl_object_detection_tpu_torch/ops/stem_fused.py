@@ -14,6 +14,19 @@ rounds them); float32 takes the kernel's float32 form on the FMA units
 (``stem_fused_f32``), since the tensor cores have no float32 product
 (only TF32, which would not be float32). Any other dtype on the card
 raises ``TypeError``. There is no fallback on failure.
+
+The float32 form computes the 7x7/2 conv itself, 147 products per
+output, not the packed 3x3 conv's 576, so it is exact only for a ``k3``
+of ``pack_stem_kernel``'s form. Its contract is a device-side check:
+``stem_fused`` on a float32 CUDA tensor recovers the 7x7 kernel
+(``unpack_stem_kernel``) and asserts, without a host sync, that ``k3``
+is ``pack_stem_kernel`` of it. A ``k3`` with a non-zero entry outside
+the 7x7 support (or phase blocks that disagree) trips
+``torch._assert_async``, which fails the CUDA context at the next
+synchronize instead of returning a wrong result. The model passes the
+packed kernel in every dtype, so the dtype decides the kernel here
+alone; ``stem_fused_f32``, the float32 form's wrapper, takes the
+``(7,7,3,64)`` kernel (BN scale folded in).
 """
 from __future__ import annotations
 
@@ -58,6 +71,31 @@ def pack_stem_kernel(k7: torch.Tensor) -> torch.Tensor:
     return F.pad(k3, (0, 0, 0, 16))
 
 
+@functools.lru_cache(maxsize=8)
+def _unpack_index(device: torch.device):
+    """Indices into k3 of the 7x7 kernel, on ``device`` (copied there
+    once): k7[kh,kw,c] is k3[T, U, (al*4+be)*3 + c] of phase block
+    (0, 0), with T, al = divmod(kh + 1, 4) (resp. U, be from kw), the
+    inverse of ``_pack_tables`` at a = b = 0, which covers all 7 rows
+    and cols. They broadcast to (7,7,3)."""
+    t, al = np.divmod(np.arange(7) + 1, 4)
+    c = (al[:, None, None] * 4 + al[None, :, None]) * 3 + np.arange(3)
+    return tuple(torch.from_numpy(i).to(device)
+                 for i in (t[:, None, None], t[None, :, None], c))
+
+
+def unpack_stem_kernel(k3: torch.Tensor) -> torch.Tensor:
+    """(3,3,64,256) phase-packed kernel -> the (7,7,3,64) HWIO kernel it
+    was packed from (exact when ``k3`` is ``pack_stem_kernel``'s form)."""
+    return k3[_unpack_index(k3.device)][..., :64]
+
+
+def stem_weight_f32(k7: torch.Tensor) -> torch.Tensor:
+    """(7,7,3,64) kernel -> the (147, 64) weight the float32 form loads:
+    row (kh*3 + c)*7 + kw, the order of its loop."""
+    return k7.permute(0, 2, 1, 3).reshape(147, 64).contiguous()
+
+
 def stem_fused_reference(x4: torch.Tensor, k3: torch.Tensor,
                          bias4: torch.Tensor) -> torch.Tensor:
     """Plain version: 3x3/1 conv on the packed NHWC grid + bias + ReLU +
@@ -77,13 +115,13 @@ def stem_weight_kmajor(k3: torch.Tensor) -> torch.Tensor:
     return k3.reshape(576, 256).t().contiguous()
 
 
-def _check_shapes(x4: torch.Tensor, k3: torch.Tensor, bias4: torch.Tensor) -> None:
+def _check_frame(x4: torch.Tensor, bias4: torch.Tensor) -> None:
     if x4.device.type != "cuda":
         raise ValueError(f"stem_fused: unsupported device {x4.device}")
     if x4.dim() != 4 or x4.shape[-1] != 64:
         raise ValueError(f"stem_fused expects (B,H4,W4,64), got {tuple(x4.shape)}")
-    if tuple(k3.shape) != (3, 3, 64, 256) or bias4.numel() != 256:
-        raise ValueError(f"bad stem weights {tuple(k3.shape)} / {tuple(bias4.shape)}")
+    if bias4.numel() != 256:
+        raise ValueError(f"bad stem bias {tuple(bias4.shape)}")
 
 
 def _launch(entry: str, x4: torch.Tensor, w: torch.Tensor,
@@ -106,13 +144,19 @@ def stem_fused(x4: torch.Tensor, k3: torch.Tensor,
     """Fused stem on a (B, H/4, W/4, 64) NHWC batch -> pooled
     (B, H/4, W/4, 64). A CPU tensor runs ``stem_fused_reference``; a
     bfloat16 CUDA tensor launches the tensor-core kernel (counted in
-    ``stem_fused.launches``), a float32 one ``stem_fused_f32``; another
-    dtype on the card raises ``TypeError`` (module docstring)."""
+    ``stem_fused.launches``); a float32 one checks ``k3`` on the device
+    and runs ``stem_fused_f32`` on its 7x7 kernel; another dtype on the
+    card raises ``TypeError`` (module docstring)."""
     if x4.device.type == "cpu":
         return stem_fused_reference(x4, k3, bias4)
+    _check_frame(x4, bias4)
+    if tuple(k3.shape) != (3, 3, 64, 256):
+        raise ValueError(f"bad packed stem kernel {tuple(k3.shape)}")
     if x4.dtype == torch.float32:
-        return stem_fused_f32(x4, k3, bias4)
-    _check_shapes(x4, k3, bias4)
+        k3 = k3.to(device=x4.device, dtype=torch.float32)
+        k7 = unpack_stem_kernel(k3)
+        torch._assert_async(torch.eq(pack_stem_kernel(k7), k3).all())
+        return stem_fused_f32(x4, k7, bias4)
     if x4.dtype != torch.bfloat16:
         raise TypeError(f"stem_fused on the card takes bfloat16 or float32, got {x4.dtype}")
     w = stem_weight_kmajor(k3.to(device=x4.device, dtype=torch.bfloat16))
@@ -124,17 +168,21 @@ def stem_fused(x4: torch.Tensor, k3: torch.Tensor,
 stem_fused.launches = 0
 
 
-def stem_fused_f32(x4: torch.Tensor, k3: torch.Tensor,
+def stem_fused_f32(x4: torch.Tensor, k7: torch.Tensor,
                    bias4: torch.Tensor) -> torch.Tensor:
-    """The float32 form: a float32 CUDA batch launches the kernel's FMA
-    form (counted in ``stem_fused_f32.launches``), a CPU one runs
-    ``stem_fused_reference``; another dtype raises ``TypeError``."""
+    """The float32 form on the 7x7 kernel ``k7`` (7,7,3,64), BN scale
+    folded in: a float32 CUDA batch launches the kernel's FMA form
+    (counted in ``stem_fused_f32.launches``), a CPU one runs
+    ``stem_fused_reference`` on ``pack_stem_kernel(k7)``; another dtype
+    raises ``TypeError``."""
     if x4.dtype != torch.float32:
         raise TypeError(f"stem_fused_f32 takes float32, got {x4.dtype}")
+    if tuple(k7.shape) != (7, 7, 3, 64):
+        raise ValueError(f"stem_fused_f32 takes the (7,7,3,64) kernel, got {tuple(k7.shape)}")
     if x4.device.type == "cpu":
-        return stem_fused_reference(x4, k3, bias4)
-    _check_shapes(x4, k3, bias4)
-    w = k3.to(device=x4.device, dtype=torch.float32).reshape(576, 256).contiguous()
+        return stem_fused_reference(x4, pack_stem_kernel(k7), bias4)
+    _check_frame(x4, bias4)
+    w = stem_weight_f32(k7.to(device=x4.device, dtype=torch.float32))
     out = _launch("stem_fused_f32", x4, w, bias4)
     stem_fused_f32.launches += 1
     return out

@@ -2,8 +2,9 @@
 shapes the main path does not give them: ragged stem tiles, a batch of
 one, k that is not a multiple of 32, int8 GEMMs with ragged M, N and K
 (every tile width and K split the kernel chooses), int8 convs with
-ragged images, strides and paddings, NMS beyond the shared-memory
-bitmask, the stem's float32 form, and the wrappers' refusals.
+ragged images, strides and paddings, NMS from k = 1 to 4096 with empty
+and degenerate images, the stem's float32 form and its refusal of a
+kernel that is not packed, and the wrappers' refusals.
 
 Marked ``cuda``. Without a CUDA device every test skips: a kernel has no
 CPU mode, and the CPU tests hold the plain versions to the JAX package.
@@ -36,7 +37,8 @@ def _stem_inputs(dev, b, h4, w4, seed, dtype=torch.bfloat16):
     x4 = np.zeros((b, h4, w4, 64), np.float32)
     x4[..., :48] = r.randn(b, h4, w4, 48)
     k7 = (r.randn(7, 7, 3, 64) * 0.05).astype(np.float32)
-    bias4 = np.tile((r.randn(64) * 0.1).astype(np.float32), 4)
+    # 256 independent values: a kernel that reads another phase's bias fails
+    bias4 = (r.randn(256) * 0.1).astype(np.float32)
     x = torch.from_numpy(x4).to(dev, dtype)
     k3 = sf.pack_stem_kernel(torch.from_numpy(k7).to(dev)).to(dtype)
     return x, k3, torch.from_numpy(bias4).to(dev)
@@ -80,8 +82,11 @@ def test_stem_kernel_takes_a_strided_view(dev):
 @pytest.mark.parametrize("shape", STEM_SHAPES)
 def test_stem_f32_kernel_matches_plain(dev, monkeypatch, shape):
     """The float32 form against the plain version in float32 (TF32 off),
-    rtol = atol = 1e-4: the two sum the 576 products in different orders,
-    and cuDNN may transform the conv (Winograd, FFT) on the way."""
+    rtol = atol = 1e-4: the kernel sums the 147 products of the 7x7 conv,
+    the plain version the packed conv's 576 (429 of them zero) in another
+    order, and cuDNN may transform the conv (Winograd, FFT) on the way.
+    ``stem_fused`` on the packed kernel (checked on the device) and
+    ``stem_fused_f32`` on the 7x7 kernel give the same bits."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     x, k3, b4 = _stem_inputs(dev, *shape, seed=sum(shape), dtype=torch.float32)
     before = (sf.stem_fused.launches, sf.stem_fused_f32.launches)
@@ -91,17 +96,52 @@ def test_stem_f32_kernel_matches_plain(dev, monkeypatch, shape):
     assert (sf.stem_fused.launches, sf.stem_fused_f32.launches) == (before[0], before[1] + 1)
     assert got.shape == want.shape and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(sf.stem_fused_f32(x, sf.unpack_stem_kernel(k3), b4), got)
+
+
+_OFF_SUPPORT_SCRIPT = """
+import torch
+from cl_object_detection_tpu_torch.ops import stem_fused as sf
+g = torch.Generator().manual_seed(0)
+k3 = sf.pack_stem_kernel(torch.randn(7, 7, 3, 64, generator=g) * 0.05).cuda()
+k3[0, 0, 0, 0] = 0.5          # tap row -1 of phase (0, 0): outside the 7x7 support
+x = torch.randn(1, 8, 16, 64, generator=g).cuda()
+out = sf.stem_fused(x, k3, torch.zeros(256, device="cuda"))
+torch.cuda.synchronize()
+print("RETURNED", float(out.sum()))
+"""
+
+
+def test_stem_f32_refuses_unpacked_kernel_on_the_card(dev):
+    """A float32 ``stem_fused`` with a k3 that has a non-zero entry outside
+    the 7x7 support (which the float32 form would drop) fails on the
+    device, in a process of its own since a device-side assert ends the
+    CUDA context: no result comes back."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _OFF_SUPPORT_SCRIPT], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode != 0
+    assert "RETURNED" not in proc.stdout
+    assert "assert" in proc.stderr.lower()
 
 
 def test_stem_wrapper_refuses_what_the_kernel_does_not_take(dev):
     """float16 has no kernel: TypeError (float32 has its own form, counted
-    apart from the bf16 kernel). A wrong shape raises."""
+    apart from the bf16 kernel). A wrong shape raises, and so does the
+    packed kernel handed to the float32 form."""
     x, k3, b4 = _stem_inputs(dev, 1, 8, 8, seed=6)
     before = (sf.stem_fused.launches, sf.stem_fused_f32.launches)
     with pytest.raises(TypeError):
         sf.stem_fused(x.half(), k3, b4)
     with pytest.raises(TypeError):
         sf.stem_fused_f32(x, k3, b4)
+    with pytest.raises(ValueError):             # the float32 form takes the 7x7 kernel
+        sf.stem_fused_f32(x.float(), k3.float(), b4)
     with pytest.raises(ValueError):
         sf.stem_fused(x[..., :48], k3, b4)
     with pytest.raises(ValueError):
@@ -151,42 +191,47 @@ def _nms_inputs(b, k, seed, near_threshold=False):
     return bb, ss
 
 
-@pytest.mark.parametrize("b,k", [(1, 200), (5, 256), (2, 1000), (3, 1024)])
+@pytest.mark.parametrize("b", [1, 5, 32])
+@pytest.mark.parametrize("k", [1, 31, 33, 200, 1000, 1024, 1300, 2048, 4096])
 @pytest.mark.parametrize("near_threshold", [False, True])
 def test_nms_kernel_bit_identical_to_plain(dev, b, k, near_threshold):
-    bb, ss = _nms_inputs(b, k, seed=b * k, near_threshold=near_threshold)
+    """Keep masks bit-identical to nms_iterative on the card (and to the
+    sequential nms_padded on the CPU where that is quick), one counted
+    call each: k below, at and off multiples of 32 and of the mask
+    kernel's 64-row blocks, past one 128-word scan tile (4096)."""
+    bb, ss = _nms_inputs(b, k, seed=b * k + near_threshold, near_threshold=near_threshold)
     boxes, scores = torch.from_numpy(bb).to(dev), torch.from_numpy(ss).to(dev)
     before = nf.nms_fp.launches
     got = nf.nms_fp(boxes, scores, 0.5)
     torch.cuda.synchronize()
     assert nf.nms_fp.launches == before + 1
-    want_dev = nf.nms_fp_reference(boxes, scores, 0.5)
-    want_cpu = tn.nms_padded(torch.from_numpy(bb), torch.from_numpy(ss), 0.5)
-    assert torch.equal(got, want_dev)
-    assert torch.equal(got.cpu(), want_cpu)
-
-
-@pytest.mark.parametrize("k", [1280, 1300, 2048, 4096])
-@pytest.mark.parametrize("near_threshold", [False, True])
-def test_nms_kernel_beyond_shared_memory_bit_identical_to_plain(dev, k, near_threshold):
-    """k above max_k() (1248): the bitmask in the global workspace, one
-    launch, keep masks bit-identical to nms_iterative."""
-    assert k > nf.max_k()
-    bb, ss = _nms_inputs(2, k, seed=k, near_threshold=near_threshold)
-    boxes, scores = torch.from_numpy(bb).to(dev), torch.from_numpy(ss).to(dev)
-    before = nf.nms_fp.launches
-    got = nf.nms_fp(boxes, scores, 0.5)
-    torch.cuda.synchronize()
-    assert nf.nms_fp.launches == before + 1
-    want = tn.nms_iterative(boxes, scores, 0.5)
-    assert int(want.sum()) > 0
+    want = nf.nms_fp_reference(boxes, scores, 0.5)
+    assert got.dtype == torch.bool and got.shape == (b, k)
     assert torch.equal(got, want)
+    if b * k <= 5000:
+        assert torch.equal(got.cpu(), tn.nms_padded(torch.from_numpy(bb), torch.from_numpy(ss), 0.5))
+
+
+@pytest.mark.parametrize("k", [33, 1024, 2048])
+def test_nms_kernel_empty_and_identical_images(dev, k):
+    """An image with no valid box keeps nothing, an image of identical
+    boxes keeps its first, beside a random image, bit-identical to
+    nms_iterative."""
+    bb, ss = _nms_inputs(3, k, seed=k)
+    ss[0] = 0.0                                         # all invalid
+    bb[1] = np.array([10, 10, 50, 50], np.float32)      # identical boxes
+    ss[1] = np.linspace(1.0, 0.5, k).astype(np.float32)
+    boxes, scores = torch.from_numpy(bb).to(dev), torch.from_numpy(ss).to(dev)
+    got = nf.nms_fp(boxes, scores, 0.5)
+    want = tn.nms_iterative(boxes, scores, 0.5)
+    assert torch.equal(got, want)
+    assert int(got[0].sum()) == 0 and int(got[1].sum()) == 1 and bool(got[1, 0])
 
 
 @pytest.mark.parametrize("topk", [512, 1000, 200, 2048])
 def test_detect_batch_pallas_fp_equals_iterative_on_the_card(dev, topk):
     """pallas_fp launches the kernel at every k, not only at multiples of
-    256, and beyond the shared-memory bitmask (2048)."""
+    256."""
     from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
 
     h, w = 128, 192

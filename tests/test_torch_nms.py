@@ -79,9 +79,17 @@ def test_nms_padded_per_image_matches_jax():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_kernel_capacity_bound():
-    assert tfp.max_k() >= 1024
-    assert tfp.smem_bytes(tfp.max_k()) <= tfp.MAX_SMEM_BYTES < tfp.smem_bytes(tfp.max_k() + 32)
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 128, 129, 1024, 2048, 4096])
+def test_kernel_workspace_words(k):
+    """The bitmask workspace: k rows per image of ceil(k/32) words padded
+    to a multiple of 4 (16-byte aligned rows); 4 MiB at B=32, k=1024."""
+    words = (k + 31) // 32
+    wp = tfp.workspace_words(1, k) // k
+    assert tfp.workspace_words(1, k) == k * wp
+    assert wp % 4 == 0 and words <= wp < words + 4
+    assert tfp.workspace_words(5, k) == 5 * k * wp
+    if k == 1024:
+        assert tfp.workspace_words(32, k) * 4 == 4 * 2 ** 20
 
 
 def _assert_detections_equal(got, want, rtol):
