@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Run the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -67,11 +67,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    stem's and the int8 one's not. Output check: finite detections of the
    static shape, and the fused stem path's logits against the RGB stem
    path's on 2 frames (relative L2 < 1e-3).
-7. One JSON line of the kernels, then the ``{"ok": true, ...}`` line.
+7. Train step at state 0 (``train.step.make_train_step``): the bf16 R50
+   of phase 4 on 8 of its 608x832 uint8 fused frames with
+   tools/bench_train.py's synthetic GT (8 boxes per image, 32 slots),
+   ``every_iter=2``, clip 0.1, lr 1e-5. First the stem Function's
+   backward at (8,152,208,64) against autograd through the plain version
+   (deterministic cuDNN: bit-identical). With the counters at 0: 2
+   warm-up micro-steps, then 20 timed ones ending in a synchronise
+   (images/s, ms per micro-step, peak memory). The stem counter must
+   equal the micro-steps (22), the NMS and int8 ones stay 0; the loss is
+   finite at every micro-step; conv1.weight, bn1.weight and bn1.bias
+   have moved after the first apply (their gradient goes through the
+   kernel's Function). Then the forward / backward / optimizer split
+   from CUDA events, one remat micro-step beside a plain one (ms, peak
+   memory), and the float32 check: one apply of a small R18 on the card
+   (TF32 off, the stem's float32 form under grad) against the same apply
+   on the CPU, at the CPU tests' bars.
+8. One JSON line of the kernels, then the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds a torch.profiler window over two B=32 predicts
-after phases 4 and 5: device time by kernel group, the device's idle
-share, and the kernel tables in ``DIR/profile_predict{,_int8}.txt``.
+after phases 4 and 5 and over two micro-step pairs (two applies) in
+phase 7: device time by kernel group, the device's idle share, and the
+kernel tables in ``DIR/profile_{predict,predict_int8,train}.txt``.
 """
 from __future__ import annotations
 
@@ -758,7 +775,8 @@ def main_path(results: dict, profile_dir: str | None = None):
     if not (rel_cls < 5e-2 and rel_reg < 5e-2):
         raise AssertionError("fused-stem path disagrees with the RGB-stem path")
     if profile_dir:
-        profile_predict(predict, frames32, profile_dir, "profile_predict.txt")
+        profile_run(lambda: predict(frames32), profile_dir, "profile_predict.txt",
+                    "predict B=32")
     return dict(model=model, frames32=frames32, x4=x4, rgb=rgb, ips=ips, f_cls=f_cls)
 
 
@@ -815,7 +833,8 @@ def quantized_path(results: dict, ctx: dict, profile_dir: str | None = None) -> 
     if not (corr > 0.98 and np.isfinite(q).all()):
         raise AssertionError("quantized logits disagree with the float ones")
     if profile_dir:
-        profile_predict(qpredict, frames32, profile_dir, "profile_predict_int8.txt")
+        profile_run(lambda: qpredict(frames32), profile_dir, "profile_predict_int8.txt",
+                    "predict B=32")
 
 
 def f32_path(results: dict, ctx: dict) -> None:
@@ -871,24 +890,311 @@ def f32_path(results: dict, ctx: dict) -> None:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
-# kernel-name fragments -> the part of the predict path they belong to
+TRAIN_B = 8
+TRAIN_LR = 1e-5
+
+
+def synthetic_gt(b: int):
+    """tools/bench_train.py's GT: 8 boxes per image in 32 slots, labels
+    (image + box) mod the class count."""
+    import numpy as np
+
+    boxes = np.full((b, 32, 4), -1, np.float32)
+    labels = np.full((b, 32), -1, np.int32)
+    for i in range(b):
+        for j in range(8):
+            x1, y1 = 32 * (j + 1), 16 * (j + 1)
+            boxes[i, j] = [x1, y1, x1 + 96, y1 + 64]
+            labels[i, j] = (i + j) % NUM_CLASSES
+    return boxes, labels
+
+
+def check_stem_backward(x4) -> None:
+    """The stem Function on the train path's (8,152,208,64) bf16 frames:
+    the kernel runs the forward, and the backward equals autograd through
+    ``stem_fused_reference`` at the same inputs and upstream gradient to
+    the bit (cuDNN deterministic for both)."""
+    import torch
+
+    from cl_object_detection_tpu_torch.ops import stem_fused as sf
+
+    dev = x4.device
+    g = torch.Generator(device=dev).manual_seed(7)
+    k3 = sf.pack_stem_kernel(torch.randn(7, 7, 3, 64, generator=g, device=dev) * 0.05)
+    k3 = k3.to(torch.bfloat16)
+    bias4 = (torch.randn(64, generator=g, device=dev) * 0.1).repeat(4)
+    up = torch.randn(x4.shape, generator=g, device=dev).to(torch.bfloat16)
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        ins = [t.detach().clone().requires_grad_(True) for t in (x4, k3, bias4)]
+        before = sf.stem_fused.launches
+        out = sf.stem_fused(*ins)
+        if sf.stem_fused.launches != before + 1 or out.grad_fn is None:
+            raise AssertionError("the stem Function did not launch the kernel under grad")
+        got = torch.autograd.grad(out, ins, up)
+        ref_ins = [t.detach().clone().requires_grad_(True) for t in (x4, k3, bias4)]
+        want = torch.autograd.grad(sf.stem_fused_reference(*ref_ins), ref_ins, up)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+
+    def through(fn):
+        ins = [t.detach().requires_grad_(True) for t in (x4, k3, bias4)]
+        return torch.autograd.grad(fn(*ins), ins[1:], up)
+
+    fn_ms = cuda_ms(lambda: through(sf.stem_fused), iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: through(sf.stem_fused_reference), iters=10, warmup=2)
+    log(f"stem backward B={x4.shape[0]} (x4, k3, bias4): bit-identical to autograd through "
+        f"the plain version: {same}; forward + backward to (k3, bias4) {fn_ms:.4f} ms "
+        f"through the Function (kernel forward, plain recompute), {plain_ms:.4f} ms "
+        f"through the plain version")
+    if not all(same):
+        raise AssertionError("the stem Function's backward differs from the plain autograd")
+
+
+def train_path(ctx: dict, profile_dir: str | None = None) -> dict:
+    """Phase 7: the train step on the float path's bf16 R50 and frames."""
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.config import FocalConfig, ILConfig, ScheduleConfig
+    from cl_object_detection_tpu_torch.il.losses import LossStatics, compute_losses
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+    from cl_object_detection_tpu_torch.train.optim import make_optimizer
+    from cl_object_detection_tpu_torch.train.state import TrainState
+    from cl_object_detection_tpu_torch.train.step import (
+        StepStatics, _clip_by_global_norm, make_train_step)
+
+    model, frames = ctx["model"], ctx["frames32"][:TRAIN_B]
+    dev = frames.device
+    check_stem_backward(frames.float().div(255.0).to(torch.bfloat16))
+    boxes, labels = (torch.from_numpy(a).to(dev) for a in synthetic_gt(TRAIN_B))
+    anchors = anchors_for_shape(H, W)
+    statics = LossStatics(num_classes=NUM_CLASSES)
+    state = TrainState(model, make_optimizer(ScheduleConfig(lr=TRAIN_LR, every_iter=2), model))
+    step = make_train_step(model, None, anchors, ILConfig(), FocalConfig(), statics,
+                           StepStatics(every_iter=2, grad_clip=0.1))
+    bb = model.backbone
+    stem_params = {"conv1.weight": bb.conv1.weight, "bn1.weight": bb.bn1.weight,
+                   "bn1.bias": bb.bn1.bias}
+    before = {k: p.detach().clone() for k, p in stem_params.items()}
+
+    # ---- this path: counters at 0 -> 2 warm-up + 20 timed micro-steps ----
+    zero_counts()
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, frames, boxes, labels)
+        losses.append(metrics["total_loss"])
+    moved = {k: not torch.equal(before[k], p.detach()) for k, p in stem_params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 20
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        state, metrics = step(state, frames, boxes, labels)
+        losses.append(metrics["total_loss"])
+    end.record()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss = torch.stack(losses).float().cpu().numpy()
+    ms = dt / iters * 1e3
+    ips = TRAIN_B * iters / dt
+    log(f"train step R50 bf16 608x832 B={TRAIN_B} every_iter=2 fused-stem: {ms:.3f} ms per "
+        f"micro-step (host clock; {start.elapsed_time(end) / iters:.3f} ms by CUDA events), "
+        f"{ips:.2f} images/s, peak memory {peak / 2**30:.2f} GiB; launches {counts}; "
+        f"total_loss first {loss[0]:.5g}, last {loss[-1]:.5g}; metrics of the last "
+        f"micro-step {({k: round(float(v), 6) for k, v in metrics.items()})}")
+    log(f"stem parameters moved by the first apply: {moved}")
+    if counts["stem_fused"] != 2 + iters:
+        raise AssertionError(f"{counts['stem_fused']} stem launches in {2 + iters} micro-steps")
+    if any(counts[k] for k in ("stem_fused_f32", "nms_fp", "int8_matmul", "int8_conv_nhwc")):
+        raise AssertionError("the train path launched another kernel than the bf16 stem")
+    if not np.isfinite(loss).all():
+        raise AssertionError("non-finite train loss")
+    if not all(moved.values()):
+        raise AssertionError(f"the first apply did not move every stem parameter: {moved}")
+
+    # ---- where a micro-step's time goes (CUDA events) ----
+    anchors_t = torch.from_numpy(anchors.copy()).to(dev)
+
+    def forward():
+        with torch.enable_grad():
+            return compute_losses(model, frames, boxes, labels, anchors_t, ILConfig(),
+                                  FocalConfig(), statics)[0]
+
+    def forward_backward():
+        forward().backward()
+        model.zero_grad(set_to_none=True)
+
+    fwd_ms = cuda_ms(forward, iters=5, warmup=1)
+    fwd_bwd_ms = cuda_ms(forward_backward, iters=5, warmup=1)
+    forward().backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    clip_ms = cuda_ms(lambda: _clip_by_global_norm(grads, 0.1), iters=10, warmup=2)
+    adam_ms = cuda_ms(state.optimizer.step, iters=10, warmup=2)
+    model.zero_grad(set_to_none=True)
+    log(f"train micro-step split (CUDA events): forward + loss {fwd_ms:.3f} ms, backward "
+        f"{fwd_bwd_ms - fwd_ms:.3f} ms, optimizer per apply {clip_ms + adam_ms:.3f} ms (clip "
+        f"{clip_ms:.3f}, Adam {adam_ms:.3f}; every second micro-step applies), of "
+        f"{ms:.3f} ms per micro-step")
+
+    # ---- one remat micro-step beside a plain one ----
+    def one_micro_step():
+        """(ms, peak bytes) of one micro-step that does not apply, then
+        the applying one of its pair, untimed."""
+        nonlocal state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, _ = step(state, frames, boxes, labels)
+        e1.record()
+        torch.cuda.synchronize()
+        out = (e0.elapsed_time(e1), torch.cuda.max_memory_allocated())
+        state, _ = step(state, frames, boxes, labels)
+        return out
+
+    if state.acc_count != 0:
+        raise AssertionError("the timed run ended inside an accumulation")
+    plain_ms, plain_peak = one_micro_step()
+    bb.remat = True
+    try:
+        one_micro_step()                                    # warm-up
+        remat_ms, remat_peak = one_micro_step()
+    finally:
+        bb.remat = False
+    log(f"remat: one micro-step {remat_ms:.3f} ms, peak {remat_peak / 2**30:.2f} GiB; "
+        f"plain {plain_ms:.3f} ms, peak {plain_peak / 2**30:.2f} GiB")
+    if profile_dir:
+        def pair():
+            for _ in range(2):
+                step(state, frames, boxes, labels)
+        profile_run(pair, profile_dir, "profile_train.txt",
+                    f"micro-step pair B={TRAIN_B} (one apply)")
+    check_train_f32_small()
+    return dict(images_per_s=ips, ms_per_micro_step=ms, forward_ms=fwd_ms,
+                backward_ms=fwd_bwd_ms - fwd_ms, clip_ms=clip_ms, adam_ms=adam_ms,
+                peak_gib=peak / 2**30, remat_ms=remat_ms, remat_peak_gib=remat_peak / 2**30,
+                plain_ms=plain_ms, plain_peak_gib=plain_peak / 2**30,
+                stem_launches_per_micro_step=counts["stem_fused"] / (2 + iters))
+
+
+def check_train_f32_small() -> None:
+    """One every_iter=1 apply (clip 0.1, Adam, lr 1e-4) of a float32 R18
+    (FPN 32, 2 head layers, 3 classes) on 2 fused 64x96 frames, on the
+    card (TF32 off: the stem's float32 form under grad) and on the CPU
+    from the same weights: metrics at rtol 1e-4, gradients at
+    |d| <= 1e-3 |g_cpu| + 1e-4 max|g_cpu| per leaf, parameter deltas
+    within 1e-3 lr plus one float32 spacing where |g_cpu| >= 1e-3
+    max|g_cpu|, everywhere at most lr (1 + 1e-6) plus that spacing."""
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.config import (
+        FocalConfig, ILConfig, ModelConfig, ScheduleConfig)
+    from cl_object_detection_tpu_torch.data.transforms import space_to_depth
+    from cl_object_detection_tpu_torch.il.losses import LossStatics, compute_losses
+    from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+    from cl_object_detection_tpu_torch.ops import stem_fused as sf
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+    from cl_object_detection_tpu_torch.train.optim import make_optimizer
+    from cl_object_detection_tpu_torch.train.state import TrainState
+    from cl_object_detection_tpu_torch.train.step import StepStatics, make_train_step
+
+    gen = torch.Generator().manual_seed(11)
+    cpu_model = create_retinanet(ModelConfig(depth=18, fpn_channels=32, head_layers=2,
+                                             compute_dtype="float32"), 3, device="cpu",
+                                 generator=gen)
+    with torch.no_grad():
+        for head in (cpu_model.classification_head, cpu_model.regression_head):
+            w = head.output.weight
+            w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(w[0].numel()))
+    r = np.random.RandomState(14)
+    img = r.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8)
+    boxes = np.full((2, 4, 4), -1, np.float32)
+    labels = np.full((2, 4), -1, np.int32)
+    boxes[0, :2] = [[4, 6, 40, 44], [30, 10, 80, 50]]
+    labels[0, :2] = [0, 2]
+    boxes[1, 0], labels[1, 0] = [10, 20, 60, 60], 1
+    batch_np = (space_to_depth(img, factor=4), boxes, labels)
+    anchors = anchors_for_shape(64, 96)
+    lr = 1e-4
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    results = []
+    try:
+        for device in ("cpu", "cuda"):
+            model = copy.deepcopy(cpu_model).to(device)
+            batch = tuple(torch.from_numpy(a).to(device) for a in batch_np)
+            p0 = {n: p.detach().cpu().numpy().copy() for n, p in model.named_parameters()}
+            total, _ = compute_losses(model, *batch,
+                                      torch.from_numpy(anchors.copy()).to(device), ILConfig(),
+                                      FocalConfig(), LossStatics(num_classes=3))
+            total.backward()
+            grads = {n: p.grad.cpu().numpy().copy() for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            state = TrainState(model, make_optimizer(ScheduleConfig(lr=lr, every_iter=1), model))
+            step = make_train_step(model, None, anchors, ILConfig(), FocalConfig(),
+                                   LossStatics(num_classes=3),
+                                   StepStatics(every_iter=1, grad_clip=0.1))
+            before = sf.stem_fused_f32.launches
+            state, metrics = step(state, *batch)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                if sf.stem_fused_f32.launches != before + 1:
+                    raise AssertionError("the float32 train step did not launch the f32 stem")
+            p1 = {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}
+            results.append((grads, {k: float(v) for k, v in metrics.items()},
+                            {k: p1[k] - p0[k] for k in p0}, p0))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (g_cpu, m_cpu, d_cpu, p0), (g_dev, m_dev, d_dev, _) = results
+    worst_metric = max(abs(m_dev[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    bad_grad = sum(int((np.abs(g_dev[k] - w) > 1e-3 * np.abs(w) + 1e-4 * np.abs(w).max()).sum())
+                   for k, w in g_cpu.items())
+    bad_delta = 0
+    for k, w in d_cpu.items():
+        ulp = np.spacing(np.abs(p0[k]))
+        g = np.abs(g_cpu[k])
+        sel = g >= 1e-3 * g.max()
+        bad_delta += int((np.abs(d_dev[k] - w)[sel] > (1e-3 * lr + ulp)[sel]).sum())
+        bad_delta += int((np.abs(d_dev[k]) > lr * (1 + 1e-6) + ulp).sum())
+    log(f"train f32 small model, card vs CPU (TF32 off): metrics max relative difference "
+        f"{worst_metric:.3g} (limit 1e-4); gradient values beyond their tolerance: {bad_grad}; "
+        f"parameter deltas beyond their bars: {bad_delta}")
+    if not (worst_metric <= 1e-4 and bad_grad == 0 and bad_delta == 0):
+        raise AssertionError("the float32 train step on the card disagrees with the CPU")
+
+
+# kernel-name fragments -> the part of the predict or train path they belong to
 _KERNEL_GROUPS = (
     ("stem_fused", ("stem_fused",)),
     ("nms_fp", ("nms_mask_kernel", "nms_scan_kernel")),
     ("int8 kernel, conv mode", ("int8_matmul_kernel<64, true>", "int8_matmul_kernel<128, true>",
                                 "int8_matmul_kernel<256, true>")),
     ("int8 kernel, GEMM mode", ("int8_matmul",)),
-    ("convolution", ("conv", "xmma", "cudnn", "gemm", "cutlass", "implicit")),
+    ("foreach (Adam, clip scale, accumulate)", ("multi_tensor",)),
+    ("convolution", ("conv", "xmma", "cudnn", "gemm", "cutlass", "implicit", "dgrad", "wgrad")),
     ("sort / top-k", ("sort", "radix", "topk", "scan")),
     ("im2col concatenation", ("catarray",)),
     ("reductions (max |x|)", ("reduce",)),
 )
 
 
-def profile_predict(predict, frames, out_dir: str, table_name: str) -> None:
-    """Profile two B=32 predicts with torch.profiler: device time by
-    kernel group and the device's idle share over the window; the full
-    table goes to ``out_dir/table_name``."""
+def profile_run(run, out_dir: str, table_name: str, what: str) -> None:
+    """Profile two calls of ``run`` (one ``what`` each) with
+    torch.profiler: device time by kernel group and the device's idle
+    share over the window; the full table goes to
+    ``out_dir/table_name``."""
     import os
 
     import torch
@@ -899,7 +1205,7 @@ def profile_predict(predict, frames, out_dir: str, table_name: str) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            predict(frames)
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -912,11 +1218,10 @@ def profile_predict(predict, frames, out_dir: str, table_name: str) -> None:
         group = next((g for g, keys in _KERNEL_GROUPS
                       if any(k in name for k in keys)), "elementwise / other")
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total
-    log(f"profile {table_name}, 2 predicts B=32: device busy {busy_us / 2e3:.3f} ms per "
-        f"predict, idle share {1 - busy_us / wall_us:.3f} of {wall_us / 2e3:.3f} ms wall "
-        "(profiler on)")
+    log(f"profile {table_name}, 2 x {what}: device busy {busy_us / 2e3:.3f} ms per call, "
+        f"idle share {1 - busy_us / wall_us:.3f} of {wall_us / 2e3:.3f} ms wall (profiler on)")
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"  {group}: {us / 2e3:.3f} ms per predict ({us / busy_us:.3f} of device time)")
+        log(f"  {group}: {us / 2e3:.3f} ms per call ({us / busy_us:.3f} of device time)")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, table_name), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
@@ -931,7 +1236,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="also profile the float and the int8 B=32 "
-                             "predicts and write their kernel tables under DIR")
+                             "predicts and the train step, and write their "
+                             "kernel tables under DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -959,6 +1265,7 @@ def main() -> int:
     ctx = main_path(results, args.profile)
     quantized_path(results, ctx, args.profile)
     f32_path(results, ctx)
+    train = train_path(ctx, args.profile)
 
     kernels = []
     for r in results.values():
@@ -966,6 +1273,7 @@ def main() -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     log(smi)
+    log(json.dumps({"train": train}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

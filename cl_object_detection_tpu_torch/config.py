@@ -1,12 +1,14 @@
-"""Configuration dataclasses of the serving path.
+"""Configuration dataclasses of the serving path and the train step.
 
-Own copies of ``ModelConfig``, ``DataConfig`` and ``PredictConfig`` from
-the JAX package's ``config.py``, with the same fields and defaults, so a
-run's ``params.json`` reads into either package unchanged.
+Own copies of ``ModelConfig``, ``DataConfig``, ``PredictConfig``,
+``FocalConfig``, ``ScheduleConfig`` and ``ILConfig`` (with the method
+configs it holds) from the JAX package's ``config.py``, with the same
+fields and defaults, so a run's ``params.json`` reads into either
+package unchanged.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -79,3 +81,133 @@ class PredictConfig:
     bbox_std: Tuple[float, float, float, float] = (0.1, 0.1, 0.2, 0.2)
     quantize: bool = False             # int8 convs on the predict path
                                        # (ops/quant.py)
+
+
+@dataclass(frozen=True)
+class FocalConfig:
+    """Focal-loss constants."""
+    alpha: float = 0.25
+    gamma: float = 2.0
+    fg_iou: float = 0.5                # anchors with maxIoU >= fg are positive
+    bg_iou: float = 0.4                # anchors with maxIoU < bg are negative
+    bbox_std: Tuple[float, float, float, float] = (0.1, 0.1, 0.2, 0.2)
+    smooth_l1_beta: float = 1.0 / 9.0
+
+
+@dataclass(frozen=True)
+class ScheduleConfig:
+    """Optimizer and schedule."""
+    lr: float = 1e-5
+    scheduler_milestone: Tuple[int, ...] = (40,)   # epoch milestones
+    scheduler_decay: float = 0.1
+    grad_clip: float = 0.1
+    every_iter: int = 2                # gradient accumulation factor
+    new_state_epoch: int = 60          # epochs per incremental state
+    beta1: float = 0.9
+    beta2: float = 0.999
+    classifier_lr_scale: float = 1.0   # second Adam group (output conv)
+
+
+@dataclass(frozen=True)
+class DistillConfig:
+    """Frozen-teacher distillation."""
+    enabled: bool = False
+    logits: bool = False               # distill logits vs probabilities
+    feat_weight: float = 1.0           # cosine feature loss over 5 FPN maps
+    teacher_fg_thresh: float = 0.05    # teacher prob > t counts as teacher-fg
+
+
+@dataclass(frozen=True)
+class ReplayConfig:
+    """Exemplar replay."""
+    sample_num: int = 0                # exemplars per class; 0 = off
+    sample_method: str = "herd"        # random | herd | prototype_herd
+    prototype_herd_mode: str = "slots" # prototype_herd: "slots" | "classmean"
+    sample_batch_size: int = 5
+    mix_data: bool = False             # interleave replay into the epoch
+    mix_data_start: int = 0
+    beta_on_replay: float = 0.9        # Adam beta1 used on replay batches
+    beta_on_where: str = "all"         # which param group gets the swap
+    enhance_error: bool = False        # penalize new-class scores on replay
+    enhance_error_method: str = "L2"   # L1 | L2 | L3
+    herd_ratio_threshold: float = 0.25 # fg-area ratio filter
+
+
+@dataclass(frozen=True)
+class MASConfig:
+    """Memory-Aware Synapses."""
+    enabled: bool = False
+    ratio: float = 1.0
+
+
+@dataclass(frozen=True)
+class AGEMConfig:
+    """Averaged-GEM gradient projection."""
+    enabled: bool = False
+    refresh_every: int = 1             # micro-steps between replay gradients
+
+
+@dataclass(frozen=True)
+class BiCConfig:
+    """Bias-correction layers."""
+    enabled: bool = False
+    ratio: float = 0.1                 # val:train split carved from streams
+    lr: float = 1e-3
+    epochs_per_round: int = 1
+
+
+@dataclass(frozen=True)
+class PseudoLabelConfig:
+    """Old-model pseudo-labels on new-state images."""
+    enabled: bool = False
+    score_thresh: float = 0.7
+    iou_thresh: float = 0.35
+    max_labels_per_image: int = 32     # static capacity
+
+
+@dataclass(frozen=True)
+class PrototypeConfig:
+    """Prototype feature anchoring."""
+    loss: bool = False
+    margin: float = 600.0              # L2 distance margin
+    weight: float = 0.1
+    start_epoch: int = 5
+
+
+@dataclass(frozen=True)
+class ILConfig:
+    """Scenario and every continual-learning method switch."""
+    scenario: Tuple[str, ...] = ("20",)
+    shuffle_class: bool = False
+    shuffle_seed: int = 0
+    start_state: int = 0
+    end_state: Optional[int] = None
+
+    distill: DistillConfig = field(default_factory=DistillConfig)
+    replay: ReplayConfig = field(default_factory=ReplayConfig)
+    mas: MASConfig = field(default_factory=MASConfig)
+    agem: AGEMConfig = field(default_factory=AGEMConfig)
+    bic: BiCConfig = field(default_factory=BiCConfig)
+    pseudo: PseudoLabelConfig = field(default_factory=PseudoLabelConfig)
+    prototype: PrototypeConfig = field(default_factory=PrototypeConfig)
+
+    init_method: str = "mean"          # classifier expansion warm-start:
+                                       # mean | large | onlyNegative | none
+    scail: bool = False                # SCAIL classifier standardization
+    classifier_loss: bool = False      # cosine-margin old-vs-new
+    classifier_loss_delta: float = 0.5
+
+    # focal-loss IL variants
+    ignore_past_class: bool = False
+    new_ignore_past_class: bool = False
+    decrease_positive: float = 1.0
+    decrease_positive_by_iou: bool = False
+    enhance_on_new: bool = False
+    ignore_gd: bool = False
+
+    # loss clipping
+    clip_loss: bool = True
+    clip_cls_loss: float = 0.03
+    clip_replay_cls_loss: float = 0.003
+
+    final_correction: bool = False

@@ -9,7 +9,9 @@ bridge (``models/bridge.py``) maps one tree onto the other by rule.
 
 The backbone takes NHWC batches, as the JAX package does; inside, the
 convs run on NCHW views of channels-last memory. Parameters are float32
-and every op runs in ``dtype`` (bfloat16 on the card).
+and every op runs in ``dtype`` (bfloat16 on the card). The model trains
+under grad (the BN statistics stay constant, scale and bias train) and
+serves under ``torch.no_grad`` / ``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.pool import phase_pool
 
@@ -77,11 +80,13 @@ class Conv(nn.Module):
 
 class FrozenBN(nn.Module):
     """Inference-mode BatchNorm over NCHW: trainable ``weight`` (flax
-    ``scale``) and ``bias``, constant ``running_mean``/``running_var``.
-    Computes ``(x - mean) * (scale * rsqrt(var + 1e-5)) + bias`` in
-    float32 and returns ``dtype``, as flax's BatchNorm does. Inference
-    only (under ``torch.no_grad`` or ``torch.inference_mode``): the
-    training path is not ported yet."""
+    ``scale``) and ``bias``, constant ``running_mean``/``running_var``
+    buffers that nothing updates. Computes ``(x - mean) * (scale *
+    rsqrt(var + 1e-5)) + bias`` in float32 and returns ``dtype``, as
+    flax's BatchNorm does. Without grad (``torch.no_grad``,
+    ``torch.inference_mode``) it runs three passes, the last writing
+    straight into ``dtype``; under grad the same formula runs out of
+    place (an ``out=`` add has no backward), to the same bits."""
     eps = 1e-5
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
@@ -93,14 +98,14 @@ class FrozenBN(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         if torch.is_grad_enabled():
-            raise RuntimeError("FrozenBN runs inference only: call the model "
-                               "under torch.no_grad() or torch.inference_mode()")
+            y = (x - self.running_mean.view(shape)) * mul.view(shape)
+            return (y + self.bias.view(shape)).to(self.dtype)
         # three passes: the subtraction promotes x to float32 as it reads
         # it, and the last add writes its float32 sum straight into the
         # output dtype (the same rounding as a separate cast)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = torch.sub(x, self.running_mean.view(shape))
         y.mul_(mul.view(shape))
         return torch.add(y, self.bias.view(shape),
@@ -238,11 +243,12 @@ class ResNetBackbone(nn.Module):
     def __init__(self, depth: int = 50, dtype: torch.dtype = torch.float32,
                  input_mean=(0.485, 0.456, 0.406),
                  input_std=(0.229, 0.224, 0.225),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         if depth not in DEPTH_LAYERS:
             raise ValueError(f"depth must be one of {sorted(DEPTH_LAYERS)}, got {depth}")
-        self.depth, self.dtype = depth, dtype
+        self.depth, self.dtype, self.remat = depth, dtype, remat
         self.input_mean, self.input_std = tuple(input_mean), tuple(input_std)
         # the normalization constants of each input layout live on the
         # model's device (not in the state dict), so a uint8 batch needs
@@ -298,10 +304,14 @@ class ResNetBackbone(nn.Module):
         else:
             x = F.relu(self.bn1(self.conv1(x)))
             x = F.max_pool2d(x, 3, stride=2, padding=1)
+        # remat (flax nn.remat): under grad each residual block keeps only
+        # its input and recomputes its activations in the backward
+        remat = self.remat and torch.is_grad_enabled()
         outs = []
         for stage, names in enumerate(self.stage_names):
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             if stage >= 1:
                 outs.append(x)
         c3, c4, c5 = outs

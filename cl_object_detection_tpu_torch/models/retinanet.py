@@ -33,12 +33,13 @@ class RetinaNet(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  input_mean=(0.485, 0.456, 0.406),
                  input_std=(0.229, 0.224, 0.225),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.dtype = dtype
         self.backbone = ResNetBackbone(depth, dtype, input_mean, input_std,
-                                       generator)
+                                       generator, remat)
         self.fpn = FPN(ResNetBackbone.stage_channels(depth), fpn_channels,
                        dtype, generator)
         self.regression_head = RegressionHead(num_anchors, fpn_channels,
@@ -90,5 +91,5 @@ def create_retinanet(cfg: ModelConfig, num_classes: int, device=None,
         prior=cfg.prior, head_layers=cfg.head_layers,
         dtype=_DTYPES[cfg.compute_dtype],
         input_mean=tuple(cfg.input_mean), input_std=tuple(cfg.input_std),
-        generator=generator)
+        generator=generator, remat=cfg.remat)
     return model.to(device).eval()

@@ -1,5 +1,6 @@
-"""Box math on tensors: pairwise IoU, delta decode and clip (the JAX
-package's ``ops/boxes.py``)."""
+"""Box math on tensors: pairwise IoU, regression-target encode, delta
+decode, clip and the positive-anchor assignment (the JAX package's
+``ops/boxes.py``)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -31,6 +32,22 @@ def _center_form(boxes: torch.Tensor):
     return cx, cy, w, h
 
 
+def encode_boxes(
+    anchors: torch.Tensor,
+    gt: torch.Tensor,
+    std: Sequence[float] = BBOX_STD,
+) -> torch.Tensor:
+    """Regression targets (dx, dy, dw, dh) / std for anchor -> gt. The
+    centers come from the unclamped corners; only the gt width and
+    height are clamped to >= 1."""
+    acx, acy, aw, ah = _center_form(anchors)
+    gcx, gcy, gw, gh = _center_form(gt)
+    gw = gw.clamp(min=1.0)
+    gh = gh.clamp(min=1.0)
+    t = [(gcx - acx) / aw, (gcy - acy) / ah, torch.log(gw / aw), torch.log(gh / ah)]
+    return torch.stack([t[i] / float(std[i]) for i in range(4)], dim=-1)
+
+
 def decode_boxes(
     anchors: torch.Tensor,
     deltas: torch.Tensor,
@@ -58,3 +75,15 @@ def clip_boxes(boxes: torch.Tensor, height: int, width: int) -> torch.Tensor:
         boxes[..., 2].clamp(max=width),
         boxes[..., 3].clamp(max=height),
     ], dim=-1)
+
+
+def positive_assignment(anchors: torch.Tensor, boxes_i: torch.Tensor,
+                        labels_i: torch.Tensor, fg_iou: float = 0.5):
+    """One image's positive-anchor assignment over -1-padded GT:
+    ``(pos_mask (A,), assigned_label (A,))``, invalid GT masked to IoU -1
+    and ties going to the lowest GT index (``torch.argmax`` returns the
+    first maximum)."""
+    iou = pairwise_iou(anchors, boxes_i)
+    iou = torch.where((labels_i >= 0)[None, :], iou, -1.0)
+    pos = iou.amax(dim=1) >= fg_iou
+    return pos, labels_i[iou.argmax(dim=1)]

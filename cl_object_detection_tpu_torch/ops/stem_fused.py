@@ -27,6 +27,15 @@ synchronize instead of returning a wrong result. The model passes the
 packed kernel in every dtype, so the dtype decides the kernel here
 alone; ``stem_fused_f32``, the float32 form's wrapper, takes the
 ``(7,7,3,64)`` kernel (BN scale folded in).
+
+Gradients: ``stem_fused`` is a ``torch.autograd.Function`` (JAX: a
+``custom_vjp``). The forward is the dispatch above; the backward
+recomputes through ``stem_fused_reference`` at the saved
+``(x4, k3, bias4)`` and differentiates that, as JAX's ``_stem_bwd``
+does. There is no backward kernel: on the card the backward is cuDNN's
+conv backward. So the kernel's output, which the launch writes through
+raw pointers, still carries gradients to ``k3`` and ``bias4`` (and from
+there to the stem conv's weight and the stem BN's affines).
 """
 from __future__ import annotations
 
@@ -56,8 +65,12 @@ def _pack_tables():
 @functools.lru_cache(maxsize=8)
 def _pack_index(device: torch.device):
     """The gather indices as tensors on ``device``, copied there once (a
-    host-to-device copy per forward would wait for the stream)."""
-    return tuple(torch.from_numpy(t).to(device) for t in _pack_tables())
+    host-to-device copy per forward would wait for the stream). Made
+    outside inference mode, so that a first call under
+    ``torch.inference_mode`` does not cache tensors a later training
+    backward cannot save."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(t).to(device) for t in _pack_tables())
 
 
 def pack_stem_kernel(k7: torch.Tensor) -> torch.Tensor:
@@ -80,8 +93,9 @@ def _unpack_index(device: torch.device):
     and cols. They broadcast to (7,7,3)."""
     t, al = np.divmod(np.arange(7) + 1, 4)
     c = (al[:, None, None] * 4 + al[None, :, None]) * 3 + np.arange(3)
-    return tuple(torch.from_numpy(i).to(device)
-                 for i in (t[:, None, None], t[None, :, None], c))
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(i).to(device)
+                     for i in (t[:, None, None], t[None, :, None], c))
 
 
 def unpack_stem_kernel(k3: torch.Tensor) -> torch.Tensor:
@@ -103,8 +117,10 @@ def stem_fused_reference(x4: torch.Tensor, k3: torch.Tensor,
     output is rounded to that dtype)."""
     w = k3.permute(3, 2, 0, 1).to(x4.dtype)            # OIHW
     y4 = F.conv2d(x4.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
-    y4 = torch.clamp_min(y4 + bias4.to(y4.dtype), 0)
-    return phase_pool(y4)
+    # torch.maximum, not clamp_min: its gradient at y == 0 is 0.5, as
+    # jnp.maximum's is
+    y4 = y4 + bias4.to(y4.dtype)
+    return phase_pool(torch.maximum(y4, y4.new_zeros(())))
 
 
 def stem_weight_kmajor(k3: torch.Tensor) -> torch.Tensor:
@@ -139,6 +155,25 @@ def _launch(entry: str, x4: torch.Tensor, w: torch.Tensor,
     return out
 
 
+class _StemFused(torch.autograd.Function):
+    """Forward: ``_stem_forward``. Backward: autograd through
+    ``stem_fused_reference`` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x4, k3, bias4):
+        ctx.save_for_backward(x4, k3, bias4)
+        return _stem_forward(x4, k3, bias4)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            out = stem_fused_reference(*inputs)
+            grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad], g))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
 def stem_fused(x4: torch.Tensor, k3: torch.Tensor,
                bias4: torch.Tensor) -> torch.Tensor:
     """Fused stem on a (B, H/4, W/4, 64) NHWC batch -> pooled
@@ -146,7 +181,13 @@ def stem_fused(x4: torch.Tensor, k3: torch.Tensor,
     bfloat16 CUDA tensor launches the tensor-core kernel (counted in
     ``stem_fused.launches``); a float32 one checks ``k3`` on the device
     and runs ``stem_fused_f32`` on its 7x7 kernel; another dtype on the
-    card raises ``TypeError`` (module docstring)."""
+    card raises ``TypeError`` (module docstring). Differentiable in all
+    three inputs through the plain version's backward."""
+    return _StemFused.apply(x4, k3, bias4)
+
+
+def _stem_forward(x4: torch.Tensor, k3: torch.Tensor,
+                  bias4: torch.Tensor) -> torch.Tensor:
     if x4.device.type == "cpu":
         return stem_fused_reference(x4, k3, bias4)
     _check_frame(x4, bias4)

@@ -4,7 +4,10 @@ one, k that is not a multiple of 32, int8 GEMMs with ragged M, N and K
 (every tile width and K split the kernel chooses), int8 convs with
 ragged images, strides and paddings, NMS from k = 1 to 4096 with empty
 and degenerate images, the stem's float32 form and its refusal of a
-kernel that is not packed, and the wrappers' refusals.
+kernel that is not packed, and the wrappers' refusals. Then the train
+path: the stem Function's backward on the card, gradients reaching the
+stem's parameters through the kernel, and one float32 apply on the card
+against the same apply on the CPU.
 
 Marked ``cuda``. Without a CUDA device every test skips: a kernel has no
 CPU mode, and the CPU tests hold the plain versions to the JAX package.
@@ -373,8 +376,7 @@ def test_int8_matmul_wrapper_refuses_what_the_kernel_does_not_take(dev):
     assert im.int8_matmul.launches == before
 
 
-def _small_model(dtype):
-    import copy
+def _small_cpu_model(dtype):
     import math
 
     from cl_object_detection_tpu_torch.config import ModelConfig
@@ -387,6 +389,13 @@ def _small_model(dtype):
         for head in (cpu.classification_head, cpu.regression_head):
             w = head.output.weight
             w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(w[0].numel()))
+    return cpu
+
+
+def _small_model(dtype):
+    import copy
+
+    cpu = _small_cpu_model(dtype)
     return cpu, copy.deepcopy(cpu).to("cuda")
 
 
@@ -451,3 +460,132 @@ def test_quantized_model_on_the_card_runs_only_the_kernel(dev, monkeypatch, dtyp
             corr = np.corrcoef(f_cls.float().cpu().numpy().ravel(),
                                q_cls.float().cpu().numpy().ravel())[0, 1]
             assert corr > 0.98
+
+
+# ---------------------------------------------------------------- training
+
+def test_stem_function_backward_bit_identical_to_plain_autograd(dev, monkeypatch):
+    """The fused stem under autograd on (8,152,208,64) bf16: the forward
+    launches the kernel, and the backward equals autograd through
+    ``stem_fused_reference`` at the same (x4, k3, bias4, g) to the bit
+    (deterministic cuDNN, so both runs pick the same algorithms)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    x, k3, b4 = _stem_inputs(dev, 8, 152, 208, seed=21)
+    g = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(22),
+                    device=dev).to(torch.bfloat16)
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, k3, b4)]
+    before = sf.stem_fused.launches
+    out = sf.stem_fused(*ins)
+    assert sf.stem_fused.launches == before + 1
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ins, g)
+    ref_ins = [t.detach().clone().requires_grad_(True) for t in (x, k3, b4)]
+    want = torch.autograd.grad(sf.stem_fused_reference(*ref_ins), ref_ins, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert float(got[1].float().abs().max()) > 0 and float(got[2].abs().max()) > 0
+
+
+def _train_pieces(dtype, device):
+    from cl_object_detection_tpu_torch.config import FocalConfig, ILConfig, ScheduleConfig
+    from cl_object_detection_tpu_torch.il.losses import LossStatics
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+    from cl_object_detection_tpu_torch.train.optim import make_optimizer
+    from cl_object_detection_tpu_torch.train.state import TrainState
+    from cl_object_detection_tpu_torch.train.step import StepStatics, make_train_step
+
+    model = _small_cpu_model(dtype).to(device)
+    state = TrainState(model, make_optimizer(ScheduleConfig(lr=1e-4, every_iter=1), model))
+    step = make_train_step(model, None, anchors_for_shape(64, 96), ILConfig(), FocalConfig(),
+                           LossStatics(num_classes=3), StepStatics(every_iter=1, grad_clip=0.1))
+    return state, step
+
+
+def _train_batch(device):
+    from cl_object_detection_tpu_torch.data.transforms import space_to_depth
+
+    r = np.random.RandomState(14)
+    img = r.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8)
+    boxes = np.full((2, 4, 4), -1, np.float32)
+    labels = np.full((2, 4), -1, np.int32)
+    boxes[0, :2] = [[4, 6, 40, 44], [30, 10, 80, 50]]
+    labels[0, :2] = [0, 2]
+    boxes[1, 0], labels[1, 0] = [10, 20, 60, 60], 1
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (space_to_depth(img, factor=4), boxes, labels))
+
+
+def test_train_micro_step_on_the_card_reaches_the_stem(dev):
+    """bf16 micro-step on fused uint8 frames: the stem kernel runs once
+    and conv1.weight, bn1.weight and bn1.bias get finite, non-zero
+    gradients (the kernel's output carries the Function's grad_fn)."""
+    from cl_object_detection_tpu_torch.config import FocalConfig, ILConfig
+    from cl_object_detection_tpu_torch.il.losses import LossStatics, compute_losses
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+
+    state, _ = _train_pieces("bfloat16", dev)
+    model = state.model
+    before = (sf.stem_fused.launches, sf.stem_fused_f32.launches)
+    total, _ = compute_losses(model, *_train_batch(dev),
+                              torch.from_numpy(anchors_for_shape(64, 96).copy()).to(dev),
+                              ILConfig(), FocalConfig(), LossStatics(num_classes=3))
+    total.backward()
+    torch.cuda.synchronize()
+    assert (sf.stem_fused.launches, sf.stem_fused_f32.launches) == (before[0] + 1, before[1])
+    assert torch.isfinite(total)
+    bb = model.backbone
+    for name, p in (("conv1.weight", bb.conv1.weight), ("bn1.weight", bb.bn1.weight),
+                    ("bn1.bias", bb.bn1.bias)):
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all() and float(p.grad.abs().max()) > 0, name
+
+
+def test_float32_apply_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """One every_iter=1 apply (clip 0.1, Adam) of the float32 R18 on fused
+    frames, TF32 off, on the card (the stem's float32 form under grad)
+    and on the CPU from the same weights: metrics at rtol 1e-4,
+    gradients at |d| <= 1e-3 |g_cpu| + 1e-4 max|g_cpu| per leaf, and
+    the parameter deltas within 1e-3 lr plus a float32 spacing of the
+    parameter where |g_cpu| >= 1e-3 max|g_cpu| (Adam's first step takes
+    smaller gradients to either sign), everywhere at most lr (1 + 1e-6)
+    plus that spacing: the CPU tests' bars."""
+    from cl_object_detection_tpu_torch.config import FocalConfig, ILConfig
+    from cl_object_detection_tpu_torch.il.losses import LossStatics, compute_losses
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    lr = 1e-4
+    results = []
+    for device in ("cpu", dev):
+        state, step = _train_pieces("float32", device)
+        p0 = {n: p.detach().cpu().numpy().copy() for n, p in state.model.named_parameters()}
+        before = sf.stem_fused_f32.launches
+        # the gradient the apply uses: a micro-step's backward without the apply
+        total, _ = compute_losses(state.model, *_train_batch(device),
+                                  torch.from_numpy(anchors_for_shape(64, 96).copy()).to(device),
+                                  ILConfig(), FocalConfig(), LossStatics(num_classes=3))
+        total.backward()
+        grads = {n: p.grad.cpu().numpy().copy() for n, p in state.model.named_parameters()}
+        state.model.zero_grad(set_to_none=True)
+        state, metrics = step(state, *_train_batch(device))
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+            assert sf.stem_fused_f32.launches == before + 2
+        p1 = {n: p.detach().cpu().numpy() for n, p in state.model.named_parameters()}
+        results.append((grads, {k: float(v) for k, v in metrics.items()},
+                        {k: p1[k] - p0[k] for k in p0}, p0))
+    (g_cpu, m_cpu, d_cpu, p0), (g_dev, m_dev, d_dev, _) = results
+    for k in m_cpu:
+        assert m_dev[k] == pytest.approx(m_cpu[k], rel=1e-4), k
+    for k, w in g_cpu.items():
+        assert (np.abs(g_dev[k] - w) <= 1e-3 * np.abs(w) + 1e-4 * np.abs(w).max()).all(), k
+    for k, w in d_cpu.items():
+        ulp = np.spacing(np.abs(p0[k]))
+        g = np.abs(g_cpu[k])
+        sel = g >= 1e-3 * g.max()
+        assert (np.abs(d_dev[k] - w)[sel] <= (1e-3 * lr + ulp)[sel]).all(), k
+        assert (np.abs(d_dev[k]) <= lr * (1 + 1e-6) + ulp).all(), k
+    assert np.abs(d_dev["backbone.conv1.weight"]).max() > 0

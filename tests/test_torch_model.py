@@ -96,12 +96,27 @@ def test_forward_matches_jax(pair, form):
 
 
 def test_frozen_bn_refuses_grad_mode(pair):
-    """The serving slice ports inference only: a forward with autograd
-    on raises instead of running an untested path."""
+    """Under grad the frozen BN refuses to train its statistics: they are
+    buffers that get no gradient and do not move through a backward,
+    while its scale and bias do get one. The forward with autograd on
+    equals the inference forward to the bit."""
     _, _, tmodel = pair
-    x = torch.zeros(1, H, W, 3)
-    with pytest.raises(RuntimeError, match="inference only"):
-        tmodel(x)
+    x = torch.from_numpy(np.random.RandomState(5).randn(1, H, W, 3).astype(np.float32))
+    stats = {n: b.clone() for n, b in tmodel.named_buffers() if n.endswith(("running_mean", "running_var"))}
+    assert stats
+    with torch.no_grad():
+        want = tmodel(x, enable_act=False)
+    got = tmodel(x, enable_act=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g.detach(), w)
+    (got[0].sum() + got[1].sum()).backward()
+    bn = tmodel.backbone.layer1_0.bn1
+    assert bn.weight.grad is not None and bn.bias.grad is not None
+    for n, b in tmodel.named_buffers():
+        if n in stats:
+            assert not b.requires_grad and b.grad is None
+            assert torch.equal(b, stats[n]), n
+    tmodel.zero_grad(set_to_none=True)
 
 
 def test_bridge_covers_every_leaf_once(pair):
