@@ -83,12 +83,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    memory), and the float32 check: one apply of a small R18 on the card
    (TF32 off, the stem's float32 form under grad) against the same apply
    on the CPU, at the CPU tests' bars.
-8. One JSON line of the kernels, then the ``{"ok": true, ...}`` line.
+8. The trainer through its entry point, ``cli.train.main``, in this
+   process: the port's ``make_toy_dataset`` writes 96 PNG images at
+   375x500 (every third portrait), 20 classes (the VOC names),
+   ``style="separable"``, into a temporary directory; ``main`` trains
+   the bf16 R50 with JAX's own flags only (``--depth 50 --scenario 20
+   --batch_size 8 --every_iter 2 --fused_stem true --transfer_dtype
+   uint8 --start_epoch 1 --end_epoch 2 --save_every 1 --record true``,
+   the rest at the defaults both packages share: 640x1024 frames, lr
+   1e-5, clip 0.1, 2 loader threads, prefetch 2), checkpoints and
+   ``runs/`` in the temporary directory. cuDNN is deterministic for the
+   whole phase. Checks: every total_loss finite; the stem counter equals
+   the micro-steps (24, then 36 after the resume), the NMS and int8
+   ones 0; checkpoints for epochs 1 and 2; the epoch-2 checkpoint's
+   tensors equal the live model's bit for bit. Then ``main`` again with
+   ``--start_epoch 2 --end_epoch 2``: the state right after the resume
+   (parameters, frozen-BN buffers, Adam moments, counts, LR, betas)
+   equals the epoch-1 checkpoint bit for bit and lies on the card, and
+   the first resumed micro-step's total_loss equals the first run's
+   epoch-2 first micro-step within rtol 1e-3. Printed: images/s over
+   epoch 2 (host clock, the loader included) beside phase 7's, the
+   loader's ms per batch and the loop's wait on it, ``run_batch`` alone
+   on one epoch of batches assembled beforehand (ms per micro-step at
+   640x1024), the loader's ms per image by stage, the checkpoint save's
+   blocking ms, the peak memory, and, under ``--profile``, the device's
+   idle share over epoch 2 (``--profile DIR/trainer``; the resumed
+   epoch's trace goes to ``DIR/trainer_resume``).
+9. A ``{"trainer": ...}`` line, the kernels' JSON line, then the
+   ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds a torch.profiler window over two B=32 predicts
 after phases 4 and 5 and over two micro-step pairs (two applies) in
 phase 7: device time by kernel group, the device's idle share, and the
-kernel tables in ``DIR/profile_{predict,predict_int8,train}.txt``.
+kernel tables in ``DIR/profile_{predict,predict_int8,train}.txt``; and
+passes ``--profile DIR/trainer`` to the trainer of phase 8.
 """
 from __future__ import annotations
 
@@ -1175,6 +1203,322 @@ def check_train_f32_small() -> None:
         raise AssertionError("the float32 train step on the card disagrees with the CPU")
 
 
+VOC_CLASSES = ("aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
+               "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
+               "pottedplant", "sheep", "sofa", "train", "tvmonitor")
+TRAINER_IMAGES = 96              # 64 landscape + 32 portrait: 12 micro-steps per epoch at B=8
+
+
+def trainer_path(step_ips: float, profile_dir: str | None = None) -> dict:
+    """Phase 8: the trainer through ``cli.train.main`` on a toy dataset."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.cli.train import main as train_main
+    from cl_object_detection_tpu_torch.utils.checkpoint import host_copy
+    from cl_object_detection_tpu_torch.utils.toydata import make_toy_dataset
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "data")
+        json_path = make_toy_dataset(data, num_images=TRAINER_IMAGES, classes=VOC_CLASSES,
+                                     image_size=(375, 500), seed=0, style="separable")
+        log(f"trainer: toy dataset of {TRAINER_IMAGES} PNG images (375x500, every third "
+            f"portrait, 20 classes) written in {time.perf_counter() - t0:.2f} s")
+        args = ["--root_dir", os.path.join(tmp, "run"), "--train_json", json_path,
+                "--image_dir", os.path.join(data, "images"), "--depth", "50",
+                "--scenario", "20", "--start_state", "0", "--batch_size", "8",
+                "--every_iter", "2", "--fused_stem", "true", "--transfer_dtype", "uint8",
+                "--save_every", "1", "--record", "true"]
+        if profile_dir:
+            args += ["--profile", os.path.join(profile_dir, "trainer")]
+
+        # ---- this path: counters at 0 -> two epochs through cli.train ----
+        zero_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = train_main(args + ["--start_epoch", "1", "--end_epoch", "2"])
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        losses = np.asarray(tr.loss_hist, np.float64)
+        steps = len(losses)
+        log(f"trainer: 2 epochs through cli.train.main in {run_s:.2f} s (model build, "
+            f"2 checkpoints and the loader included); {steps} micro-steps; launches {counts}; "
+            f"total_loss first {losses[0]:.5g}, last {losses[-1]:.5g}")
+        if steps != 24 or not np.isfinite(losses).all():
+            raise AssertionError(f"{steps} micro-steps (want 24) or a non-finite loss: {losses}")
+        if counts["stem_fused"] != steps:
+            raise AssertionError(f"{counts['stem_fused']} stem launches in {steps} micro-steps")
+        if any(counts[k] for k in ("stem_fused_f32", "nms_fp", "int8_matmul", "int8_conv_nhwc")):
+            raise AssertionError("the trainer launched another kernel than the bf16 stem")
+        if tr.ckpt.epochs(0) != [1, 2]:
+            raise AssertionError(f"checkpoints {tr.ckpt.epochs(0)}, want epochs 1 and 2")
+        saved2 = tr.ckpt.restore(0, 2)[0]["model"]
+        live = tr.model.state_dict()
+        same2 = set(saved2) == set(live) and all(
+            torch.equal(saved2[k], live[k].cpu()) for k in live)
+        if not same2:
+            raise AssertionError("the epoch-2 checkpoint differs from the live model")
+        ep2 = tr.epoch_log[1]
+        ips = ep2["images"] / ep2["train_s"]
+        saves = [r["save_blocking_s"] * 1e3 for r in tr.epoch_log]
+        log(f"trainer epoch 2 (R50 bf16 640x1024 B=8 every_iter=2 fused-stem uint8, "
+            f"deterministic cuDNN): {ep2['micro_steps']} micro-steps in {ep2['train_s']:.3f} s, "
+            f"{ips:.2f} images/s (host clock, loader included; phase 7's step alone at "
+            f"608x832: {step_ips:.2f}); loader {ep2['loader_batch_s'] * 1e3:.1f} ms per batch "
+            f"in its thread, the loop waited {ep2['loader_wait_s'] * 1e3:.1f} ms on it in "
+            f"all; checkpoint save blocking {', '.join(f'{x:.1f}' for x in saves)} ms "
+            f"(epochs 1, 2); peak memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB "
+            f"resident before the phase); epoch 2's checkpoint equals the live model: {same2}")
+        idle = None
+        if profile_dir:
+            with open(os.path.join(profile_dir, "trainer", "summary.json")) as f:
+                summary = _json.load(f)
+            idle = summary["idle_share"]
+            if idle is None:
+                raise AssertionError("the profiler recorded no device time over epoch 2")
+            log(f"trainer epoch 2 under the profiler: device busy "
+                f"{summary['device_busy_ms']:.1f} ms of {summary['wall_ms']:.1f} ms wall, "
+                f"idle share {idle:.3f}")
+
+        # ---- resume from epoch 1, train epoch 2 again ----
+        # what a resume restores, read from a trainer of the resumed run's
+        # flags; then the run itself through cli.train
+        probe = trainer_from_flags(args + ["--start_epoch", "2", "--end_epoch", "2"])
+        probe.resume(0, 1)
+        restored = dict(
+            device={next(probe.model.parameters()).device.type} | {
+                s["mu"].device.type for s in probe.optimizer.state.values()},
+            model=host_copy(probe.model.state_dict()),
+            optimizer=host_copy(probe.optimizer.state_dict()))
+        del probe
+        if profile_dir:
+            args[args.index("--profile") + 1] = os.path.join(profile_dir, "trainer_resume")
+        tr2 = train_main(args + ["--start_epoch", "2", "--end_epoch", "2"])
+        counts2 = read_counts()
+        want = tr.ckpt.restore(0, 1)[0]
+        same_model = all(torch.equal(restored["model"][k], want["model"][k])
+                         for k in want["model"]) and set(restored["model"]) == set(want["model"])
+        ro, wo = restored["optimizer"], want["optimizer"]
+        same_opt = ro["param_groups"] == wo["param_groups"] and set(ro["state"]) == set(
+            wo["state"]) and all(torch.equal(ro["state"][i][m], wo["state"][i][m])
+                                 for i in wo["state"] for m in ("mu", "nu"))
+        first_run, resumed = tr.loss_hist[12], tr2.loss_hist[12]
+        rel = abs(resumed - first_run) / abs(first_run)
+        log(f"trainer resume from epoch 1: parameters and buffers equal the checkpoint "
+            f"{same_model}, Adam moments, counts, LR and betas {same_opt}, on "
+            f"{sorted(restored['device'])}; first resumed micro-step total_loss "
+            f"{resumed:.7g} vs the first run's {first_run:.7g} (relative {rel:.3g}, bar 1e-3); "
+            f"stem launches {counts2['stem_fused']} after the resume")
+        if not (same_model and same_opt and restored["device"] == {"cuda"}):
+            raise AssertionError("the resumed state differs from the epoch-1 checkpoint")
+        if not rel <= 1e-3:
+            raise AssertionError("the resumed micro-step's loss differs from the first run's")
+        if counts2["stem_fused"] != 36 or len(tr2.loss_hist) != 24 or not np.isfinite(
+                np.asarray(tr2.loss_hist)).all():
+            raise AssertionError(f"resume: {counts2['stem_fused']} stem launches (want 36)")
+        if any(counts2[k] for k in ("stem_fused_f32", "nms_fp", "int8_matmul", "int8_conv_nhwc")):
+            raise AssertionError("the resumed trainer launched another kernel than the bf16 stem")
+        step_ms, stages = trainer_step_and_loader_split(tr)
+        return dict(images_per_s_epoch2=ips, step_only_images_per_s=step_ips,
+                    loader_ms_per_batch=ep2["loader_batch_s"] * 1e3,
+                    loader_wait_ms_epoch2=ep2["loader_wait_s"] * 1e3,
+                    save_blocking_ms=saves, peak_gib=peak / 2**30, idle_share_epoch2=idle,
+                    step_only_ms_640x1024=step_ms, loader_split=stages,
+                    micro_steps=steps + 12, stem_launches=counts2["stem_fused"],
+                    resumed_loss_rel=rel)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def trainer_from_flags(argv):
+    """An ``ILTrainer`` on the card from ``cli.train``'s flags, built as
+    ``cli.train.main`` builds it (no training)."""
+    import argparse
+
+    from cl_object_detection_tpu_torch import resolve_device
+    from cl_object_detection_tpu_torch.cli.common import (add_train_flags, args_to_config,
+                                                           resolve_dataset_paths)
+    from cl_object_detection_tpu_torch.train.trainer import ILTrainer
+
+    parser = argparse.ArgumentParser()
+    add_train_flags(parser)
+    a = parser.parse_args(argv)
+    return ILTrainer(args_to_config(a), *resolve_dataset_paths(a, "train"),
+                     workdir=a.root_dir, device=resolve_device(None))
+
+
+def check_stem_at_trainer_frames(tr, batches) -> float:
+    """The stem kernel on the inputs the trainer's model gives it, for one
+    landscape and one portrait batch of the trainer's loader, against the
+    plain version: within 2 bf16 ulps, as ``check_stem``. Returns the
+    largest |difference|."""
+    import torch
+
+    from cl_object_detection_tpu_torch.ops import stem_fused as sf
+
+    stem = tr.model.backbone.conv1
+    seen = {}
+
+    def grab(module, args, kwargs):
+        seen.update(x=args[0], scale=kwargs["bn_scale"], bias=kwargs["bn_bias"])
+
+    err = 0.0
+    for kind, pick in (("landscape", lambda hw: hw[0] < hw[1]),
+                       ("portrait", lambda hw: hw[0] > hw[1])):
+        batch = next(b for b in batches if pick(b.images.shape[1:3]))
+        hook = stem.register_forward_pre_hook(grab, with_kwargs=True)
+        try:
+            with torch.no_grad():
+                tr.model.backbone(torch.from_numpy(batch.images).to(stem.weight.device))
+        finally:
+            hook.remove()
+        with torch.no_grad():
+            # the packed kernel and bias as StemConv.forward makes them
+            k3 = sf.pack_stem_kernel((stem.weight.permute(2, 3, 1, 0) * seen["scale"])
+                                     .to(stem.dtype))
+            b4 = seen["bias"].repeat(4)
+            got = sf.stem_fused(seen["x"], k3, b4)
+            ref = sf.stem_fused_reference(seen["x"], k3, b4)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs()
+        bad = int((diff > 2 * bf16_ulp(ref.float().abs() + b4.abs().max())).sum())
+        err = max(err, float(diff.max()))
+        log(f"stem at the trainer's {kind} frames {tuple(seen['x'].shape)} "
+            f"{seen['x'].dtype}: max_abs_err {float(diff.max()):.6g}, values beyond "
+            f"2 bf16 ulps: {bad} of {diff.numel()}")
+        if bad or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"stem kernel disagrees with the plain version at the "
+                                 f"trainer's {kind} frames")
+    return err
+
+
+def trainer_step_and_loader_split(tr) -> tuple:
+    """In the trainer's own process: ms per micro-step of ``run_batch``
+    alone (pin, copy and step) on one epoch of batches assembled
+    beforehand; the trainer's loader alone over that epoch (its threads,
+    no step beside it) and the same loader on one thread, per batch; per
+    image, ``load_image`` (PNG decode, to float) against the rest of the
+    loader's example (flip, resize and pad, uint8 rounding, 4x4
+    space-to-depth); the stem at the trainer's frames; and
+    ``png_decode_times``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.data.loader import BatchLoader
+
+    loader = tr.train_loader
+    loader.set_epoch(3)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    threads_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    threads_assemble_ms = float(np.mean(loader.batch_seconds)) * 1e3
+    stem_err = check_stem_at_trainer_frames(tr, batches)
+    tr.run_batch(batches[0], sync_metrics=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        m = tr.run_batch(b, sync_metrics=False)
+    float(m["total_loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+
+    one = BatchLoader(tr.dataset_train, dataclasses.replace(tr.cfg.data, num_workers=0,
+                                                            prefetch=0),
+                      shuffle=True, augment=True, seed=tr.cfg.seed)
+    one.set_epoch(3)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in one)
+    one_ms = (time.perf_counter() - t0) / n * 1e3
+    ds = tr.dataset_train
+    rng = np.random.RandomState(0)
+    load_ms = example_ms = 0.0
+    for i in range(8):
+        t0 = time.perf_counter()
+        ds.load_image(i)
+        t1 = time.perf_counter()
+        one._make_example(i, rng)
+        t2 = time.perf_counter()
+        load_ms += (t1 - t0) * 1e3 / 8
+        example_ms += (t2 - t1) * 1e3 / 8
+    stages = dict(load_image=load_ms, rest_of_example=example_ms - load_ms)
+    log(f"trainer split: run_batch alone on assembled batches (pin, copy, step) "
+        f"{step_ms:.1f} ms per micro-step at 640x1024, {8e3 / step_ms:.2f} images/s; the "
+        f"loader alone, {tr.cfg.data.num_workers} threads: {threads_ms:.1f} ms per batch "
+        f"({threads_assemble_ms:.1f} ms to assemble one); one thread: {one_ms:.1f} ms per "
+        f"batch; per image on one thread: load_image (PNG decode, to float) {load_ms:.2f} "
+        f"ms, the rest of the example (flip, resize and pad, uint8 rounding, "
+        f"space-to-depth) {example_ms - load_ms:.2f} ms")
+
+    decode = png_decode_times(f"{ds.image_dir}/{ds.coco.imgs[ds.image_ids[0]]['file_name']}")
+    return step_ms, dict(stages, loader_threads_ms_per_batch=threads_ms,
+                         loader_one_thread_ms_per_batch=one_ms, stem_max_abs_err=stem_err,
+                         decode_ms=decode)
+
+
+def png_decode_times(path: str) -> dict:
+    """ms per ``decode_image`` call at a toy image's size: the port's own
+    PNG (filter type 0); OpenCV's PNG of the toy image (OpenCV filters
+    every row with Sub by default); PIL's PNG of a smooth image (PIL picks
+    each row's filter, Paeth included, which goes to a library)."""
+    import io
+    import zlib
+
+    import numpy as np
+
+    from cl_object_detection_tpu_torch.data import image_io
+
+    img = image_io.read_image(path)
+    h, w = img.shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 127 // (h + w)],
+                      -1).astype(np.uint8)
+    blobs = [("the port's own PNG of the toy image", image_io.encode_png(img), img)]
+    try:
+        import cv2
+    except ImportError:
+        log("png decode: no OpenCV on this machine")
+    else:
+        ok, enc = cv2.imencode(".png", np.ascontiguousarray(img[:, :, ::-1]))
+        blobs.append(("OpenCV's PNG of the toy image", enc.tobytes(), img))
+    try:
+        from PIL import Image
+    except ImportError:
+        log("png decode: no PIL on this machine")
+    else:
+        buf = io.BytesIO()
+        Image.fromarray(smooth).save(buf, format="PNG")
+        blobs.append(("PIL's PNG of a smooth image", buf.getvalue(), smooth))
+    out = {}
+    for name, blob, want in blobs:
+        rows = np.frombuffer(zlib.decompress(b"".join(
+            body for kind, body in image_io._chunks(blob) if kind == b"IDAT")), np.uint8)
+        filters = np.bincount(rows.reshape(h, -1)[:, 0], minlength=5).tolist()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            got = image_io.decode_image(blob)
+        out[name] = (time.perf_counter() - t0) * 1e2
+        if not np.array_equal(got, want):
+            raise AssertionError(f"decode_image of {name} differs from the image")
+        log(f"png decode at {h}x{w}: {name}, rows by filter type 0-4 {filters}: "
+            f"{out[name]:.2f} ms per decode_image")
+    return out
+
+
 # kernel-name fragments -> the part of the predict or train path they belong to
 _KERNEL_GROUPS = (
     ("stem_fused", ("stem_fused",)),
@@ -1231,13 +1575,14 @@ def profile_run(run, out_dir: str, table_name: str, what: str) -> None:
 def main() -> int:
     import argparse
 
+    t_start = time.perf_counter()
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="also profile the float and the int8 B=32 "
-                             "predicts and the train step, and write their "
-                             "kernel tables under DIR")
+                             "predicts, the train step and the trainer's second "
+                             "epoch, and write their tables under DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1266,6 +1611,9 @@ def main() -> int:
     quantized_path(results, ctx, args.profile)
     f32_path(results, ctx)
     train = train_path(ctx, args.profile)
+    del ctx
+    torch.cuda.empty_cache()
+    trainer = trainer_path(train["images_per_s"], args.profile)
 
     kernels = []
     for r in results.values():
@@ -1274,7 +1622,9 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     log(smi)
     log(json.dumps({"train": train}))
+    log(json.dumps({"trainer": trainer}))
     log(json.dumps({"kernels": kernels}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,12 +4,14 @@ The JAX package stays the reference; this package keeps its module layout
 and names so each module's counterpart is easy to find. It imports
 neither JAX nor the JAX package.
 
-This slice carries the serving path: the RetinaNet forward
-(ResNet-18..152 + FPN + heads, with the 4x4 space-to-depth fused stem),
-float or int8 (``quantize=True``), logit top-k, decode, clip and
-class-aware NMS, behind ``eval.predictor.make_predict_fn`` and
-``cli.serve``. Three hand-written CUDA kernels for ``sm_90a`` carry it on
-the card: the fused stem (``ops/stem_fused.py`` + ``csrc/stem_fused.cu``),
+Ported so far: the serving path (the RetinaNet forward, ResNet-18..152
++ FPN + heads with the 4x4 space-to-depth fused stem, float or int8
+with ``quantize=True``, logit top-k, decode, clip and class-aware NMS,
+behind ``eval.predictor.make_predict_fn`` and ``cli.serve``), the
+state-0 train step (``train.step.make_train_step``) and the state-0
+trainer with its data layer and checkpoints (``train.trainer.ILTrainer``,
+``train.loop.train_process``, ``cli.train``). Three hand-written CUDA
+kernels for ``sm_90a`` carry it on the card: the fused stem (``ops/stem_fused.py`` + ``csrc/stem_fused.cu``),
 the batched fixed-point NMS (``ops/nms_fp.py`` + ``csrc/nms_fp.cu``) and
 the int8 kernel of the quantized convs, a GEMM that can gather a conv's
 patches itself (``ops/int8_matmul.py`` + ``csrc/int8_matmul.cu``, behind

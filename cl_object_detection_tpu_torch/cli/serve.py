@@ -16,8 +16,12 @@ the class count comes from the weights. ``--quantize`` runs the int8
 convs of ``ops/quant.py``; ``--from_export`` (the JAX package's
 exported-artifact path) is not ported and is refused.
 
+Request bodies are decoded by ``data/image_io.decode_image``: PNG
+without any image library, JPEG and the rest through OpenCV or PIL when
+one is installed.
+
 API:
-  POST /detect      body: raw JPEG/PNG bytes
+  POST /detect      body: raw PNG/JPEG bytes
                     -> {"detections": [{"box": [x1,y1,x2,y2],
                         "score": s, "class_id": c}, ...]}
   GET  /healthz     -> ok
@@ -28,8 +32,10 @@ import argparse
 import dataclasses
 import json
 import queue
+import struct
 import threading
 import time
+import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
 
@@ -168,7 +174,8 @@ def main(argv=None):
 
     from .. import resolve_device
     from ..config import DataConfig, ModelConfig, PredictConfig
-    from ..data.transforms import normalize_image, space_to_depth
+    from ..data.image_io import decode_image
+    from ..data.transforms import normalize_image, resize_bilinear, space_to_depth
     from ..eval.predictor import make_predict_fn
     from ..models.bridge import load_jax_variables, load_npz
     from ..models.retinanet import create_retinanet
@@ -208,12 +215,10 @@ def main(argv=None):
     def letterbox(img):
         """Fit any orientation into the landscape serving frame (scale =
         min(H/h, W/w), zero pad), in the handler thread."""
-        import cv2
-
         h, w = img.shape[:2]
         scale = min(height / h, width / w)
         nh, nw = int(h * scale), int(w * scale)
-        resized = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)
+        resized = resize_bilinear(img, nh, nw)
         out = np.zeros((height, width, 3), np.uint8 if uint8 else np.float32)
         if uint8:
             out[:nh, :nw] = np.clip(np.round(resized * 255.0), 0, 255)
@@ -255,22 +260,20 @@ def main(argv=None):
                 self.end_headers()
 
         def do_POST(self):
-            import cv2
-
             if self.path != "/detect":
                 self.send_response(404)
                 self.end_headers()
                 return
             length = int(self.headers.get("Content-Length", 0))
-            arr = np.frombuffer(self.rfile.read(length), np.uint8)
-            bgr = cv2.imdecode(arr, cv2.IMREAD_COLOR)
-            if bgr is None:
+            try:
+                rgb = decode_image(self.rfile.read(length), name="request body")
+            except (ValueError, ImportError, zlib.error, struct.error) as e:
                 self.send_response(400)
+                self.send_header("Content-Type", "application/json")
                 self.end_headers()
-                self.wfile.write(b'{"error": "undecodable image"}')
+                self.wfile.write(json.dumps({"error": f"undecodable image: {e}"}).encode())
                 return
-            rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB).astype(np.float32) / 255
-            frame, scale = letterbox(rgb)
+            frame, scale = letterbox(rgb.astype(np.float32) / 255)
             out = submit(work, frame, scale, a.request_ttl)
             if out is None:
                 self.send_response(503)

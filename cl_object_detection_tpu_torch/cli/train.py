@@ -1,0 +1,90 @@
+"""Training CLI (the JAX package's ``cli/train.py``).
+
+    python -m cl_object_detection_tpu_torch.cli.train \\
+        --train_json data/train.json --image_dir data/images \\
+        --scenario 20 --depth 50 --batch_size 8 --fused_stem true \\
+        --transfer_dtype uint8 --end_epoch 2 [--cpu]
+
+The JAX package's flags; the dataset layout is
+<root_dir>/<dataset>/{train,test}.json + images/ (or explicit
+--train_json / --image_dir). Runs on the CUDA device unless ``--cpu`` is
+given, and raises when there is none. Writes ``params.json`` beside the
+checkpoints, resumes a ``--start_epoch`` > 1 from the newest checkpoint
+at or below the epoch before it, and trains state 0. Flags for what the
+port lacks (states >= 1, --val, multi-device) are refused naming the
+ROADMAP item. ``main`` returns the trainer.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    from .common import (add_train_flags, args_to_config, print_il_info,
+                         refuse_unported, resolve_dataset_paths)
+
+    add_train_flags(parser)
+    a = parser.parse_args(argv)
+    refuse_unported(parser, a)
+    cfg = args_to_config(a)
+
+    import torch
+
+    from .. import resolve_device
+    from ..train.loop import train_process
+    from ..train.trainer import ILTrainer
+    from ..utils.profiling import stop_trace_guarded
+    from ..utils.recorder import Recorder
+
+    device = resolve_device("cpu" if a.cpu else None)
+    if cfg.debug:
+        # fail at the operation whose backward produced a NaN
+        torch.autograd.set_detect_anomaly(True)
+
+    train_json, image_dir = resolve_dataset_paths(a, "train")
+    trainer = ILTrainer(cfg, train_json, image_dir, workdir=a.root_dir, device=device)
+    if a.print_il_info:
+        print_il_info(cfg, trainer.states)
+
+    # the config beside the checkpoints
+    cfg_path = os.path.join(trainer.ckpt.state_dir(cfg.il.start_state), "params.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+
+    recorder = Recorder(
+        log_root=os.path.join(a.root_dir, "runs"),
+        scenario_tag="_".join(str(s) for s in cfg.il.scenario),
+        description=cfg.description,
+        enabled=cfg.record,
+    )
+    try:
+        # resume: start_epoch > 1 restores that state's checkpoint; with
+        # --save_every k>1 the exact epoch may be missing, so the newest
+        # saved epoch <= start_epoch-1 stands in and the loop restarts there
+        if a.start_epoch and a.start_epoch > 1:
+            actual = trainer.ckpt.nearest_epoch(cfg.il.start_state, a.start_epoch - 1)
+            if actual is None:
+                raise FileNotFoundError(
+                    f"--start_epoch {a.start_epoch}: no checkpoint at or below "
+                    f"epoch {a.start_epoch - 1} for state {cfg.il.start_state}")
+            if actual != a.start_epoch - 1:
+                print(f"--start_epoch {a.start_epoch}: epoch {a.start_epoch - 1} "
+                      f"not saved; resuming from epoch {actual}")
+                cfg = cfg.replace(start_epoch=actual + 1)
+                trainer.cfg = cfg
+            trainer.resume(cfg.il.start_state, actual)
+        train_process(trainer, recorder)
+    finally:
+        # close a profiler trace left open by a mid-epoch exception
+        stop_trace_guarded()
+        recorder.close()
+        if cfg.debug:
+            torch.autograd.set_detect_anomaly(False)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,20 @@
-"""Configuration dataclasses of the serving path and the train step.
+"""The typed configuration tree.
 
-Own copies of ``ModelConfig``, ``DataConfig``, ``PredictConfig``,
-``FocalConfig``, ``ScheduleConfig`` and ``ILConfig`` (with the method
-configs it holds) from the JAX package's ``config.py``, with the same
-fields and defaults, so a run's ``params.json`` reads into either
-package unchanged.
+Own copies of every dataclass of the JAX package's ``config.py``
+(``ModelConfig``, ``DataConfig``, ``PredictConfig``, ``FocalConfig``,
+``ScheduleConfig``, ``WarmupConfig``, ``ILConfig`` with the method
+configs it holds, ``MeshConfig`` and ``TrainConfig``) with the same
+fields and defaults, and of its (de)serialization and dotted-path
+overrides, so ``TrainConfig().to_json()`` is the JAX package's string
+and a run's ``params.json`` reads into either package unchanged.
+``MeshConfig`` is carried as data: the trainer refuses ``enabled``.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -106,6 +111,16 @@ class ScheduleConfig:
     beta1: float = 0.9
     beta2: float = 0.999
     classifier_lr_scale: float = 1.0   # second Adam group (output conv)
+
+
+@dataclass(frozen=True)
+class WarmupConfig:
+    """Staged layer unfreezing: each stage trains ONLY
+    'output' (the classification output conv), 'fpn' (both heads) or
+    'resnet' (the FPN and both heads)."""
+    warm_stage: int = 0
+    warm_epoch: Tuple[int, ...] = (10, 10)
+    warm_layers: Tuple[str, ...] = ("output", "resnet")
 
 
 @dataclass(frozen=True)
@@ -211,3 +226,117 @@ class ILConfig:
     clip_replay_cls_loss: float = 0.003
 
     final_correction: bool = False
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout of multi-device training (ROADMAP §1 item 6:
+    not ported; the trainer raises when ``enabled``)."""
+    enabled: bool = False
+    data_axis: str = "data"
+    model_axis: str = "model"
+    num_data: int = -1                 # -1: all devices on the data axis
+    num_model: int = 1
+    zero1: bool = False                # shard the Adam moments over data
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    focal: FocalConfig = field(default_factory=FocalConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
+    warmup: WarmupConfig = field(default_factory=WarmupConfig)
+    il: ILConfig = field(default_factory=ILConfig)
+    predict: PredictConfig = field(default_factory=PredictConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    seed: int = 0
+    start_epoch: Optional[int] = None
+    end_epoch: Optional[int] = None
+    checkpoint_dir: str = "checkpoint"
+    keep_every: int = 5                # retention: keep epoch%5==0 + latest
+    save_every: int = 1                # checkpoint every N epochs (+ final)
+    async_checkpoint: bool = True      # copy to the host, write in a thread
+                                       # (atomic rename): the loop goes on
+    record: bool = True                # metric recording (TSV/TensorBoard)
+    profile_dir: Optional[str] = None  # torch.profiler trace of the SECOND
+                                       # training epoch into this dir
+    description: str = "None"
+    debug: bool = False
+    val_after_train: bool = False
+    output_examplar: bool = True
+    # seed this run from a reference .pt checkpoint: weights always; Adam
+    # moments + scheduler LR too on a same-state resume (start_epoch > 1).
+    # trust_torch_ckpt permits full unpickling, which executes code in
+    # the file.
+    torch_ckpt: Optional[str] = None
+    trust_torch_ckpt: bool = False
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @staticmethod
+    def from_json(text: str) -> "TrainConfig":
+        return _from_dict(TrainConfig, json.loads(text))
+
+
+def _from_dict(cls, d):
+    if not dataclasses.is_dataclass(cls):
+        return d
+    kwargs = {}
+    hints = {f.name: f for f in dataclasses.fields(cls)}
+    for key, value in d.items():
+        if key not in hints:
+            raise KeyError(f"unknown config field {cls.__name__}.{key}")
+        f = hints[key]
+        default = (f.default_factory() if f.default_factory is not dataclasses.MISSING
+                   else None)
+        if dataclasses.is_dataclass(default):
+            kwargs[key] = _from_dict(type(default), value)
+        elif isinstance(value, list):
+            kwargs[key] = tuple(tuple(v) if isinstance(v, list) else v for v in value)
+        else:
+            kwargs[key] = value
+    return cls(**kwargs)
+
+
+def apply_overrides(cfg: TrainConfig, overrides: Sequence[Tuple[str, Any]]) -> TrainConfig:
+    """Apply dotted-path overrides, e.g. ``("il.mas.enabled", True)``."""
+    for path, value in overrides:
+        cfg = _set_path(cfg, path.split("."), value)
+    return cfg
+
+
+def _set_path(node, parts, value):
+    name = parts[0]
+    if not hasattr(node, name):
+        raise KeyError(f"unknown config path segment {name!r} on {type(node).__name__}")
+    if len(parts) == 1:
+        value = _coerce(getattr(node, name), value)
+        return dataclasses.replace(node, **{name: value})
+    child = _set_path(getattr(node, name), parts[1:], value)
+    return dataclasses.replace(node, **{name: child})
+
+
+def _coerce(current, value):
+    if isinstance(value, str):
+        if isinstance(current, bool):
+            return value.lower() in ("1", "true", "yes", "t")
+        if isinstance(current, int) and not isinstance(current, bool):
+            return int(value)
+        if isinstance(current, float):
+            return float(value)
+        if isinstance(current, tuple):
+            items = [v for v in value.replace(",", " ").split() if v]
+            if current and isinstance(current[0], int):
+                return tuple(int(v) for v in items)
+            if current and isinstance(current[0], float):
+                return tuple(float(v) for v in items)
+            return tuple(items)
+    if isinstance(value, list):
+        return tuple(value)
+    return value

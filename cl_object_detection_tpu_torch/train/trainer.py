@@ -1,11 +1,57 @@
-"""The IL trainer (the JAX package's ``train/trainer.py``). This slice
-carries the warm-stage gradient mask the train step takes; ``ILTrainer``
-is ROADMAP §1 item 2."""
+"""The IL trainer (the JAX package's ``train/trainer.py``) at state 0.
+
+``ILTrainer`` owns the datasets, the model and its optimizer on the
+device ``resolve_device`` gives, the train-step variants, the warm-up
+stages, the LR schedule, the checkpoints and the resume:
+
+  * a train step per (batch kind, warm stage, state, canonical frame,
+    prototype phase), built by ``train.step.make_train_step``;
+  * warm-up staged freezing as gradient masks (``trainable_mask``);
+  * each ``Batch`` goes to the device once per micro-step through pinned
+    memory, with a non-blocking copy;
+  * checkpoints through ``utils/checkpoint.CheckpointManager``; a
+    mid-state resume restores the parameters, the frozen-BN buffers, the
+    Adam moments, counts, LR and betas of both groups, the micro-step
+    count and the running-loss window;
+  * ``--pretrained`` (torchvision backbone) and ``--torch_ckpt`` (a
+    reference-trained RetinaNet, plus its Adam state on a mid-state
+    resume) seed the model through ``models/convert.py``.
+
+States >= 1 (and so the cross-state entry, replay, distillation, BiC,
+MAS, A-GEM, prototypes and pseudo-labels, which only act there) raise
+``NotImplementedError`` naming ROADMAP §1 item 4; ``MeshConfig.enabled``
+raises naming item 6.
+"""
 from __future__ import annotations
 
-from typing import Dict, Optional
+import collections
+import os
+import time
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
+
+from .. import resolve_device
+from ..config import TrainConfig
+from ..data.coco import CocoJson
+from ..data.dataset import ILDataset
+from ..data.loader import BatchLoader
+from ..data.transforms import logical_image_hw
+from ..il.losses import LossStatics
+from ..models.retinanet import create_retinanet
+from ..ops.anchors import anchors_for_shape
+from ..states import ILStates
+from ..utils.checkpoint import CheckpointManager
+from .optim import lr_at_epoch, make_optimizer, set_beta1, set_learning_rate
+from .state import TrainState
+from .step import StepStatics, make_train_step
+
+STATES_NOT_PORTED = ("incremental states (start_state or end_state >= 1: classifier "
+                     "expansion, distillation, replay, BiC, MAS, A-GEM, prototypes, "
+                     "pseudo-labels) are not ported yet: ROADMAP §1 item 4")
+MESH_NOT_PORTED = ("multi-device training (MeshConfig.enabled, the mesh and "
+                   "multi-process flags) is not ported yet: ROADMAP §1 item 6")
 
 WARM_WHITE_LIST = {
     # which parameter-name prefixes TRAIN in each warm stage
@@ -26,3 +72,316 @@ def trainable_mask(model: torch.nn.Module,
     allow = WARM_WHITE_LIST[warm_kind]
     return {name: 1.0 if name.startswith(allow) else 0.0
             for name, _ in model.named_parameters()}
+
+
+class ILTrainer:
+    def __init__(self, cfg: TrainConfig, train_json: str, image_dir: str,
+                 workdir: str = ".", device=None):
+        if cfg.mesh.enabled:
+            raise NotImplementedError(MESH_NOT_PORTED)
+        end_state = cfg.il.end_state
+        if cfg.il.start_state >= 1 or (end_state is not None and end_state > cfg.il.start_state):
+            raise NotImplementedError(STATES_NOT_PORTED)
+        self.cfg = cfg
+        self.workdir = workdir
+        self.device = resolve_device(device)
+        self.coco = CocoJson(train_json)
+        self.image_dir = image_dir
+        self.states = ILStates(
+            list(self.coco.classes.values()),
+            self.coco.classes_inverse,
+            list(cfg.il.scenario),
+            shuffle_class=cfg.il.shuffle_class,
+            shuffle_seed=cfg.il.shuffle_seed,
+        )
+        self.cur_state = cfg.il.start_state
+        self.cur_epoch = 0
+        self.end_epoch = 0
+        self.cur_warm_stage = -1
+        self._warm_kind: Optional[str] = None
+        self._trainable = None
+        self._steps: Dict[Any, Any] = {}
+        self._beta_is_replay: Optional[bool] = None
+        # the 500-deep running-loss window of full per-batch losses,
+        # persisted in the checkpoint and restored on a mid-state resume
+        self.loss_hist: collections.deque = collections.deque(maxlen=500)
+        # per-epoch timing records of train_process (train/loop.py)
+        self.epoch_log: List[Dict[str, float]] = []
+        self.save_blocking_s: Optional[float] = None
+
+        self.ckpt = CheckpointManager(
+            os.path.join(workdir, cfg.checkpoint_dir), cfg.il.scenario,
+            cfg.keep_every,
+        )
+
+        # datasets ------------------------------------------------------
+        self.dataset_train = ILDataset(
+            self.coco, self.states, image_dir, split="train",
+            start_state=self.cur_state, use_data_ratio=cfg.data.use_data_ratio,
+        )
+        self.replay_loader: Optional[BatchLoader] = None
+
+        # model ---------------------------------------------------------
+        h, w = cfg.data.height, cfg.data.width
+        self._anchors_cache: Dict[Any, np.ndarray] = {}
+        self._anchors_at(h, w)
+        self._anchors_at(w, h)
+
+        start_epoch = cfg.start_epoch or 1
+        ref_ckpt = cfg.torch_ckpt
+        self.num_classes = self.states[self.cur_state].num_knowing_class
+        self.model = create_retinanet(
+            cfg.model, self.num_classes, device=self.device,
+            generator=torch.Generator().manual_seed(cfg.seed))
+        if ref_ckpt:
+            from ..models.convert import load_reference_checkpoint
+
+            load_reference_checkpoint(self.model, ref_ckpt,
+                                      allow_pickle=cfg.trust_torch_ckpt)
+        elif (start_epoch > 1
+              and self.ckpt.nearest_epoch(self.cur_state, start_epoch - 1) is not None):
+            # mid-state resume: the weights now, the optimizer in resume()
+            # (cli.train); with --save_every k>1 the newest saved epoch
+            # <= start_epoch-1 stands in for a missing one
+            resume_epoch = self.ckpt.nearest_epoch(self.cur_state, start_epoch - 1)
+            tree, _ = self.ckpt.restore(self.cur_state, resume_epoch)
+            self.model.load_state_dict(tree["model"])
+        elif cfg.model.pretrained:
+            from ..models.convert import load_pretrained_backbone
+
+            load_pretrained_backbone(self.model, cfg.model.pretrained)
+        self._new_train_state()
+        if ref_ckpt and start_epoch > 1:
+            # a mid-state resume continues the reference run's optimizer
+            from ..models.convert import load_reference_optimizer
+
+            try:
+                load_reference_optimizer(self.model, self.optimizer, ref_ckpt,
+                                         allow_pickle=cfg.trust_torch_ckpt)
+            except ValueError as e:
+                print(f"warning: optimizer state not imported ({e}); "
+                      "continuing with fresh Adam moments")
+
+        # CL tools: none acts at state 0 ---------------------------------
+        self.teacher_model = None
+        self.mas_importance = None
+        self.prototype_features = None
+        self.train_loader = self._make_train_loader()
+
+    # ------------------------------------------------------------------
+    # infrastructure
+    # ------------------------------------------------------------------
+    def _new_train_state(self) -> None:
+        """A fresh optimizer (both Adam groups at the schedule's LR) and
+        train state over the current model."""
+        self.optimizer = make_optimizer(self.cfg.schedule, self.model)
+        self.train_state = TrainState(self.model, self.optimizer)
+        self._beta_is_replay = None
+        self._steps.clear()
+
+    def _put_batch(self, batch):
+        """(images, boxes, labels) on the trainer's device: pinned host
+        copies, then non-blocking copies to the card."""
+        out = []
+        for arr in (batch.images, batch.boxes, batch.labels):
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out.append(t)
+        return out
+
+    def _make_train_loader(self) -> BatchLoader:
+        return BatchLoader(self.dataset_train, self.cfg.data, shuffle=True,
+                           augment=True, seed=self.cfg.seed)
+
+    def _anchors_at(self, h: int, w: int) -> np.ndarray:
+        key = (h, w)
+        if key not in self._anchors_cache:
+            self._anchors_cache[key] = anchors_for_shape(h, w)
+        return self._anchors_cache[key]
+
+    def anchors_for(self, images) -> np.ndarray:
+        return self._anchors_at(*logical_image_hw(images))
+
+    def variables(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters and frozen-BN buffers by name."""
+        return self.model.state_dict()
+
+    def next_state(self) -> None:
+        raise NotImplementedError(STATES_NOT_PORTED)
+
+    # ------------------------------------------------------------------
+    # train-step variants
+    # ------------------------------------------------------------------
+    def _loss_statics(self, is_replay: bool,
+                      enhance_only: bool = False) -> LossStatics:
+        cfg = self.cfg.il
+        st = self.states[self.cur_state]
+        warm_classifier = self._warm_kind == "output"
+        incremental = self.cur_state > 0 and not is_replay and not warm_classifier
+        return LossStatics(
+            enhance_only=enhance_only,
+            num_classes=self.num_classes,
+            num_past_class=st.num_past_class,
+            incremental=incremental,
+            is_replay=is_replay,
+            use_distill=cfg.distill.enabled and incremental,
+            distill_logits=cfg.distill.logits,
+            use_pseudo_progress=cfg.pseudo.enabled and incremental,
+            use_enhance_error=cfg.replay.enhance_error,
+            enhance_error_method=cfg.replay.enhance_error_method,
+            use_enhance_on_new=cfg.enhance_on_new,
+            use_classifier_loss=cfg.classifier_loss and incremental
+            and cfg.distill.enabled,
+            use_mas=cfg.mas.enabled and self.mas_importance is not None
+            and not is_replay,
+            use_prototype=cfg.prototype.loss and incremental
+            and self.prototype_features is not None
+            and self.cur_epoch > cfg.prototype.start_epoch,
+            ignore_gd=cfg.ignore_gd,
+        )
+
+    def _step_statics(self, correction: bool = False) -> StepStatics:
+        warm_classifier = self._warm_kind == "output"
+        st = self.states[self.cur_state]
+        if correction:
+            # the final correction: a plain optimizer step per batch, no
+            # accumulation, no clip, no A-GEM
+            return StepStatics(
+                every_iter=1, use_clip=False, warm_classifier=False,
+                num_past_class=st.num_past_class,
+                num_knowing_class=st.num_knowing_class,
+                num_anchors=self.cfg.model.num_anchors,
+                use_agem=False,
+            )
+        return StepStatics(
+            every_iter=self.cfg.schedule.every_iter,
+            use_clip=not warm_classifier and self.cfg.schedule.grad_clip > 0,
+            grad_clip=self.cfg.schedule.grad_clip,
+            warm_classifier=warm_classifier,
+            num_past_class=st.num_past_class,
+            num_knowing_class=st.num_knowing_class,
+            num_anchors=self.cfg.model.num_anchors,
+            use_agem=self.cfg.il.agem.enabled,
+        )
+
+    def _get_step(self, is_replay: bool, frame, correction: bool = False):
+        """One train step per (batch kind, warm stage, state, canonical
+        frame, prototype phase); ``frame`` is the logical (h, w)."""
+        statics = self._loss_statics(is_replay, enhance_only=correction)
+        key = (is_replay, self._warm_kind, self.cur_state, frame,
+               statics.use_prototype, correction)
+        if key not in self._steps:
+            self._steps[key] = make_train_step(
+                self.model, self.teacher_model, self._anchors_at(*frame),
+                self.cfg.il, self.cfg.focal, statics, self._step_statics(correction))
+        return self._steps[key]
+
+    # ------------------------------------------------------------------
+    # warm-up
+    # ------------------------------------------------------------------
+    def warm_up(self, epoch: int) -> None:
+        cfg = self.cfg.warmup
+        if cfg.warm_stage == 0:
+            self.cur_warm_stage = -1
+            self._warm_kind = None
+            return
+        stops = []
+        acc = 1
+        for e in cfg.warm_epoch[: cfg.warm_stage]:
+            acc += e
+            stops.append(acc)
+        stage = -1
+        for idx, stop in enumerate(stops):
+            if epoch < stop:
+                stage = idx
+                break
+        old = self._warm_kind
+        self.cur_warm_stage = stage
+        self._warm_kind = cfg.warm_layers[stage] if stage != -1 else None
+        if old != self._warm_kind:
+            self._steps.clear()
+        self._trainable = trainable_mask(self.model, self._warm_kind)
+
+    # ------------------------------------------------------------------
+    # one training batch
+    # ------------------------------------------------------------------
+    def run_batch(self, batch, is_replay: bool = False,
+                  sync_metrics: bool = True,
+                  correction: bool = False) -> Dict[str, Any]:
+        """One micro-step. ``sync_metrics=False`` returns the metrics as
+        device tensors, so the caller decides when to wait for them."""
+        step = self._get_step(is_replay, logical_image_hw(batch.images),
+                              correction=correction)
+        kwargs = {}
+        if self._trainable is not None:
+            kwargs["trainable_mask"] = self._trainable
+        images, boxes, labels = self._put_batch(batch)
+        self.train_state, metrics = step(self.train_state, images, boxes, labels, **kwargs)
+        if sync_metrics:
+            return {k: float(v) for k, v in metrics.items()}
+        return metrics
+
+    def set_replay_beta(self, is_replay: bool) -> None:
+        """Swap Adam's beta1 for replay batches; a no-op unless the batch
+        kind flipped."""
+        if self._beta_is_replay == is_replay:
+            return
+        self._beta_is_replay = is_replay
+        if is_replay:
+            set_beta1(self.optimizer, self.cfg.il.replay.beta_on_replay,
+                      self.cfg.il.replay.beta_on_where)
+        else:
+            set_beta1(self.optimizer, self.cfg.schedule.beta1, "all")
+
+    def step_scheduler(self, epoch: int) -> None:
+        set_learning_rate(self.optimizer, lr_at_epoch(self.cfg.schedule, epoch + 1),
+                          self.cfg.schedule.classifier_lr_scale)
+
+    # ------------------------------------------------------------------
+    def save(self, epoch: int, epoch_loss: Optional[List[float]] = None) -> None:
+        """A half-filled gradient accumulator (every_iter > 1 with an epoch
+        length not divisible by it) is not persisted: a resume restarts
+        accumulation cleanly. acc_count rides in the meta for diagnostics.
+        ``self.save_blocking_s`` is the time the caller was held."""
+        t0 = time.perf_counter()
+        il_meta = {
+            "state": self.cur_state,
+            "acc_count": int(self.train_state.acc_count),
+            "epoch": epoch,
+            "num_classes": self.num_classes,
+            "knowing_class_ids": self.states[self.cur_state].knowing_ids,
+            "exemplar_ids": [],
+            "config": self.cfg.to_json(),
+            "loss_hist": [float(x) for x in self.loss_hist],
+            "epoch_loss": ([float(x) for x in epoch_loss]
+                           if epoch_loss is not None else None),
+        }
+        self.ckpt.save(self.cur_state, epoch, self.model, self.optimizer,
+                       self.train_state.step, il_meta,
+                       async_save=self.cfg.async_checkpoint)
+        self.save_blocking_s = time.perf_counter() - t0
+
+    def resume(self, state: int, epoch: int = -1) -> int:
+        """Restore the model (parameters and frozen-BN buffers), the
+        optimizer (moments, counts, LR and betas of both groups), the
+        micro-step count and the loss window from a checkpoint, onto the
+        trainer's device. A requested epoch that was never saved falls
+        back to the newest saved epoch below it. Returns the epoch."""
+        if epoch >= 0 and epoch not in self.ckpt.epochs(state):
+            nearest = self.ckpt.nearest_epoch(state, epoch)
+            if nearest is None:
+                raise FileNotFoundError(
+                    f"no checkpoint at or below epoch {epoch} for state {state}")
+            print(f"resume: epoch {epoch} not saved; using epoch {nearest}")
+            epoch = nearest
+        tree, il_meta = self.ckpt.restore(state, epoch)
+        self.model.load_state_dict(tree["model"])
+        self.optimizer.load_state_dict(tree["optimizer"])
+        self.model.zero_grad(set_to_none=True)
+        self.train_state.step = int(tree["step"])
+        self.train_state.acc_count = 0
+        self._beta_is_replay = None
+        if il_meta and il_meta.get("loss_hist"):
+            self.loss_hist = collections.deque(il_meta["loss_hist"], maxlen=500)
+        return il_meta["epoch"] if il_meta else 0

@@ -1,0 +1,212 @@
+"""Checkpoints with the JAX package's layout, retention and resume rules,
+in a torch format of the port's own.
+
+  * one checkpoint per (state, epoch):
+    ``<root>/<scenario>/state<k>/epoch<e>/`` holding ``state.pt``
+    (``torch.save`` of ``{"model": state dict, "optimizer": state dict,
+    "step": micro-steps}``, every tensor on the CPU) and, when given,
+    ``il_meta.json`` (the IL side metadata: exemplar ids, class lists,
+    the state index, the loss window);
+  * ``latest_epoch`` finds the newest epoch, ``nearest_epoch`` the newest
+    at or below a bound;
+  * ``auto_delete`` keeps epoch % keep_every == 0 plus the current epoch;
+  * JSON and npz sidecars per state directory for the IL tools' outputs.
+
+A save writes into a hidden directory that is renamed into place when it
+is complete, so a reader never sees a partial checkpoint. With
+``async_save`` the tensors are copied to the host first, in the caller's
+thread (the next step cannot change what is written), and the write runs
+in a thread; ``wait()`` joins it and re-raises its error. At most one
+save is in flight.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+from typing import Any, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+STATE_FILE = "state.pt"
+
+
+def scenario_tag(scenario) -> str:
+    return "_".join(str(s) for s in scenario)
+
+
+def host_copy(tree):
+    """A copy of ``tree`` (dicts, lists, tuples, tensors, plain values)
+    with every tensor detached and copied to the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, Mapping):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
+
+
+class CheckpointManager:
+    def __init__(self, root: str, scenario, keep_every: int = 5):
+        self.root = os.path.abspath(root)
+        self.scenario_dir = os.path.join(self.root, scenario_tag(scenario))
+        self.keep_every = keep_every
+        self._pending: Optional[threading.Thread] = None
+        self._pending_error: Optional[BaseException] = None
+        os.makedirs(self.scenario_dir, exist_ok=True)
+
+    # ------------------------------------------------------------------
+    def state_dir(self, state: int) -> str:
+        d = os.path.join(self.scenario_dir, f"state{state}")
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    def epoch_dir(self, state: int, epoch: int) -> str:
+        return os.path.join(self.state_dir(state), f"epoch{epoch}")
+
+    def epochs(self, state: int) -> List[int]:
+        self.wait()
+        out = []
+        for name in os.listdir(self.state_dir(state)):
+            m = re.fullmatch(r"epoch(\d+)", name)
+            if m:
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_epoch(self, state: int) -> Optional[int]:
+        eps = self.epochs(state)
+        return eps[-1] if eps else None
+
+    def nearest_epoch(self, state: int, upto: int) -> Optional[int]:
+        """Newest saved epoch <= ``upto``: the resume fallback when the
+        exact checkpoint was skipped by ``save_every`` or pruned."""
+        eps = [e for e in self.epochs(state) if e <= upto]
+        return eps[-1] if eps else None
+
+    # ------------------------------------------------------------------
+    def wait(self) -> None:
+        """Block until an in-flight async save has finished, and re-raise
+        its error if it failed."""
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+        if self._pending_error is not None:
+            err, self._pending_error = self._pending_error, None
+            raise err
+
+    def save(
+        self,
+        state: int,
+        epoch: int,
+        model: torch.nn.Module,
+        optimizer: torch.optim.Optimizer,
+        step: int,
+        il_meta: Optional[Dict[str, Any]] = None,
+        async_save: bool = False,
+    ) -> str:
+        """Persist one (state, epoch) checkpoint; returns its directory."""
+        self.wait()
+        path = self.epoch_dir(state, epoch)
+        tree = host_copy({"model": model.state_dict(),
+                          "optimizer": optimizer.state_dict(), "step": int(step)})
+        tmp = os.path.join(self.state_dir(state), f".tmp_epoch{epoch}")
+
+        def write():
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            torch.save(tree, os.path.join(tmp, STATE_FILE))
+            if il_meta is not None:
+                with open(os.path.join(tmp, "il_meta.json"), "w") as f:
+                    json.dump(il_meta, f, indent=2, default=_jsonable)
+            # delete the existing epoch only once the replacement is
+            # complete: a crash during the write must not lose both
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.rename(tmp, path)
+
+        if not async_save:
+            write()
+            return path
+
+        def work():
+            try:
+                write()
+            except BaseException as e:  # surfaced by the next wait()
+                self._pending_error = e
+                shutil.rmtree(tmp, ignore_errors=True)
+
+        self._pending = threading.Thread(target=work, daemon=True)
+        self._pending.start()
+        return path
+
+    def restore(self, state: int, epoch: int = -1):
+        """epoch=-1 locates the newest. Returns (tree, il_meta): ``tree``
+        is ``{"model", "optimizer", "step"}`` with CPU tensors."""
+        self.wait()
+        if epoch == -1:
+            epoch = self.latest_epoch(state)
+            if epoch is None:
+                raise FileNotFoundError(f"no checkpoints for state {state}")
+        path = self.epoch_dir(state, epoch)
+        tree = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                          weights_only=True)
+        meta_path = os.path.join(path, "il_meta.json")
+        il_meta = None
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                il_meta = json.load(f)
+        return tree, il_meta
+
+    # ------------------------------------------------------------------
+    def auto_delete(self, state: int, current_epoch: int) -> None:
+        """Keep epoch % keep_every == 0 and the current epoch."""
+        for e in self.epochs(state):
+            if e == current_epoch or e % self.keep_every == 0:
+                continue
+            if e < current_epoch:
+                shutil.rmtree(self.epoch_dir(state, e), ignore_errors=True)
+
+    def save_sidecar(self, state: int, name: str, obj: Any) -> str:
+        """JSON sidecar in the state directory."""
+        path = os.path.join(self.state_dir(state), name + ".json")
+        with open(path, "w") as f:
+            json.dump(obj, f, default=_jsonable)
+        return path
+
+    def load_sidecar(self, state: int, name: str) -> Optional[Any]:
+        path = os.path.join(self.state_dir(state), name + ".json")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
+
+    def save_array_sidecar(self, state: int, name: str,
+                           arrays: Mapping[str, Any]) -> str:
+        """npz sidecar of named arrays or tensors (MAS importance,
+        prototype features)."""
+        path = os.path.join(self.state_dir(state), name + ".npz")
+        np.savez(path, **{k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                          else np.asarray(v) for k, v in arrays.items()})
+        return path
+
+    def load_array_sidecar(self, state: int, name: str) -> Optional[Dict[str, np.ndarray]]:
+        path = os.path.join(self.state_dir(state), name + ".npz")
+        if not os.path.exists(path):
+            return None
+        with np.load(path) as data:
+            return {k: data[k] for k in data.files}
+
+
+def _jsonable(o):
+    if isinstance(o, (np.integer,)):
+        return int(o)
+    if isinstance(o, (np.floating,)):
+        return float(o)
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    raise TypeError(f"not jsonable: {type(o)}")

@@ -55,7 +55,9 @@ def _bf16_ulp(x):
 STEM_SHAPES = [(1, 1, 1), (1, 37, 53), (2, 15, 15), (3, 16, 31), (2, 152, 208),
                # more units than SMs, and every ragged edge of the
                # kernel's 7 x 15 unit
-               (5, 22, 29), (32, 152, 208)]
+               (5, 22, 29), (32, 152, 208),
+               # the trainer's landscape and portrait frames (640 x 1024)
+               (8, 160, 256), (8, 256, 160)]
 
 
 @pytest.mark.parametrize("shape", STEM_SHAPES)
@@ -589,3 +591,151 @@ def test_float32_apply_on_the_card_matches_the_cpu(dev, monkeypatch):
         assert (np.abs(d_dev[k] - w)[sel] <= (1e-3 * lr + ulp)[sel]).all(), k
         assert (np.abs(d_dev[k]) <= lr * (1 + 1e-6) + ulp).all(), k
     assert np.abs(d_dev["backbone.conv1.weight"]).max() > 0
+
+
+# ----------------------------------------------------------- the trainer
+
+@pytest.fixture(scope="module")
+def toy_dataset(tmp_path_factory):
+    """The CPU trainer tests' toy set: 8 PNG images at 48x64, every third
+    portrait, 5 classes; trained at scale 1 in 64x64 frames."""
+    import os
+
+    from cl_object_detection_tpu_torch.utils.toydata import make_toy_dataset
+
+    root = str(tmp_path_factory.mktemp("toy_cuda"))
+    return make_toy_dataset(root, num_images=8, image_size=(48, 64), seed=2), \
+        os.path.join(root, "images")
+
+
+def _trainer(toy_dataset, workdir, device, dtype="float32", fused=False, every_iter=1,
+             end_epoch=2):
+    from cl_object_detection_tpu_torch import config as tcfg
+    from cl_object_detection_tpu_torch.train.trainer import ILTrainer
+
+    cfg = tcfg.TrainConfig(
+        model=tcfg.ModelConfig(depth=18, fpn_channels=32, head_layers=2, compute_dtype=dtype),
+        data=tcfg.DataConfig(batch_size=2, min_side=48, max_side=64, height=64, width=64,
+                             max_boxes=8, num_workers=0, prefetch=0, fused_stem=fused,
+                             transfer_dtype="uint8" if fused else "float32"),
+        schedule=tcfg.ScheduleConfig(lr=1e-5, every_iter=every_iter),
+        il=tcfg.ILConfig(scenario=("5",)),
+        checkpoint_dir=str(workdir / "ckpt"), start_epoch=1, end_epoch=end_epoch,
+        record=False)
+    return ILTrainer(cfg, *toy_dataset, workdir=str(workdir), device=device)
+
+
+def test_train_process_on_the_card_matches_the_cpu(dev, toy_dataset, tmp_path, monkeypatch):
+    """Two epochs of the float32 R18 trainer (RGB frames, every_iter=1,
+    lr 1e-5), TF32 off, on the card and on the CPU from the same initial
+    weights, at the CPU trainer tests' bars: every micro-step's
+    total_loss at rtol 1e-4. The element-wise parameters part within the
+    first epoch (cuDNN's float32 convolutions sum in another order than
+    the CPU's, and Adam's normalisation carries the difference where the
+    first moment is a small remainder of gradients of either sign: 7e-3
+    lr per apply at the stem's weight after 4 applies on an NVIDIA H100),
+    so the CPU run is replayed micro-step by micro-step, and at each one
+    the card's gradient of that batch at the CPU's parameters is held to
+    the train step's gradient bar, |d| <= 1e-3 |g_cpu| + 1e-4 max|g_cpu|
+    per leaf; after the first apply, where the runs have not parted, the
+    card's parameters are held within 1e-3 lr plus a float32 spacing of
+    the parameter where the first moment is at least 1e-3 of the leaf's
+    largest. The replay ends bit-equal to the CPU run."""
+    from cl_object_detection_tpu_torch.config import FocalConfig, ILConfig
+    from cl_object_detection_tpu_torch.il.losses import LossStatics, compute_losses
+    from cl_object_detection_tpu_torch.train.loop import train_process
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = _trainer(toy_dataset, tmp_path / "cpu", "cpu")
+    card = _trainer(toy_dataset, tmp_path / "card", dev)
+    start = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    card.model.load_state_dict(start)
+    train_process(cpu)
+    train_process(card)
+    np.testing.assert_allclose(np.asarray(card.loss_hist), np.asarray(cpu.loss_hist),
+                               rtol=1e-4)
+    assert all(np.isfinite(p.detach().cpu().numpy()).all() for p in card.model.parameters())
+
+    ref = _trainer(toy_dataset, tmp_path / "ref", "cpu")
+    probe = _trainer(toy_dataset, tmp_path / "probe", dev)
+    ref.model.load_state_dict(start)
+    probe.model.load_state_dict(start)
+    init = {n: p.detach().numpy().copy() for n, p in ref.model.named_parameters()}
+    anchors = torch.from_numpy(ref._anchors_at(64, 64).copy())
+    lr, i = 1e-5, 0
+    for epoch in (1, 2):
+        ref.train_loader.set_epoch(epoch)
+        ref.warm_up(epoch)
+        ref.set_replay_beta(False)
+        for b in ref.train_loader:
+            if i:
+                probe.model.load_state_dict(ref.model.state_dict())
+            grads = []
+            for tr, device in ((ref, "cpu"), (probe, dev)):
+                tr.model.zero_grad(set_to_none=True)
+                total, _ = compute_losses(
+                    tr.model, *(torch.from_numpy(a).to(device)
+                                for a in (b.images, b.boxes, b.labels)),
+                    anchors.to(device), ILConfig(), FocalConfig(), LossStatics(num_classes=5))
+                total.backward()
+                grads.append({n: p.grad.cpu().numpy().copy()
+                              for n, p in tr.model.named_parameters()})
+                tr.model.zero_grad(set_to_none=True)
+            for n, w in grads[0].items():
+                d = np.abs(grads[1][n] - w)
+                assert (d <= 1e-3 * np.abs(w) + 1e-4 * np.abs(w).max()).all(), (i, n)
+            ref.run_batch(b)
+            if i == 0:
+                probe.run_batch(b)
+                names = {id(p): n for n, p in ref.model.named_parameters()}
+                mu = {names[id(p)]: s["mu"].numpy() for p, s in ref.optimizer.state.items()}
+                for n, p in probe.model.named_parameters():
+                    d_dev = p.detach().cpu().numpy() - init[n]
+                    d_cpu = ref.model.get_parameter(n).detach().numpy() - init[n]
+                    m = np.abs(mu[n])
+                    sel = m >= 1e-3 * m.max() if m.max() > 0 else np.zeros_like(m, bool)
+                    tol = 1e-3 * lr + np.spacing(np.abs(init[n]))
+                    assert not (sel & (np.abs(d_dev - d_cpu) > tol)).any(), n
+            i += 1
+        ref.step_scheduler(epoch)
+    assert i == len(cpu.loss_hist) == 8
+    for n, p in cpu.model.named_parameters():
+        assert torch.equal(ref.model.get_parameter(n), p), n
+
+
+def test_bf16_fused_trainer_launches_the_stem_every_micro_step(dev, toy_dataset, tmp_path):
+    from cl_object_detection_tpu_torch.train.loop import train_process
+
+    tr = _trainer(toy_dataset, tmp_path, dev, dtype="bfloat16", fused=True, every_iter=2)
+    before = (sf.stem_fused.launches, sf.stem_fused_f32.launches, nf.nms_fp.launches,
+              im.int8_matmul.launches)
+    train_process(tr)
+    torch.cuda.synchronize()
+    steps = len(tr.loss_hist)
+    assert steps == tr.train_state.step == 8
+    assert sf.stem_fused.launches == before[0] + steps
+    assert (sf.stem_fused_f32.launches, nf.nms_fp.launches, im.int8_matmul.launches) \
+        == before[1:]
+    assert np.isfinite(np.asarray(tr.loss_hist)).all()
+
+
+def test_checkpoint_saved_on_the_card_restores_bit_for_bit(dev, toy_dataset, tmp_path):
+    """An async save of a trained model and optimizer on the card, then a
+    fresh trainer's resume: every tensor equal, on the card."""
+    from cl_object_detection_tpu_torch.train.loop import train_process
+
+    tr = _trainer(toy_dataset, tmp_path, dev, dtype="bfloat16", fused=True, end_epoch=1)
+    train_process(tr)
+    model = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    opt = tr.optimizer.state_dict()
+    fresh = _trainer(toy_dataset, tmp_path, dev, dtype="bfloat16", fused=True, end_epoch=1)
+    assert fresh.resume(0, 1) == 1
+    for k, v in fresh.model.state_dict().items():
+        assert v.device.type == "cuda" and torch.equal(v, model[k]), k
+    got = fresh.optimizer.state_dict()
+    assert got["param_groups"] == opt["param_groups"]
+    for i, st in opt["state"].items():
+        for m in ("mu", "nu"):
+            assert got["state"][i][m].device.type == "cuda"
+            assert torch.equal(got["state"][i][m], st[m]), (i, m)
