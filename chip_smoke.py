@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU and check them.
+"""Run the PyTorch/CUDA port's serving, training and evaluation paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -109,8 +109,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    blocking ms, the peak memory, and, under ``--profile``, the device's
    idle share over epoch 2 (``--profile DIR/trainer``; the resumed
    epoch's trace goes to ``DIR/trainer_resume``).
-9. A ``{"trainer": ...}`` line, the kernels' JSON line, then the
-   ``{"ok": true, ...}`` line.
+9. Evaluation of phase 8's checkpoints, in its temporary directory:
+   ``make_toy_dataset`` writes a test split of 64 PNG images at 375x500
+   (every third portrait, ``style="separable"``, seed 1, 9 batches of 8);
+   with the counters at 0, ``cli.validate.main`` with phase 8's model
+   and data flags, ``--state 0 --epoch 1 2 --threshold 0.001`` (one
+   decode pass, two predicts per batch; cuDNN deterministic for the
+   phase). Checks: both result JSONs and the decline CSV exist, every
+   row is finite, no (image_id, bbox, score) repeats; the bf16 stem
+   launched 2 x 9 times, the NMS and int8 kernels not. Then an
+   ``Evaluator`` with ``nms_impl="pallas_fp"`` on the epoch-2 model: one
+   NMS launch per batch, rows equal to validate's epoch-2 JSON; both
+   COCO-protocol paths on those rows (per-class AP/AR within 1e-6, both
+   timed); the test split's GT as detections (score 1): AP = AR = 1 for
+   every class with GT; ``--save_upper_bound`` then ``--just_val`` on
+   epoch 2: 0.0% decline on every class with GT, ``Mean`` and
+   ``Sum_decline``; ``--quantize true --epoch 2``: 100 int8 launches per
+   batch (61 in conv mode), its mAP beside the float one, and one
+   conv-mode and one GEMM-mode call at the eval frame (B=8, 640x1024)
+   bit-identical to their plain versions. Printed: the decode + predict
+   pass in images/s (host clock, loader included), the loader's ms per
+   batch, then the pass's parts alone: predict (ms per B=8 batch, frames
+   resident), ``detections_to_coco`` of one batch, the loader over the
+   split with nothing beside it; and the COCO-protocol seconds of both
+   paths.
+10. The ``{"trainer": ...}`` and ``{"eval": ...}`` lines, the kernels'
+   JSON line, then the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds a torch.profiler window over two B=32 predicts
 after phases 4 and 5 and over two micro-step pairs (two applies) in
@@ -123,8 +147,10 @@ from __future__ import annotations
 import functools
 import json
 import queue
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1209,12 +1235,11 @@ VOC_CLASSES = ("aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "
 TRAINER_IMAGES = 96              # 64 landscape + 32 portrait: 12 micro-steps per epoch at B=8
 
 
-def trainer_path(step_ips: float, profile_dir: str | None = None) -> dict:
-    """Phase 8: the trainer through ``cli.train.main`` on a toy dataset."""
+def trainer_path(step_ips: float, tmp: str, profile_dir: str | None = None) -> dict:
+    """Phase 8: the trainer through ``cli.train.main`` on a toy dataset in
+    ``tmp`` (``data/`` and ``run/``, which phase 9 reuses)."""
     import json as _json
     import os
-    import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -1223,7 +1248,6 @@ def trainer_path(step_ips: float, profile_dir: str | None = None) -> dict:
     from cl_object_detection_tpu_torch.utils.checkpoint import host_copy
     from cl_object_detection_tpu_torch.utils.toydata import make_toy_dataset
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
@@ -1340,7 +1364,233 @@ def trainer_path(step_ips: float, profile_dir: str | None = None) -> dict:
                     resumed_loss_rel=rel)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+EVAL_IMAGES = 64                 # 42 landscape + 22 portrait: 9 batches of 8 (6 + 3)
+
+
+def eval_path(tmp: str) -> dict:
+    """Phase 9: evaluation of phase 8's epoch-1 and epoch-2 checkpoints
+    through ``cli.validate.main``, then the ``Evaluator`` with the NMS
+    kernel, both COCO-protocol paths, GT as detections, the upper bound
+    and the decline report, and the int8 path (module docstring)."""
+    import json as _json
+    import os
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.cli import validate
+    from cl_object_detection_tpu_torch.cli.common import args_to_config
+    from cl_object_detection_tpu_torch.config import PredictConfig
+    from cl_object_detection_tpu_torch.data.coco import CocoJson
+    from cl_object_detection_tpu_torch.eval.evaluator import Evaluator
+    from cl_object_detection_tpu_torch.eval.predictor import detections_to_coco, make_predict_fn
+    from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+    from cl_object_detection_tpu_torch.states import ILStates
+    from cl_object_detection_tpu_torch.utils.checkpoint import CheckpointManager
+    from cl_object_detection_tpu_torch.utils.toydata import make_toy_dataset
+
+    t_phase = time.perf_counter()
+    data, root = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+    test_json = make_toy_dataset(data, num_images=EVAL_IMAGES, classes=VOC_CLASSES,
+                                 image_size=(375, 500), seed=1, style="separable", split="test")
+    flags = ["--root_dir", root, "--test_json", test_json, "--image_dir",
+             os.path.join(data, "images"), "--depth", "50", "--scenario", "20",
+             "--batch_size", "8", "--fused_stem", "true", "--transfer_dtype", "uint8",
+             "--state", "0", "--threshold", "0.001"]
+    result_dir = os.path.join(root, "val_result", "20", "state0")
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    real_multi = Evaluator.predict_dataset_multi
+    timing: dict = {}
+
+    def timed_multi(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_multi(self, *args, **kw)
+        torch.cuda.synchronize()
+        timing.update(predict_s=time.perf_counter() - t0, batches=len(self.loader),
+                      loader_ms=float(np.mean(self.loader.batch_seconds)) * 1e3)
+        return out
+
+    try:
+        # ---- this path: counters at 0 -> cli.validate, epochs 1 and 2 ----
+        Evaluator.predict_dataset_multi = timed_multi
+        zero_counts()
+        t0 = time.perf_counter()
+        res = validate.main(flags + ["--epoch", "1", "2"])
+        validate_s = time.perf_counter() - t0
+        counts = read_counts()
+        Evaluator.predict_dataset_multi = real_multi
+        n_batches = timing["batches"]
+        rows = {}
+        for e in (1, 2):
+            with open(os.path.join(result_dir, f"voc2007_results_epoch{e}.json")) as f:
+                rows[e] = _json.load(f)
+        csv_path = os.path.join(result_dir, "val_result_1_2.csv")
+        log(f"eval: cli.validate.main, epochs 1 and 2 of phase 8's R50 on {EVAL_IMAGES} test "
+            f"images (375x500, 640x1024 fused uint8 frames, B=8, {n_batches} batches, threshold "
+            f"0.001): {validate_s:.2f} s in all; the decode + predict pass {timing['predict_s']:.3f} "
+            f"s, {EVAL_IMAGES / timing['predict_s']:.2f} images/s (host clock, loader included, "
+            f"two predicts per batch); loader {timing['loader_ms']:.1f} ms per batch in its "
+            f"thread; rows {len(rows[1])}, {len(rows[2])}; mAP50 {res[1].mean_ap50:.4f}, "
+            f"{res[2].mean_ap50:.4f}; launches {counts}")
+        if not os.path.exists(csv_path):
+            raise AssertionError(f"no decline CSV at {csv_path}")
+        for e, rs in rows.items():
+            flat = np.asarray([r["bbox"] + [r["score"]] for r in rs], np.float64)
+            keys = {(r["image_id"], tuple(r["bbox"]), r["score"]) for r in rs}
+            if not rs or not np.isfinite(flat).all() or len(keys) != len(rs):
+                raise AssertionError(f"epoch {e}: {len(rs)} rows, finite "
+                                     f"{bool(np.isfinite(flat).all())}, {len(keys)} distinct")
+        if counts["stem_fused"] != 2 * n_batches or counts["nms_fp"] or counts["int8_matmul"]:
+            raise AssertionError(f"validate launches {counts}: want {2 * n_batches} bf16 stem "
+                                 "launches and no NMS or int8 kernel")
+
+        # ---- the Evaluator with the NMS kernel, on the epoch-2 model ----
+        a = validate.get_parser().parse_args(flags)
+        cfg = args_to_config(a)
+        coco = CocoJson(test_json)
+        states = ILStates(list(coco.classes.values()), coco.classes_inverse, ["20"])
+        model = create_retinanet(cfg.model, NUM_CLASSES, device="cuda")
+        model.load_state_dict(CheckpointManager(os.path.join(root, "checkpoint"), ["20"])
+                              .restore(0, 2)[0]["model"])
+        ev = Evaluator(coco, states, os.path.join(data, "images"), cfg.data,
+                       PredictConfig(score_thresh=0.001, nms_impl="pallas_fp"))
+        zero_counts()
+        kernel_rows = ev.predict_dataset(model)
+        torch.cuda.synchronize()
+        ev_counts = read_counts()
+        log(f"eval: Evaluator nms_impl=pallas_fp on epoch 2: {len(kernel_rows)} rows, equal to "
+            f"cli.validate's epoch-2 rows: {kernel_rows == rows[2]}; launches {ev_counts}")
+        if ev_counts["nms_fp"] != len(ev.loader) or kernel_rows != rows[2]:
+            raise AssertionError("the NMS kernel's Evaluator rows differ from validate's, or "
+                                 f"{ev_counts['nms_fp']} NMS launches in {len(ev.loader)} batches")
+
+        # ---- both COCO-protocol paths on those rows; GT as detections ----
+        t0 = time.perf_counter()
+        native = ev.evaluate(kernel_rows, use_native=True)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        python = ev.evaluate(kernel_rows, use_native=False)
+        python_s = time.perf_counter() - t0
+        worst = max(max(abs(native.ap50[n] - python.ap50[n]),
+                        abs(native.recall[n] - python.recall[n])) for n in native.ap50)
+        log(f"eval: COCO protocol on {len(kernel_rows)} rows x 20 classes: native "
+            f"{native_s:.3f} s, Python {python_s:.3f} s; largest AP/AR difference {worst:.3g} "
+            f"(bar 1e-6)")
+        if not worst <= 1e-6:
+            raise AssertionError("the native COCO-protocol path disagrees with the Python path")
+        gt_rows = [{"image_id": i, "category_id": a_["category_id"], "bbox": a_["bbox"],
+                    "score": 1.0} for i in ev.dataset.image_ids for a_ in coco.get_anns_by_img(i)]
+        perfect = ev.evaluate(gt_rows)
+        with_gt = [n for n in perfect.ap50 if perfect.ap50[n] != -1.0]
+        if not with_gt or any(perfect.ap50[n] != 1.0 or perfect.recall[n] != 1.0
+                              for n in with_gt):
+            raise AssertionError(f"GT as detections: AP {perfect.ap50}, AR {perfect.recall}")
+        log(f"eval: GT as detections ({len(gt_rows)} rows): AP = AR = 1.0 for all "
+            f"{len(with_gt)} classes with GT")
+
+        # ---- the upper bound, then a decline of 0.0% for that epoch ----
+        validate.main(flags + ["--epoch", "2", "--just_val", "true", "--save_upper_bound",
+                               "true"])
+        validate.main(flags + ["--epoch", "2", "--just_val", "true"])
+        with open(os.path.join(result_dir, "val_result_2.csv")) as f:
+            table = {line.split(",")[0]: line.split(",")[1:] for line in f.read().splitlines()}
+        bad = [n for n in with_gt + ["Mean", "Sum_decline"] if table[n][2:4] != ["0.0%", "0.0%"]]
+        bad += [n for n in perfect.ap50 if n not in with_gt and table[n][0] != "-1.0"]
+        if bad:
+            raise AssertionError(f"decline against the epoch's own upper bound: {bad}")
+        log("eval: --save_upper_bound then --just_val on epoch 2: 0.0% decline on every "
+            f"class with GT ({len(with_gt)}), Mean and Sum_decline")
+
+        # ---- the int8 path: counters at 0 -> cli.validate --quantize ----
+        zero_counts()
+        t0 = time.perf_counter()
+        qres = validate.main(flags + ["--epoch", "2", "--quantize", "true", "--new_folder",
+                                      "true", "--specific_folder", "int8"])
+        quant_s = time.perf_counter() - t0
+        qcounts = read_counts()
+        log(f"eval: cli.validate --quantize true, epoch 2: {quant_s:.2f} s; mAP50 "
+            f"{qres[2].mean_ap50:.4f} (float {res[2].mean_ap50:.4f}), AR "
+            f"{qres[2].mean_recall:.4f} (float {res[2].mean_recall:.4f}); launches {qcounts}")
+        if (qcounts["int8_matmul"] != 100 * n_batches
+                or qcounts["int8_conv_nhwc"] != 61 * n_batches or qcounts["stem_fused"]
+                != n_batches):
+            raise AssertionError(f"int8 launches {qcounts}: want {100 * n_batches} "
+                                 f"({61 * n_batches} in conv mode)")
+        int8_err = check_int8_at_eval_frame()
+
+        # ---- the pass's parts alone: predict, rows, the loader ----
+        batch = next(iter(ev.loader))
+        images = torch.from_numpy(batch.images).cuda()
+        predict = make_predict_fn(model, PredictConfig(score_thresh=0.001))
+        predict_ms = cuda_ms(lambda: predict(images), iters=10, warmup=2)
+        det8 = predict(images)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            batch_rows = detections_to_coco(det8, batch, ev.label_to_cat, 0.001)
+        rows_ms = (time.perf_counter() - t0) / 10 * 1e3
+        t0 = time.perf_counter()
+        n = sum(1 for _ in ev.loader)
+        loader_alone_ms = (time.perf_counter() - t0) / n * 1e3
+        log(f"eval: the pass's parts alone, B=8 at 640x1024: predict {predict_ms:.3f} ms per "
+            f"batch (landscape, frames resident); detections_to_coco {rows_ms:.3f} ms per "
+            f"batch ({len(batch_rows)} rows, the host copy included); the loader "
+            f"{loader_alone_ms:.1f} ms per batch over the split ({n} batches, its "
+            f"{cfg.data.num_workers} threads, nothing beside it)")
+    finally:
+        Evaluator.predict_dataset_multi = real_multi
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    phase_s = time.perf_counter() - t_phase
+    log(f"eval: phase 9 took {phase_s:.1f} s")
+    return dict(images=EVAL_IMAGES, batches=n_batches, validate_s=validate_s,
+                validate_images_per_s=EVAL_IMAGES / timing["predict_s"],
+                loader_ms_per_batch=timing["loader_ms"], predict_ms_b8=predict_ms,
+                rows_ms_b8=rows_ms, loader_alone_ms_per_batch=loader_alone_ms,
+                coco_native_s=native_s, coco_python_s=python_s, rows_epoch2=len(rows[2]),
+                map50=[res[1].mean_ap50, res[2].mean_ap50], ar=[res[1].mean_recall,
+                                                                res[2].mean_recall],
+                map50_int8=qres[2].mean_ap50, launches_validate=counts,
+                launches_evaluator=ev_counts, launches_int8=qcounts,
+                native_vs_python=worst, int8_eval_frame_max_abs_err=int8_err,
+                phase_s=phase_s)
+
+
+def check_int8_at_eval_frame() -> float:
+    """One conv-mode and one GEMM-mode call of the int8 kernel at the eval
+    frame (B=8, 640x1024: layer1's 3x3 conv on (8, 160, 256, 64), its
+    64 -> 256 1x1 as a GEMM of M = 8 * 160 * 256), each bit-identical to
+    its plain version. Returns the largest |difference| (0)."""
+    import torch
+
+    from cl_object_detection_tpu_torch.ops import int8_matmul as im
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randint(-127, 128, (8, 160, 256, 64), generator=g, device=dev, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (64, 9 * 64), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.rand(64, generator=g, device=dev) * 1e-4
+    got = im.int8_conv_nhwc(x, wt, scale, None, kernel=3, stride=1, padding=1)
+    ref = im.int8_conv_nhwc_reference(x, wt, scale, None, kernel=3, stride=1, padding=1)
+    a = x.reshape(-1, 64)
+    w1 = torch.randint(-127, 128, (256, 64), generator=g, device=dev, dtype=torch.int8)
+    s1 = torch.rand(256, generator=g, device=dev) * 1e-4
+    b1 = torch.randn(256, generator=g, device=dev)
+    got1 = im.int8_matmul(a, w1, s1, b1)
+    ref1 = im.int8_matmul_reference(a, w1, s1, b1)
+    torch.cuda.synchronize()
+    bad = int((got != ref).sum()), int((got1 != ref1).sum())
+    err = max(float((got.float() - ref.float()).abs().max()),
+              float((got1.float() - ref1.float()).abs().max()))
+    log(f"eval: int8 kernel at the eval frame: conv mode (8,160,256,64) -> 64, values "
+        f"differing from the plain version {bad[0]} of {got.numel()}; GEMM mode "
+        f"M={a.shape[0]} K=64 N=256 +bias, {bad[1]} of {got1.numel()}")
+    if any(bad):
+        raise AssertionError("the int8 kernel disagrees with its plain version at the eval frame")
+    return err
 
 
 def trainer_from_flags(argv):
@@ -1613,7 +1863,13 @@ def main() -> int:
     train = train_path(ctx, args.profile)
     del ctx
     torch.cuda.empty_cache()
-    trainer = trainer_path(train["images_per_s"], args.profile)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        trainer = trainer_path(train["images_per_s"], tmp, args.profile)
+        torch.cuda.empty_cache()
+        evaluation = eval_path(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = []
     for r in results.values():
@@ -1623,6 +1879,7 @@ def main() -> int:
     log(smi)
     log(json.dumps({"train": train}))
     log(json.dumps({"trainer": trainer}))
+    log(json.dumps({"eval": evaluation}))
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {

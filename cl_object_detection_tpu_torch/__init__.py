@@ -8,9 +8,12 @@ Ported so far: the serving path (the RetinaNet forward, ResNet-18..152
 + FPN + heads with the 4x4 space-to-depth fused stem, float or int8
 with ``quantize=True``, logit top-k, decode, clip and class-aware NMS,
 behind ``eval.predictor.make_predict_fn`` and ``cli.serve``), the
-state-0 train step (``train.step.make_train_step``) and the state-0
+state-0 train step (``train.step.make_train_step``), the state-0
 trainer with its data layer and checkpoints (``train.trainer.ILTrainer``,
-``train.loop.train_process``, ``cli.train``). Three hand-written CUDA
+``train.loop.train_process``, ``cli.train``) and evaluation
+(``eval.evaluator.Evaluator``, the COCO-protocol evaluator
+``eval.coco_eval`` with its C++ core ``native/``, ``eval.report``,
+``cli.validate``, ``cli.detect``, ``cli.train --val true``). Three hand-written CUDA
 kernels for ``sm_90a`` carry it on the card: the fused stem (``ops/stem_fused.py`` + ``csrc/stem_fused.cu``),
 the batched fixed-point NMS (``ops/nms_fp.py`` + ``csrc/nms_fp.cu``) and
 the int8 kernel of the quantized convs, a GEMM that can gather a conv's

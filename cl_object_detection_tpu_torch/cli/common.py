@@ -1,8 +1,8 @@
-"""Shared CLI plumbing, the training half (the JAX package's
-``cli/common.py``): the same flags -> TrainConfig. ``--cpu`` selects the
-CPU device in place of the JAX backend switch; flags for what the port
-does not have yet parse, and ``refuse_unported`` refuses them naming the
-ROADMAP item."""
+"""Shared CLI plumbing (the JAX package's ``cli/common.py``): the same
+flags -> TrainConfig for ``cli.train`` and ``cli.validate``. ``--cpu``
+selects the CPU device in place of the JAX backend switch; flags for
+what the port does not have yet parse, and ``refuse_unported`` (here and
+in ``cli/validate.py``) refuses them naming the ROADMAP item."""
 from __future__ import annotations
 
 import argparse
@@ -204,21 +204,26 @@ def add_train_flags(parser: argparse.ArgumentParser) -> None:
                         "one, the run raises)")
 
 
+def uses_mesh(a: argparse.Namespace) -> bool:
+    """Whether any multi-device flag is set."""
+    return bool(a.mesh or a.zero1 or a.num_model != 1 or a.num_data != -1
+                or a.coordinator_address or (a.num_processes or 1) > 1
+                or a.process_id is not None)
+
+
 def refuse_unported(parser: argparse.ArgumentParser, a: argparse.Namespace) -> None:
-    """``parser.error`` for a flag whose feature the port lacks, naming the
-    ROADMAP item that ports it."""
-    if (a.mesh or a.zero1 or a.num_model != 1 or a.num_data != -1
-            or a.coordinator_address or (a.num_processes or 1) > 1
-            or a.process_id is not None):
+    """``parser.error`` for a training flag whose feature the port lacks,
+    naming the ROADMAP item that ports it."""
+    if uses_mesh(a):
         parser.error("multi-device training (--mesh, --num_model, --num_data, "
                      "--zero1, --coordinator_address, --num_processes, "
                      "--process_id) is not ported yet: ROADMAP §1 item 6")
     if a.start_state >= 1 or (a.end_state is not None and a.end_state > a.start_state):
         parser.error("incremental states (--start_state/--end_state >= 1) and the "
                      "IL methods that act there are not ported yet: ROADMAP §1 item 4")
-    if a.val:
-        parser.error("--val true (chained validation) is not ported yet: "
-                     "ROADMAP §1 item 3")
+    if a.val and a.bic:
+        parser.error("--val true with --bic true (validation with the BiC bias "
+                     "correction) is not ported yet: ROADMAP §1 item 4")
 
 
 def args_to_config(a: argparse.Namespace) -> TrainConfig:

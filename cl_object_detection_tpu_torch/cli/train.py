@@ -10,9 +10,11 @@ The JAX package's flags; the dataset layout is
 --train_json / --image_dir). Runs on the CUDA device unless ``--cpu`` is
 given, and raises when there is none. Writes ``params.json`` beside the
 checkpoints, resumes a ``--start_epoch`` > 1 from the newest checkpoint
-at or below the epoch before it, and trains state 0. Flags for what the
-port lacks (states >= 1, --val, multi-device) are refused naming the
-ROADMAP item. ``main`` returns the trainer.
+at or below the epoch before it, and trains state 0; ``--val true``
+then validates the last epoch (``cli.validate.run_validation``). Flags
+for what the port lacks (states >= 1, multi-device, ``--val`` with
+``--bic``) are refused naming the ROADMAP item. ``main`` returns the
+trainer.
 """
 from __future__ import annotations
 
@@ -83,6 +85,20 @@ def main(argv=None):
         recorder.close()
         if cfg.debug:
             torch.autograd.set_detect_anomaly(False)
+
+    if cfg.val_after_train:
+        from .validate import run_validation
+
+        # mirror train_process's clamp: end_state < start_state trains
+        # only start_state, so that's the state to validate
+        end_state = cfg.il.end_state if cfg.il.end_state is not None else cfg.il.start_state
+        end_state = max(end_state, cfg.il.start_state)
+        last = trainer.ckpt.latest_epoch(end_state)
+        if last is None:
+            print(f"warning: no checkpoint for state {end_state}; "
+                  "skipping chained validation")
+        else:
+            run_validation(a, state=end_state, epochs=[last])
     return trainer
 
 

@@ -1,10 +1,12 @@
-"""Batched detection inference (the JAX package's ``eval/predictor.py``
-``make_predict_fn``): forward -> logit top-k -> decode -> clip ->
-class-aware NMS over whole batches and static shapes."""
+"""Batched detection inference (the JAX package's ``eval/predictor.py``):
+``make_predict_fn`` runs forward -> logit top-k -> decode -> clip ->
+class-aware NMS over whole batches and static shapes, and
+``detections_to_coco`` turns its output into COCO result rows."""
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..config import PredictConfig
@@ -67,3 +69,50 @@ def make_predict_fn(model, predict_cfg: PredictConfig,
             bbox_std=tuple(predict_cfg.bbox_std))
 
     return predict
+
+
+def detections_to_coco(
+    det: Detections,
+    batch,
+    label_to_cat: Dict[int, int],
+    score_thresh: float = 0.05,
+    keep_slots: Optional[Sequence[bool]] = None,
+) -> List[dict]:
+    """Detections (tensors on any device) -> COCO result dicts: un-scale
+    boxes to original pixels, xyxy -> xywh, drop pad slots.
+
+    The four tensors come to the host in one copy; the un-scaling divides
+    in numpy float32 as the JAX package does, so the rows are the same
+    bytes. ``batch`` is a ``data.loader.Batch`` (host numpy ids and
+    scales). ``keep_slots``: per-slot filter — the static loader
+    wrap-fills short groups by REPEATING images inside one batch, so
+    callers must emit each image's rows from exactly one slot."""
+    b, d = det.scores.shape
+    # one device -> host copy: float32 holds the labels (< 2**24) and the
+    # valid bits exactly, and the boxes and scores bit for bit
+    packed = torch.cat([det.boxes.float(), det.scores.float()[..., None],
+                        det.labels.float()[..., None], det.valid.float()[..., None]],
+                       dim=-1).cpu().numpy()
+    boxes = packed[..., :4]
+    scores = packed[..., 4]
+    labels = packed[..., 5].astype(np.int64)
+    valid = packed[..., 6] > 0
+    out: List[dict] = []
+    for i in range(b):
+        if keep_slots is not None and not keep_slots[i]:
+            continue
+        img_id = int(batch.image_ids[i])
+        if img_id < 0:
+            continue
+        scale = float(batch.scales[i])
+        for j in np.where(valid[i] & (scores[i] > score_thresh))[0]:
+            x1, y1, x2, y2 = boxes[i, j] / scale
+            out.append(
+                {
+                    "image_id": img_id,
+                    "category_id": int(label_to_cat[int(labels[i, j])]),
+                    "bbox": [float(x1), float(y1), float(x2 - x1), float(y2 - y1)],
+                    "score": float(scores[i, j]),
+                }
+            )
+    return out

@@ -7,7 +7,10 @@ and degenerate images, the stem's float32 form and its refusal of a
 kernel that is not packed, and the wrappers' refusals. Then the train
 path: the stem Function's backward on the card, gradients reaching the
 stem's parameters through the kernel, and one float32 apply on the card
-against the same apply on the CPU.
+against the same apply on the CPU. Then evaluation: the ``Evaluator``
+with the NMS kernel and with the iterative NMS gives the same rows, and
+``detections_to_coco`` gives the same rows from card tensors as from
+their CPU copies.
 
 Marked ``cuda``. Without a CUDA device every test skips: a kernel has no
 CPU mode, and the CPU tests hold the plain versions to the JAX package.
@@ -739,3 +742,96 @@ def test_checkpoint_saved_on_the_card_restores_bit_for_bit(dev, toy_dataset, tmp
         for m in ("mu", "nu"):
             assert got["state"][i][m].device.type == "cuda"
             assert torch.equal(got["state"][i][m], st[m]), (i, m)
+
+
+# ------------------------------------------------------------ evaluation
+
+def _eval_model(dev, dtype):
+    """The small R18 with random output convs scaled as in
+    tests/test_torch_eval.py (logit std near 1, bias -2), so that every
+    image has detections at score_thresh 1e-3."""
+    import math
+
+    from cl_object_detection_tpu_torch.config import ModelConfig
+    from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+
+    gen = torch.Generator().manual_seed(3)
+    model = create_retinanet(ModelConfig(depth=18, fpn_channels=32, head_layers=2,
+                                         compute_dtype=dtype), 5, device=dev, generator=gen)
+    with torch.no_grad():
+        for head, std in ((model.classification_head, 1.0), (model.regression_head, 0.3)):
+            w = head.output.weight
+            w.copy_(torch.randn(w.shape, generator=gen).to(dev) / math.sqrt(w[0].numel()))
+        x = torch.zeros(1, 32, 48, 64, dtype=torch.uint8, device=dev)
+        x[..., :48] = torch.randint(0, 256, (1, 32, 48, 48), generator=gen).to(dev)
+        cls, reg = model(x, enable_act=False)
+        bias_c = model.classification_head.output.bias
+        model.classification_head.output.weight.mul_(1.0 / float((cls - bias_c[0]).float().std()))
+        bias_c.fill_(-2.0)
+        model.regression_head.output.weight.mul_(0.3 / float(reg.float().std()))
+    return model
+
+
+def _eval_split(tmp_path, nms_impl):
+    import os
+
+    from cl_object_detection_tpu_torch.config import DataConfig, PredictConfig
+    from cl_object_detection_tpu_torch.data.coco import CocoJson
+    from cl_object_detection_tpu_torch.eval.evaluator import Evaluator
+    from cl_object_detection_tpu_torch.states import ILStates
+    from cl_object_detection_tpu_torch.utils.toydata import make_toy_dataset
+
+    root = str(tmp_path)
+    if not os.path.exists(os.path.join(root, "test.json")):
+        make_toy_dataset(root, num_images=12, image_size=(90, 120), seed=3, split="test")
+    coco = CocoJson(os.path.join(root, "test.json"))
+    states = ILStates(list(coco.classes.values()), coco.classes_inverse, ["5"])
+    data = DataConfig(batch_size=4, min_side=96, max_side=192, height=128, width=192,
+                      max_boxes=8, num_workers=0, prefetch=0, fused_stem=True,
+                      transfer_dtype="uint8")
+    return Evaluator(coco, states, os.path.join(root, "images"), data,
+                     PredictConfig(score_thresh=1e-3, nms_impl=nms_impl))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_evaluator_rows_equal_under_both_nms_on_the_card(dev, tmp_path, dtype):
+    """The Evaluator on the card with the NMS kernel (``pallas_fp``) and
+    with the iterative NMS: identical rows (the keep masks are
+    bit-identical), the kernel launched once per batch."""
+    model = _eval_model(dev, dtype)
+    iterative = _eval_split(tmp_path, "iterative")
+    kernel = _eval_split(tmp_path, "pallas_fp")
+    before = nf.nms_fp.launches
+    rows = kernel.predict_dataset(model)
+    assert nf.nms_fp.launches == before + len(kernel.loader)
+    want = iterative.predict_dataset(model)
+    assert len(rows) > 12 * 50
+    assert rows == want
+    res = kernel.evaluate(rows)
+    assert res.pred_num == len(rows) and np.isfinite(res.mean_ap50)
+
+
+def test_detections_to_coco_from_the_card_equals_the_cpu_copy(dev):
+    """Rows of detections lying on the card equal the rows of the same
+    detections copied to the CPU."""
+    from cl_object_detection_tpu_torch.eval.predictor import detections_to_coco
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, d = 4, 300
+    xy = torch.rand(b, d, 2, generator=g, device=dev) * 500
+    boxes = torch.cat([xy, xy + 1 + torch.rand(b, d, 2, generator=g, device=dev) * 90], -1)
+    det = tn.Detections(boxes=boxes, scores=torch.rand(b, d, generator=g, device=dev),
+                        labels=torch.randint(0, 20, (b, d), generator=g, device=dev,
+                                             dtype=torch.int32),
+                        valid=torch.rand(b, d, generator=g, device=dev) > 0.1)
+
+    class Batch:
+        image_ids = np.array([3, 8, -1, 11])
+        scales = np.array([0.75, 1.6, 1.0, 1.0 / 3.0], np.float32)
+
+    label_to_cat = {i: i + 1 for i in range(20)}
+    got = detections_to_coco(det, Batch, label_to_cat, 0.05, keep_slots=[True, True, True, False])
+    want = detections_to_coco(tn.Detections(*(t.cpu() for t in det)), Batch, label_to_cat, 0.05,
+                              keep_slots=[True, True, True, False])
+    assert len(got) > 400
+    assert got == want

@@ -15,7 +15,7 @@ names = [pkg.__name__]
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
     names.append(m.name)
-from cl_object_detection_tpu_torch import _build
+from cl_object_detection_tpu_torch import _build, native
 print(json.dumps({
     "modules": names,
     "jax": sorted(m for m in sys.modules
@@ -23,6 +23,7 @@ print(json.dumps({
     "jax_package": sorted(m for m in sys.modules
                           if m.split(".")[0] == "cl_object_detection_tpu"),
     "built": sorted(_build._libs),
+    "native_loaded": native._lib is not None,
 }))
 """
 
@@ -33,7 +34,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(got["modules"]) >= 46, got["modules"]
+    assert len(got["modules"]) >= 52, got["modules"]
     assert {"cl_object_detection_tpu_torch.ops.quant",
             "cl_object_detection_tpu_torch.ops.int8_matmul",
             "cl_object_detection_tpu_torch.ops.focal_loss",
@@ -55,10 +56,45 @@ def test_port_imports_no_jax():
             "cl_object_detection_tpu_torch.utils.checkpoint",
             "cl_object_detection_tpu_torch.utils.recorder",
             "cl_object_detection_tpu_torch.utils.profiling",
-            "cl_object_detection_tpu_torch.utils.toydata"} <= set(got["modules"])
+            "cl_object_detection_tpu_torch.utils.toydata",
+            "cl_object_detection_tpu_torch.native",
+            "cl_object_detection_tpu_torch.eval.coco_eval",
+            "cl_object_detection_tpu_torch.eval.evaluator",
+            "cl_object_detection_tpu_torch.eval.report",
+            "cl_object_detection_tpu_torch.cli.validate",
+            "cl_object_detection_tpu_torch.cli.detect"} <= set(got["modules"])
     assert got["jax"] == [], got["jax"]
     assert got["jax_package"] == [], got["jax_package"]
     assert got["built"] == []
+    assert got["native_loaded"] is False
+
+
+def test_port_never_loads_the_jax_packages_native_library():
+    """The port's evaluator loads its own library from build/native/, not
+    the JAX package's libcocoeval.so."""
+    probe = (
+        "import json\n"
+        "from cl_object_detection_tpu_torch import native\n"
+        "from cl_object_detection_tpu_torch.eval.coco_eval import CocoProtocolEval\n"
+        "from cl_object_detection_tpu_torch.data.coco import CocoJson\n"
+        "gt = CocoJson({'images': [{'id': 1, 'file_name': 'a', 'height': 9, 'width': 9}],\n"
+        "               'annotations': [{'id': 1, 'image_id': 1, 'category_id': 1,\n"
+        "                                'bbox': [0, 0, 4, 4], 'iscrowd': 0}],\n"
+        "               'categories': [{'id': 1, 'name': 'x'}]})\n"
+        "ap = CocoProtocolEval(gt, [1]).evaluate_class(\n"
+        "    [{'image_id': 1, 'category_id': 1, 'bbox': [0, 0, 4, 4], 'score': 1.0}], 1)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print(json.dumps({'ap': ap, 'libs': sorted({l.split()[-1] for l in maps.splitlines()\n"
+        "                                            if 'cocoeval' in l})}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["ap"] == [1.0, 1.0]
+    assert len(got["libs"]) == 1, got["libs"]
+    assert "/build/native/libcocoeval-" in got["libs"][0]
+    assert "cl_object_detection_tpu/native" not in got["libs"][0]
 
 
 def test_chip_smoke_imports_no_jax():
