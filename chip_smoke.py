@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving, training and evaluation paths on one NVIDIA GPU and check them.
+"""Run the PyTorch/CUDA port's serving, training, evaluation and incremental-state paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -133,8 +133,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    resident), ``detections_to_coco`` of one batch, the loader over the
    split with nothing beside it; and the COCO-protocol seconds of both
    paths.
-10. The ``{"trainer": ...}`` and ``{"eval": ...}`` lines, the kernels'
-   JSON line, then the ``{"ok": true, ...}`` line.
+10. Incremental state 1, on phase 8's toy data in its temporary
+   directory (cuDNN deterministic for the phase). With the counters at
+   0, one ``cli.train.main`` call trains state 0 then state 1 with phase
+   8's model and data flags and ``--scenario 15 5 --start_state 0
+   --end_state 1 --start_epoch 1 --end_epoch 1 --new_state_epoch 1
+   --distill true --classifier_loss true --init_method mean``: between
+   the states, the similarity pass of the state-0 model over the state-1
+   images, the classifier expansion to 20 classes and the state-0
+   checkpoint as the frozen teacher. Checks: every total_loss finite;
+   ``dist_feat_loss``, ``dist_reg_loss``, ``dist_cls_loss`` and
+   ``sim_loss`` in every state-1 micro-step's metrics; one stem launch
+   per state-0 micro-step, two per state-1 micro-step (the student under
+   autograd, the teacher under no_grad), one per batch of the similarity
+   pass, and no other kernel; the state-1 checkpoint's head at 20
+   classes; the old-class slots of the head right after the expansion
+   equal to the state-0 checkpoint's bit for bit. Then ``main`` again in
+   a fresh run directory holding only the state-0 checkpoint and its
+   similarity sidecar, ``--start_state 1`` (the cross-state entry): its
+   expanded weights equal the first run's bit for bit, the sidecar is
+   read back (no second similarity pass), two stem launches per
+   micro-step. ``compute_similarity`` of the state-0 model in float32
+   with its classification bias raised by 2 (so the old-class gate
+   passes; a random model's similarity is all zeros), TF32 off, over one
+   batch of 8 state-1 images, on the card and on the CPU: within 1e-5,
+   no anchor's gate flipped, nonzero. ``cli.validate --state 1 --epoch
+   1`` on the test split of phase 9: finite rows, AP over 20 classes.
+   Printed: ``run_batch`` alone per state-1 micro-step (on one epoch of
+   batches assembled beforehand) beside phase 8's state-0 figure, the
+   teacher's forward alone (CUDA events), the similarity pass in
+   images/s, the peak memory and the phase's seconds.
+11. The ``{"trainer": ...}``, ``{"eval": ...}`` and ``{"il_state1": ...}``
+   lines, the kernels' JSON line, then the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds a torch.profiler window over two B=32 predicts
 after phases 4 and 5 and over two micro-step pairs (two applies) in
@@ -1559,6 +1589,241 @@ def eval_path(tmp: str) -> dict:
                 phase_s=phase_s)
 
 
+IL_MODEL_FLAGS = ["--scenario", "15", "5", "--depth", "50", "--batch_size", "8",
+                  "--fused_stem", "true", "--transfer_dtype", "uint8"]
+IL_TRAIN_FLAGS = ["--every_iter", "2", "--save_every", "1", "--record", "false", "--distill",
+                  "true", "--classifier_loss", "true", "--init_method", "mean",
+                  "--new_state_epoch", "1"]
+SIM_BIAS_RAISE = 2.0             # on the state-0 head: its old-class gate then passes
+SIM_ATOL = 1e-5                  # card against CPU, float32, TF32 off
+
+
+def il_state1_path(tmp: str, state0_step_ms: float) -> dict:
+    """Phase 10: state 0 then state 1 through ``cli.train.main`` on phase
+    8's toy data, the cross-state entry, the similarity on the card
+    against the CPU, and ``cli.validate`` at state 1 (module docstring)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.cli import validate
+    from cl_object_detection_tpu_torch.cli.train import main as train_main
+    from cl_object_detection_tpu_torch.models.expand import HEAD_BIAS, HEAD_WEIGHT
+    from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
+    from cl_object_detection_tpu_torch.train import trainer as trainer_mod
+    from cl_object_detection_tpu_torch.utils.checkpoint import host_copy
+
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "data")
+    flags = ["--train_json", os.path.join(data, "train.json"), "--image_dir",
+             os.path.join(data, "images")] + IL_MODEL_FLAGS + IL_TRAIN_FLAGS
+    ILTrainer = trainer_mod.ILTrainer
+    real = (ILTrainer.run_batch, ILTrainer._expand_training_tools,
+            trainer_mod.compute_similarity)
+    steps, expanded, sims = [], [], []
+
+    def run_batch(self, batch, *args, **kw):
+        before = stem_fused.launches
+        out = real[0](self, batch, *args, **kw)
+        steps.append((self.cur_state, stem_fused.launches - before, sorted(out)))
+        return out
+
+    def expand(self):
+        real[1](self)
+        expanded.append(host_copy(self.model.state_dict()))
+
+    def similarity(model, anchors, loader, num_new, num_old, mesh=None):
+        torch.cuda.synchronize()
+        before, t0 = stem_fused.launches, time.perf_counter()
+        out = real[2](model, anchors, loader, num_new, num_old, mesh=mesh)
+        torch.cuda.synchronize()
+        sims.append(dict(s=time.perf_counter() - t0, launches=stem_fused.launches - before,
+                         batches=len(loader), images=len(loader.dataset)))
+        return out
+
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    ILTrainer.run_batch, ILTrainer._expand_training_tools = run_batch, expand
+    trainer_mod.compute_similarity = similarity
+    try:
+        # ---- this path: counters at 0 -> state 0, then state 1 ----
+        root = os.path.join(tmp, "run_il")
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = train_main(["--root_dir", root, "--start_state", "0", "--end_state", "1",
+                         "--start_epoch", "1", "--end_epoch", "1"] + flags)
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        losses = np.asarray(tr.loss_hist, np.float64)
+        per_state = {k: [n for st, n, _ in steps if st == k] for k in (0, 1)}
+        keys1 = set.intersection(*(set(ks) for st, _, ks in steps if st == 1))
+        log(f"il state 1: cli.train.main, state 0 then state 1 (scenario 15+5, R50 bf16 "
+            f"640x1024 B=8 every_iter=2, distill, classifier_loss, init mean): {run_s:.2f} s; "
+            f"micro-steps {len(per_state[0])} + {len(per_state[1])}; stem launches per "
+            f"micro-step: state 0 {sorted(set(per_state[0]))}, state 1 "
+            f"{sorted(set(per_state[1]))}; similarity pass {sims[0]}; launches {counts}; "
+            f"state-1 metric keys {sorted(keys1)}")
+        if not (len(losses) == len(steps) and np.isfinite(losses).all() and per_state[1]):
+            raise AssertionError(f"losses {losses} over {len(steps)} micro-steps")
+        if set(per_state[0]) != {1} or set(per_state[1]) != {2}:
+            raise AssertionError("want 1 stem launch per state-0 and 2 per state-1 micro-step")
+        if len(sims) != 1 or sims[0]["launches"] != sims[0]["batches"]:
+            raise AssertionError(f"similarity pass: {sims}, want one stem launch per batch")
+        if counts["stem_fused"] != sum(per_state[0]) + sum(per_state[1]) + sims[0]["launches"] \
+                or any(counts[k] for k in ("stem_fused_f32", "nms_fp", "int8_matmul",
+                                           "int8_conv_nhwc")):
+            raise AssertionError(f"launches {counts}")
+        want_keys = {"dist_feat_loss", "dist_reg_loss", "dist_cls_loss", "sim_loss"}
+        if not want_keys <= keys1:
+            raise AssertionError(f"state-1 metrics {sorted(keys1)} lack {want_keys - keys1}")
+        s0 = tr.ckpt.restore(0, 1)[0]["model"]
+        s1 = tr.ckpt.restore(1, 1)[0]["model"]
+        old_same = torch.equal(expanded[0][HEAD_WEIGHT].reshape(9, NUM_CLASSES, -1)[:, :15],
+                               s0[HEAD_WEIGHT].reshape(9, 15, -1)) and torch.equal(
+            expanded[0][HEAD_BIAS].reshape(9, NUM_CLASSES)[:, :15], s0[HEAD_BIAS].reshape(9, 15))
+        log(f"il state 1: state-1 checkpoint head {tuple(s1[HEAD_WEIGHT].shape)}; old-class "
+            f"slots right after the expansion equal the state-0 checkpoint's: {old_same}")
+        if s1[HEAD_WEIGHT].shape[0] != 9 * NUM_CLASSES or not old_same:
+            raise AssertionError("the state-1 head is not the expansion of the state-0 head")
+
+        # ---- the cross-state entry from the state-0 checkpoint ----
+        entry = os.path.join(tmp, "run_entry")
+        src = tr.ckpt.state_dir(0)
+        dst = os.path.join(entry, "checkpoint", "15_5", "state0")
+        shutil.copytree(os.path.join(src, "epoch1"), os.path.join(dst, "epoch1"))
+        shutil.copy(os.path.join(src, "similarity.npz"), dst)
+        zero_counts()
+        n_steps = len(steps)
+        tr2 = train_main(["--root_dir", entry, "--start_state", "1", "--start_epoch", "1",
+                          "--end_epoch", "1"] + flags)
+        counts2 = read_counts()
+        entry_same = len(expanded) == 2 and set(expanded[1]) == set(expanded[0]) and all(
+            torch.equal(expanded[1][k], expanded[0][k]) for k in expanded[0])
+        entry_launches = sorted({n for _, n, _ in steps[n_steps:]})
+        log(f"il state 1: --start_state 1 from the state-0 checkpoint: expanded weights equal "
+            f"next_state's bit for bit: {entry_same}; similarity passes {len(sims)} (the "
+            f"sidecar read back); {len(steps) - n_steps} micro-steps, stem launches per "
+            f"micro-step {entry_launches}; launches {counts2}")
+        if not entry_same or len(sims) != 1 or entry_launches != [2] or not np.isfinite(
+                np.asarray(tr2.loss_hist)).all():
+            raise AssertionError("the cross-state entry differs from next_state")
+        del tr2
+
+        # ---- run_batch alone at state 1, and the teacher's forward ----
+        tr.train_loader.set_epoch(2)
+        batches = list(tr.train_loader)
+        tr.run_batch(batches[0], sync_metrics=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            m = tr.run_batch(b, sync_metrics=False)
+        float(m["total_loss"])
+        torch.cuda.synchronize()
+        step1_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+        x = torch.from_numpy(batches[0].images).cuda()
+        with torch.no_grad():
+            teacher_ms = cuda_ms(lambda: tr.teacher_model.forward_all(x, False), iters=10)
+        peak = torch.cuda.max_memory_allocated()
+
+        # ---- the similarity on the card against the CPU, float32 ----
+        sim_err, flips, sim_nonzero = similarity_card_vs_cpu(tr, s0)
+
+        # ---- cli.validate at state 1 ----
+        zero_counts()
+        res = validate.main(["--root_dir", root, "--test_json", os.path.join(data, "test.json"),
+                             "--image_dir", os.path.join(data, "images"), "--state", "1",
+                             "--epoch", "1", "--threshold", "0.001"] + IL_MODEL_FLAGS)
+        vcounts = read_counts()
+        with open(os.path.join(root, "val_result", "15_5", "state1",
+                               "voc2007_results_epoch1.json")) as f:
+            rows = json.load(f)
+        flat = np.asarray([r["bbox"] + [r["score"]] for r in rows], np.float64)
+        classes = {r["category_id"] for r in rows}
+        log(f"il state 1: cli.validate --state 1 --epoch 1: {len(rows)} rows over "
+            f"{len(classes)} classes, AP50 over {len(res[1].ap50)} classes, mAP50 "
+            f"{res[1].mean_ap50:.4f}; launches {vcounts}")
+        if not rows or not np.isfinite(flat).all() or len(res[1].ap50) != NUM_CLASSES \
+                or not classes <= set(range(1, NUM_CLASSES + 1)):
+            raise AssertionError("cli.validate at state 1: rows not finite or not 20 classes")
+    finally:
+        ILTrainer.run_batch, ILTrainer._expand_training_tools = real[:2]
+        trainer_mod.compute_similarity = real[2]
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    phase_s = time.perf_counter() - t_phase
+    sim_ips = sims[0]["images"] / sims[0]["s"]
+    log(f"il state 1 (R50 bf16 640x1024 B=8, deterministic cuDNN): run_batch alone "
+        f"{step1_ms:.1f} ms per state-1 micro-step (phase 8's state 0: {state0_step_ms:.1f}); "
+        f"the teacher's forward alone {teacher_ms:.2f} ms per batch; the similarity pass "
+        f"{sim_ips:.2f} images/s ({sims[0]['images']} images, {sims[0]['batches']} batches); "
+        f"peak memory {peak / 2**30:.2f} GiB; phase 10 took {phase_s:.1f} s")
+    return dict(state1_step_ms=step1_ms, state0_step_ms=state0_step_ms,
+                teacher_forward_ms=teacher_ms, similarity_images_per_s=sim_ips,
+                similarity_images=sims[0]["images"], peak_gib=peak / 2**30,
+                micro_steps=[len(per_state[0]), len(per_state[1])],
+                stem_per_state1_micro_step=2, similarity_card_vs_cpu_max_abs=sim_err,
+                similarity_gate_flips=flips, similarity_nonzero=sim_nonzero,
+                entry_equal=entry_same, rows_state1=len(rows), map50_state1=res[1].mean_ap50,
+                phase_s=phase_s)
+
+
+def similarity_card_vs_cpu(tr, s0):
+    """``compute_similarity`` of the state-0 model in float32 with its
+    classification bias raised by ``SIM_BIAS_RAISE``, on the card (TF32
+    off) and on the CPU, over the first unaugmented batch of the state-1
+    images: returns the largest |difference|, the anchors whose
+    old-class gate (positive, old-class probabilities summing to >= 0.5)
+    differs between the two, and the number of nonzero entries."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.data.loader import BatchLoader
+    from cl_object_detection_tpu_torch.il.weight_init import compute_similarity
+    from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+    from cl_object_detection_tpu_torch.ops.boxes import positive_assignment
+
+    loader = BatchLoader(tr.dataset_train, tr.cfg.data, shuffle=False, augment=False)
+    batches = [next(iter(loader))]
+    cfg32 = dataclasses.replace(tr.cfg.model, compute_dtype="float32")
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    got, gates = {}, {}
+    try:
+        for dev in ("cuda", "cpu"):
+            model = create_retinanet(cfg32, 15, device=dev)
+            model.load_state_dict(s0)
+            with torch.no_grad():
+                model.classification_head.output.bias += SIM_BIAS_RAISE
+            seen = []
+            hook = model.register_forward_hook(lambda m, a, out: seen.append(out[0].cpu()))
+            got[dev] = compute_similarity(model, tr.anchors_for, batches, 5, 15)
+            hook.remove()
+            b = batches[0]
+            anchors = torch.tensor(tr.anchors_for(b.images))
+            p = torch.clamp(seen[0], 1e-4, 1 - 1e-4)
+            gates[dev] = torch.stack([
+                positive_assignment(anchors, torch.from_numpy(b.boxes[i]),
+                                    torch.from_numpy(b.labels[i]))[0] & (p[i].sum(1) >= 0.5)
+                for i in range(len(p))])
+            del model
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = float(np.abs(got["cuda"] - got["cpu"]).max())
+    flips = int((gates["cuda"] != gates["cpu"]).sum())
+    nonzero = int((got["cpu"] > 0).sum())
+    log(f"il state 1: compute_similarity, state-0 R50 float32 (classification bias +"
+        f"{SIM_BIAS_RAISE}), {len(batches[0].images)} images: card against CPU max |diff| "
+        f"{err:.3g} (bar {SIM_ATOL:g}), gate flips {flips} of {int(gates['cpu'].sum())} "
+        f"passing anchors, {nonzero} nonzero entries of {got['cpu'].size}")
+    if err > SIM_ATOL or flips or not nonzero:
+        raise AssertionError("the card's similarity differs from the CPU's, or is all zeros")
+    return err, flips, nonzero
+
+
 def check_int8_at_eval_frame() -> float:
     """One conv-mode and one GEMM-mode call of the int8 kernel at the eval
     frame (B=8, 640x1024: layer1's 3x3 conv on (8, 160, 256, 64), its
@@ -1868,6 +2133,8 @@ def main() -> int:
         trainer = trainer_path(train["images_per_s"], tmp, args.profile)
         torch.cuda.empty_cache()
         evaluation = eval_path(tmp)
+        torch.cuda.empty_cache()
+        il_state1 = il_state1_path(tmp, trainer["step_only_ms_640x1024"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1880,6 +2147,7 @@ def main() -> int:
     log(json.dumps({"train": train}))
     log(json.dumps({"trainer": trainer}))
     log(json.dumps({"eval": evaluation}))
+    log(json.dumps({"il_state1": il_state1}))
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,11 @@ trainer with its data layer and checkpoints (``train.trainer.ILTrainer``,
 ``train.loop.train_process``, ``cli.train``) and evaluation
 (``eval.evaluator.Evaluator``, the COCO-protocol evaluator
 ``eval.coco_eval`` with its C++ core ``native/``, ``eval.report``,
-``cli.validate``, ``cli.detect``, ``cli.train --val true``). Three hand-written CUDA
+``cli.validate``, ``cli.detect``, ``cli.train --val true``) and
+incremental state 1 (classifier expansion ``models.expand``, the
+similarity warm-start ``il.weight_init``, SCAIL ``il.scail``, and
+distillation from the frozen previous-state model in ``il.losses``,
+driven by ``ILTrainer.next_state`` and the cross-state entry). Three hand-written CUDA
 kernels for ``sm_90a`` carry it on the card: the fused stem (``ops/stem_fused.py`` + ``csrc/stem_fused.cu``),
 the batched fixed-point NMS (``ops/nms_fp.py`` + ``csrc/nms_fp.cu``) and
 the int8 kernel of the quantized convs, a GEMM that can gather a conv's

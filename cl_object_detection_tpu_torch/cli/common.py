@@ -218,12 +218,14 @@ def refuse_unported(parser: argparse.ArgumentParser, a: argparse.Namespace) -> N
         parser.error("multi-device training (--mesh, --num_model, --num_data, "
                      "--zero1, --coordinator_address, --num_processes, "
                      "--process_id) is not ported yet: ROADMAP §1 item 6")
-    if a.start_state >= 1 or (a.end_state is not None and a.end_state > a.start_state):
-        parser.error("incremental states (--start_state/--end_state >= 1) and the "
-                     "IL methods that act there are not ported yet: ROADMAP §1 item 4")
+    from ..train.trainer import unported_il_method
+
+    refusal = unported_il_method(args_to_config(a).il)
+    if refusal:
+        parser.error(refusal)
     if a.val and a.bic:
         parser.error("--val true with --bic true (validation with the BiC bias "
-                     "correction) is not ported yet: ROADMAP §1 item 4")
+                     "correction) is not ported yet: ROADMAP §1 item 4d")
 
 
 def args_to_config(a: argparse.Namespace) -> TrainConfig:

@@ -13,7 +13,7 @@ Images are read by ``data/image_io.read_image`` and resized by
 device unless ``--cpu`` is given, and raises when there is none.
 Checkpoints are the port's own (under ``<root_dir>/checkpoint`` as the
 port's trainer writes them); ``--torch_ckpt`` runs a reference-format
-state dict instead. ``--bic`` is refused (ROADMAP §1 item 4).
+state dict instead. ``--bic`` is refused (ROADMAP §1 item 4d).
 """
 from __future__ import annotations
 
@@ -74,7 +74,7 @@ def main(argv=None):
     a = parser.parse_args(argv)
     if a.bic:
         parser.error("--bic (the BiC bias correction, il/bic.bic_correct_from_meta) "
-                     "is not ported yet: ROADMAP §1 item 4")
+                     "is not ported yet: ROADMAP §1 item 4d")
     try:
         import cv2
     except ImportError as e:

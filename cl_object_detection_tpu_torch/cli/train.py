@@ -10,11 +10,15 @@ The JAX package's flags; the dataset layout is
 --train_json / --image_dir). Runs on the CUDA device unless ``--cpu`` is
 given, and raises when there is none. Writes ``params.json`` beside the
 checkpoints, resumes a ``--start_epoch`` > 1 from the newest checkpoint
-at or below the epoch before it, and trains state 0; ``--val true``
-then validates the last epoch (``cli.validate.run_validation``). Flags
-for what the port lacks (states >= 1, multi-device, ``--val`` with
-``--bic``) are refused naming the ROADMAP item. ``main`` returns the
-trainer.
+at or below the epoch before it, and trains states ``--start_state`` to
+``--end_state`` (``--scenario 15 5 --end_state 1 --distill true``: state
+0, then state 1 from the expanded classifier with the state-0 model as
+teacher; ``--start_state 1`` enters state 1 from the state-0
+checkpoint); ``--val true`` then validates the last epoch
+(``cli.validate.run_validation``). Flags for what the port lacks (replay,
+prototypes, pseudo-labels, MAS, A-GEM and BiC at states >= 1,
+multi-device, ``--val`` with ``--bic``) are refused naming the ROADMAP
+item. ``main`` returns the trainer.
 """
 from __future__ import annotations
 

@@ -32,7 +32,7 @@ def get_parser():
     add_train_flags(parser)
     # NB: --bic comes from add_train_flags; on the validate CLI it means
     # "apply the checkpoint's BiC bias correction at inference" (refused:
-    # ROADMAP §1 item 4)
+    # ROADMAP §1 item 4d)
     parser.add_argument("--state", type=int, default=0)
     parser.add_argument("--epoch", type=int, nargs="+", default=[-1])
     parser.add_argument("--threshold", type=float, default=0.05)
@@ -68,7 +68,7 @@ def refuse_unported(parser: argparse.ArgumentParser, a: argparse.Namespace) -> N
 
     if a.bic:
         parser.error("--bic true (the BiC bias correction, "
-                     "il/bic.bic_correct_from_meta) is not ported yet: ROADMAP §1 item 4")
+                     "il/bic.bic_correct_from_meta) is not ported yet: ROADMAP §1 item 4d")
     if uses_mesh(a):
         parser.error("multi-device evaluation (--mesh and its flags) is not ported "
                      "yet: ROADMAP §1 item 6")
@@ -90,7 +90,7 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
 
     if getattr(a, "bic", False):
         raise NotImplementedError("the BiC bias correction at evaluation is not "
-                                  "ported yet: ROADMAP §1 item 4")
+                                  "ported yet: ROADMAP §1 item 4d")
     device = resolve_device("cpu" if getattr(a, "cpu", False) else None)
     cfg = args_to_config(a)
     state = state if state is not None else getattr(a, "state", 0)

@@ -4,32 +4,45 @@
 
 specialized by a frozen :class:`LossStatics`. The metric keys are the
 JAX package's (``cls_bg_loss``, ``cls_fg_loss``, ``reg_loss``,
-``enhance_loss``, ``total_loss``), so records line up.
+``dist_cls_loss``, ``dist_reg_loss``, ``dist_feat_loss``, ``sim_loss``,
+``enhance_loss``, ``enhance_on_new_loss``, ``total_loss``), so records
+line up.
 
-This slice carries the plain path (state 0, replay batches, the
-classifier warm stage, the final correction):
-  * the focal loss on activated scores; on replay batches the per-image
-    fg losses below ``clip_replay_cls_loss`` drop out of the mean;
-  * ``enhance_error`` on replay batches: mean |p|^k over new-class
-    scores > 0.05;
-  * ``enhance_only``: the enhance_error term is the whole objective.
+  * plain path (state 0, replay batches, the classifier warm stage, the
+    final correction): the focal loss on activated scores; on replay
+    batches the per-image fg losses below ``clip_replay_cls_loss`` drop
+    out of the mean; ``enhance_error`` on replay batches (mean |p|^k over
+    new-class scores > 0.05); under ``enhance_only`` that term is the
+    whole objective;
+  * incremental path (states >= 1): the focal loss on sigmoid(logits)
+    with every IL flag, the per-image fg losses below ``clip_cls_loss``
+    dropped; distillation from the frozen teacher (its forward under
+    ``torch.no_grad``): the cosine feature loss summed over the five FPN
+    maps (per map, the mean over its B*H*W vectors of 1 - cos, the
+    vectors along the channel dim of the NCHW maps), smooth-L1 (beta 1)
+    regression distillation on the anchors that are not positive for
+    the student and foreground for the teacher, and the MSE
+    classification distillation on the teacher's foreground entries (on
+    every old-class column of those anchors under ``ignore_gd``), on
+    logits or probabilities per ``distill_logits``; the cosine-margin
+    classifier-similarity loss against the teacher's class vectors.
 
-The incremental path (distillation, prototypes, classifier similarity)
-and the MAS penalty raise ``NotImplementedError``: they are ROADMAP §1
-item 4.
+The prototype term and pseudo-label progress (ROADMAP §1 item 4b) and
+the MAS penalty (item 4c) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import FocalConfig, ILConfig
 from ..ops.focal_loss import focal_loss
 
-INCREMENTAL_NOT_PORTED = ("the incremental loss terms (distillation, prototypes, "
-                          "classifier similarity, MAS) are not ported yet: ROADMAP §1 item 4")
+PROTOTYPE_NOT_PORTED = ("the prototype loss and pseudo-label progress are not ported "
+                        "yet: ROADMAP §1 item 4b")
+MAS_NOT_PORTED = "the MAS penalty is not ported yet: ROADMAP §1 item 4c"
 
 
 @dataclass(frozen=True)
@@ -81,8 +94,58 @@ def _smooth_l1(diff: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
     return torch.where(ad < beta, 0.5 * ad * ad / beta, ad - 0.5 * beta)
 
 
+def _safe_norm(x: torch.Tensor, dim=None, eps: float = 1e-12) -> torch.Tensor:
+    """sqrt(sum(x^2) + eps): a plain norm has a NaN gradient at a zero
+    vector (all-ReLU-dead FPN rows in padded regions give them). A sum of
+    squares, as JAX's, not ``torch.linalg.vector_norm`` (off by ~4e-5
+    relative on the CPU at millions of elements)."""
+    return torch.sqrt(torch.sum(x * x, dim=dim) + eps)
+
+
+def _cosine_feat_loss(feat_s: Sequence[torch.Tensor],
+                      feat_t: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Cosine-embedding loss (target 1) summed over the FPN levels: per
+    NCHW map, the mean over its B*H*W vectors (taken along dim 1, the
+    channels) of 1 - cos(student, teacher)."""
+    total = 0.0
+    for fs, ft in zip(feat_s, feat_t):
+        fs, ft = fs.float(), ft.float()
+        num = torch.sum(fs * ft, dim=1)
+        den = _safe_norm(fs, dim=1) * _safe_norm(ft, dim=1)
+        cos = num / torch.maximum(den, den.new_full((), 1e-8))
+        total = total + torch.mean(1.0 - cos)
+    return total
+
+
+def classifier_vectors(weight: torch.Tensor, num_anchors: int = 9) -> torch.Tensor:
+    """Per-class flattened classifier weights ``(C, A*kh*kw*cin)`` of the
+    OIHW classification output weight (output channel a*C + c), in the
+    JAX package's order, as a differentiable function of ``weight``
+    (the twin of ``models.expand.classifier_class_vectors``)."""
+    total, cin, kh, kw = weight.shape
+    c = total // num_anchors
+    return (weight.float().reshape(num_anchors, c, cin, kh, kw)
+            .permute(1, 0, 3, 4, 2).reshape(c, -1))
+
+
+def classifier_similarity_loss(new_class_vectors: torch.Tensor,
+                               past_class_vectors: torch.Tensor,
+                               delta: float = 0.5) -> torch.Tensor:
+    """Cosine-margin penalty pushing the new classes' filters away from
+    the old ones: the sum over new classes j and old classes i of
+    max(|cos(w_j, w_i)| - delta, 0)."""
+    pn = _safe_norm(past_class_vectors, dim=1)
+    total = 0.0
+    for w in new_class_vectors:
+        den = pn * _safe_norm(w)
+        cos = past_class_vectors @ w / torch.maximum(den, den.new_full((), 1e-12))
+        excess = torch.abs(cos) - delta
+        total = total + torch.sum(torch.maximum(excess, excess.new_zeros(())))
+    return total
+
+
 def compute_losses(
-    model,                             # the RetinaNet: model(images, enable_act)
+    model,                             # the RetinaNet: model(images, enable_act), .forward_all
     images: torch.Tensor,
     gt_boxes: torch.Tensor,
     gt_labels: torch.Tensor,
@@ -90,14 +153,23 @@ def compute_losses(
     il_cfg: ILConfig,
     focal_cfg: FocalConfig,
     statics: LossStatics,
+    *,
+    teacher=None,                      # the frozen previous-state RetinaNet
+    classifier_vectors: Optional[torch.Tensor] = None,  # the teacher's (C_old, D)
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total, metrics) of the plain path; see the module docstring."""
+    """(total, metrics); see the module docstring."""
     s = statics
-    if s.incremental or s.use_mas:
-        raise NotImplementedError(INCREMENTAL_NOT_PORTED)
+    if s.use_prototype or s.use_pseudo_progress:
+        raise NotImplementedError(PROTOTYPE_NOT_PORTED)
+    if s.use_mas:
+        raise NotImplementedError(MAS_NOT_PORTED)
+    if s.incremental:
+        result = _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg,
+                                     focal_cfg, s, teacher, classifier_vectors)
+        total = sum(result.values())
+        return total, {**result, "total_loss": total}
     result: Dict[str, torch.Tensor] = {}
     cls, regression = model(images, enable_act=True)
-
     if s.enhance_only:
         total = result["enhance_loss"] = _enhance_error(cls, s)
         return total, {**result, "total_loss": total}
@@ -119,3 +191,64 @@ def compute_losses(
 
     total = sum(result.values())
     return total, {**result, "total_loss": total}
+
+
+def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILConfig,
+                        focal_cfg: FocalConfig, s: LossStatics, teacher,
+                        class_vectors) -> Dict[str, torch.Tensor]:
+    """The loss terms of the incremental path, in the JAX package's order."""
+    result: Dict[str, torch.Tensor] = {}
+    logits, regression, feats = model.forward_all(images, False)
+    cls = torch.sigmoid(logits)
+    out = focal_loss(
+        cls, regression, anchors, gt_boxes, gt_labels,
+        alpha=focal_cfg.alpha, gamma=focal_cfg.gamma,
+        num_past_class=s.num_past_class, incremental=True,
+        ignore_past_class=il_cfg.ignore_past_class,
+        new_ignore_past_class=il_cfg.new_ignore_past_class,
+        decrease_positive=il_cfg.decrease_positive,
+        decrease_positive_by_iou=il_cfg.decrease_positive_by_iou,
+        enhance_on_new=s.use_enhance_on_new,
+        fg_iou=focal_cfg.fg_iou, bg_iou=focal_cfg.bg_iou,
+        bbox_std=tuple(focal_cfg.bbox_std),
+    )
+    if il_cfg.clip_loss:
+        result["cls_fg_loss"] = _clip_fg_mean(out.fg_loss, il_cfg.clip_cls_loss)
+    else:
+        result["cls_fg_loss"] = out.fg_loss.mean()
+    result["cls_bg_loss"] = out.bg_loss.mean()
+    result["reg_loss"] = out.reg_loss.mean()
+    if s.use_enhance_on_new:
+        result["enhance_on_new_loss"] = out.enhance_on_new_loss
+    if not s.use_distill:
+        return result
+    if teacher is None:
+        raise ValueError("distillation needs the teacher model")
+
+    with torch.no_grad():
+        t_logits, t_reg, t_feats = teacher.forward_all(images, False)
+    result["dist_feat_loss"] = _cosine_feat_loss(feats, t_feats)
+
+    s_old = logits[:, :, :s.num_past_class]
+    t_prob = torch.sigmoid(t_logits)
+    if s.distill_logits:
+        s_cmp, t_cmp = s_old, t_logits
+    else:
+        s_cmp, t_cmp = torch.sigmoid(s_old), t_prob
+    t_fg = t_prob > 0.05                                    # (B, A, C_old)
+    reg_mask = out.bg_mask & t_fg.any(dim=2)                # (B, A)
+    reg_diff = _smooth_l1(t_reg - regression, beta=1.0)
+    result["dist_reg_loss"] = torch.where(reg_mask[..., None], reg_diff, 0.0).sum() / (
+        torch.clamp(reg_mask.float().sum() * 4.0, min=1.0))
+    # ignore_gd: every old-class column of the reg_mask anchors;
+    # otherwise the teacher's foreground entries only
+    cls_mask = reg_mask[..., None].expand(t_fg.shape) if s.ignore_gd else t_fg
+    result["dist_cls_loss"] = _masked_mean((t_cmp - s_cmp) ** 2, cls_mask)
+
+    if s.use_classifier_loss and class_vectors is not None:
+        # the student's new-class filters against the teacher's (C_old, D)
+        weight = model.classification_head.output.weight
+        cur = classifier_vectors(weight, weight.shape[0] // s.num_classes)
+        result["sim_loss"] = classifier_similarity_loss(
+            cur[s.num_past_class:], class_vectors, il_cfg.classifier_loss_delta)
+    return result

@@ -6,6 +6,12 @@ micro-step the sum is divided by ``every_iter``, then, in JAX's order:
 trainable mask -> clip by global norm -> zero the warm old classes ->
 A-GEM projection -> Adam, and the accumulator is cleared. Everything
 runs on the model's device; the micro-step counts live on the host.
+
+At states >= 1 the frozen teacher (the previous state's model, in eval
+mode, ``requires_grad_(False)``) runs its forward inside
+``compute_losses`` under ``torch.no_grad``, never ``inference_mode``:
+tensors cached under inference mode would break the student's next
+backward.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ from typing import Dict, Optional
 import torch
 
 from ..config import FocalConfig, ILConfig
-from ..il.losses import INCREMENTAL_NOT_PORTED, LossStatics, compute_losses
+from ..il.losses import LossStatics, compute_losses
 from .state import TrainState
 
 Grads = Dict[str, torch.Tensor]
@@ -79,12 +85,13 @@ def make_train_step(
     """Build the step for ``model`` (the model of the states it is given).
 
     Returns ``fn(state, images, boxes, labels, *, replay_grad=None,
-    trainable_mask=None) -> (state, metrics)``: ``state`` is updated in
-    place and returned; ``metrics`` holds the detached loss terms under
-    the JAX keys. ``replay_grad`` maps parameter names to the A-GEM
-    replay gradient; ``trainable_mask`` is ``train.trainer.
-    trainable_mask``'s. A teacher (the incremental states) raises
-    ``NotImplementedError``.
+    trainable_mask=None, classifier_vectors=None) -> (state, metrics)``:
+    ``state`` is updated in place and returned; ``metrics`` holds the
+    detached loss terms under the JAX keys. ``replay_grad`` maps
+    parameter names to the A-GEM replay gradient; ``trainable_mask`` is
+    ``train.trainer.trainable_mask``'s; ``classifier_vectors`` is the
+    teacher's ``(C_old, D)`` tensor of the classifier-similarity loss.
+    ``teacher_model`` (None at state 0) is set to eval mode and frozen.
 
     With ``every_iter <= 1`` and ``enhance_only`` (the final correction),
     a batch whose loss is not > 0 skips the optimizer, moments included,
@@ -92,7 +99,7 @@ def make_train_step(
     one host sync per micro-step in that phase only.
     """
     if teacher_model is not None:
-        raise NotImplementedError(INCREMENTAL_NOT_PORTED)
+        teacher_model.eval().requires_grad_(False)
     ss = step_statics
     device = next(model.parameters()).device
     anchors = torch.tensor(anchors, dtype=torch.float32, device=device)
@@ -113,11 +120,13 @@ def make_train_step(
 
     def step_fn(state: TrainState, images, boxes, labels, *,
                 replay_grad: Optional[Grads] = None,
-                trainable_mask: Optional[Dict[str, float]] = None):
+                trainable_mask: Optional[Dict[str, float]] = None,
+                classifier_vectors: Optional[torch.Tensor] = None):
         with torch.enable_grad():
             total, metrics = compute_losses(
                 state.model, images, boxes, labels, anchors, il_cfg, focal_cfg,
-                loss_statics)
+                loss_statics, teacher=teacher_model,
+                classifier_vectors=classifier_vectors)
             total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         state.step += 1

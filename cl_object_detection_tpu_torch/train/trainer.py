@@ -1,4 +1,4 @@
-"""The IL trainer (the JAX package's ``train/trainer.py``) at state 0.
+"""The IL trainer (the JAX package's ``train/trainer.py``).
 
 ``ILTrainer`` owns the datasets, the model and its optimizer on the
 device ``resolve_device`` gives, the train-step variants, the warm-up
@@ -15,12 +15,20 @@ stages, the LR schedule, the checkpoints and the resume:
     count and the running-loss window;
   * ``--pretrained`` (torchvision backbone) and ``--torch_ckpt`` (a
     reference-trained RetinaNet, plus its Adam state on a mid-state
-    resume) seed the model through ``models/convert.py``.
+    resume) seed the model through ``models/convert.py``;
+  * states >= 1: ``next_state`` (and the cross-state entry, a
+    ``start_state`` >= 1 at epoch 1 from the previous state's checkpoint
+    or ``--torch_ckpt``) computes or reads back the similarity sidecar,
+    expands the classifier (``models/expand.py``), standardizes it under
+    ``--scail`` and starts a fresh optimizer; the frozen teacher is the
+    previous state's newest checkpoint, with its class vectors under
+    ``--classifier_loss``.
 
-States >= 1 (and so the cross-state entry, replay, distillation, BiC,
-MAS, A-GEM, prototypes and pseudo-labels, which only act there) raise
-``NotImplementedError`` naming ROADMAP §1 item 4; ``MeshConfig.enabled``
-raises naming item 6.
+The IL methods that only act at states >= 1 and are not ported yet raise
+``NotImplementedError`` naming their ROADMAP §1 sub-item
+(``unported_il_method``): replay, prototypes and pseudo-labels (4b),
+MAS and A-GEM (4c), BiC (4d); ``MeshConfig.enabled`` raises naming
+item 6.
 """
 from __future__ import annotations
 
@@ -39,6 +47,9 @@ from ..data.dataset import ILDataset
 from ..data.loader import BatchLoader
 from ..data.transforms import logical_image_hw
 from ..il.losses import LossStatics
+from ..il.scail import standardize_new_classifier
+from ..il.weight_init import compute_similarity
+from ..models.expand import classifier_class_vectors, expand_classifier
 from ..models.retinanet import create_retinanet
 from ..ops.anchors import anchors_for_shape
 from ..states import ILStates
@@ -47,9 +58,19 @@ from .optim import lr_at_epoch, make_optimizer, set_beta1, set_learning_rate
 from .state import TrainState
 from .step import StepStatics, make_train_step
 
-STATES_NOT_PORTED = ("incremental states (start_state or end_state >= 1: classifier "
-                     "expansion, distillation, replay, BiC, MAS, A-GEM, prototypes, "
-                     "pseudo-labels) are not ported yet: ROADMAP §1 item 4")
+# the IL methods that act only at states >= 1 and are not ported yet:
+# (set in the ILConfig, what to call it, ROADMAP §1 sub-item)
+_UNPORTED_IL = (
+    (lambda il: il.replay.sample_num > 0, "replay (--sample_num > 0)", "4b"),
+    (lambda il: il.replay.enhance_error, "--enhance_error", "4b"),
+    (lambda il: il.final_correction, "--final_correction", "4b"),
+    (lambda il: il.replay.mix_data, "--mix_data", "4b"),
+    (lambda il: il.prototype.loss, "--prototype_loss", "4b"),
+    (lambda il: il.pseudo.enabled, "pseudo-labels (--persuado_label)", "4b"),
+    (lambda il: il.mas.enabled, "MAS (--mas)", "4c"),
+    (lambda il: il.agem.enabled, "A-GEM (--agem)", "4c"),
+    (lambda il: il.bic.enabled, "BiC (--bic)", "4d"),
+)
 MESH_NOT_PORTED = ("multi-device training (MeshConfig.enabled, the mesh and "
                    "multi-process flags) is not ported yet: ROADMAP §1 item 6")
 
@@ -59,6 +80,19 @@ WARM_WHITE_LIST = {
     "fpn": ("classification_head.", "regression_head."),
     "resnet": ("fpn.", "classification_head.", "regression_head."),
 }
+
+
+def unported_il_method(il) -> Optional[str]:
+    """The refusal message of the first IL method set in ``il`` (an
+    ``ILConfig``) that the port lacks, when the run reaches a state >= 1;
+    None when there is nothing to refuse."""
+    end_state = il.end_state if il.end_state is not None else il.start_state
+    if max(il.start_state, end_state) < 1:
+        return None
+    for is_set, what, item in _UNPORTED_IL:
+        if is_set(il):
+            return f"{what} at states >= 1 is not ported yet: ROADMAP §1 item {item}"
+    return None
 
 
 def trainable_mask(model: torch.nn.Module,
@@ -79,9 +113,9 @@ class ILTrainer:
                  workdir: str = ".", device=None):
         if cfg.mesh.enabled:
             raise NotImplementedError(MESH_NOT_PORTED)
-        end_state = cfg.il.end_state
-        if cfg.il.start_state >= 1 or (end_state is not None and end_state > cfg.il.start_state):
-            raise NotImplementedError(STATES_NOT_PORTED)
+        refusal = unported_il_method(cfg.il)
+        if refusal:
+            raise NotImplementedError(refusal)
         self.cfg = cfg
         self.workdir = workdir
         self.device = resolve_device(device)
@@ -127,22 +161,33 @@ class ILTrainer:
         self._anchors_at(h, w)
         self._anchors_at(w, h)
 
+        # cross-state entry: state k at epoch 1 starts from state k-1's
+        # newest checkpoint (or --torch_ckpt) at the previous class
+        # count, then expands
         start_epoch = cfg.start_epoch or 1
         ref_ckpt = cfg.torch_ckpt
-        self.num_classes = self.states[self.cur_state].num_knowing_class
+        cross_state = (self.cur_state >= 1 and start_epoch == 1 and (
+            ref_ckpt is not None or self.ckpt.latest_epoch(self.cur_state - 1) is not None))
+        self.num_classes = self.states[
+            self.cur_state - 1 if cross_state else self.cur_state].num_knowing_class
         self.model = create_retinanet(
             cfg.model, self.num_classes, device=self.device,
             generator=torch.Generator().manual_seed(cfg.seed))
         if ref_ckpt:
+            # previous-state weights on a state entry, this state's
+            # otherwise (its optimizer after _new_train_state below)
             from ..models.convert import load_reference_checkpoint
 
             load_reference_checkpoint(self.model, ref_ckpt,
                                       allow_pickle=cfg.trust_torch_ckpt)
+        elif cross_state:
+            self.model.load_state_dict(self.ckpt.restore(self.cur_state - 1, -1)[0]["model"])
         elif (start_epoch > 1
               and self.ckpt.nearest_epoch(self.cur_state, start_epoch - 1) is not None):
-            # mid-state resume: the weights now, the optimizer in resume()
-            # (cli.train); with --save_every k>1 the newest saved epoch
-            # <= start_epoch-1 stands in for a missing one
+            # mid-state resume: the weights now, before the teacher and
+            # the tools, the optimizer in resume() (cli.train); with
+            # --save_every k>1 the newest saved epoch <= start_epoch-1
+            # stands in for a missing one
             resume_epoch = self.ckpt.nearest_epoch(self.cur_state, start_epoch - 1)
             tree, _ = self.ckpt.restore(self.cur_state, resume_epoch)
             self.model.load_state_dict(tree["model"])
@@ -162,10 +207,16 @@ class ILTrainer:
                 print(f"warning: optimizer state not imported ({e}); "
                       "continuing with fresh Adam moments")
 
-        # CL tools: none acts at state 0 ---------------------------------
+        # CL tools, in JAX's order: of its tools only expansion and the
+        # teacher exist in the port (the rest are refused above)
         self.teacher_model = None
+        self._teacher_class_vectors: Optional[torch.Tensor] = None
         self.mas_importance = None
         self.prototype_features = None
+        if self.cur_state >= 1:
+            if cross_state:
+                self._expand_training_tools()
+            self._update_prev_model()
         self.train_loader = self._make_train_loader()
 
     # ------------------------------------------------------------------
@@ -207,8 +258,76 @@ class ILTrainer:
         """The model's parameters and frozen-BN buffers by name."""
         return self.model.state_dict()
 
+    # ------------------------------------------------------------------
+    # state transition
+    # ------------------------------------------------------------------
     def next_state(self) -> None:
-        raise NotImplementedError(STATES_NOT_PORTED)
+        """Into the next state: the dataset moves to its classes, the
+        classifier expands (similarity warm-start, SCAIL) with a fresh
+        optimizer, and the teacher becomes the finished state's newest
+        checkpoint."""
+        self.cur_state += 1
+        self.dataset_train.next_state()
+        self._expand_training_tools()
+        self.train_loader = self._make_train_loader()
+        self._update_prev_model()
+
+    def _expand_training_tools(self) -> None:
+        """Similarity warm-start, classifier expansion, SCAIL and a fresh
+        optimizer. ``self.model`` is still the previous state's model
+        (the similarity pass runs it); ``self.dataset_train`` is already
+        the new state's. The similarity is cached as the ``similarity``
+        array sidecar of the previous state and read back when present."""
+        cfg = self.cfg.il
+        st = self.states[self.cur_state]
+        num_anchors = self.cfg.model.num_anchors
+        similarity = None
+        if cfg.init_method in ("mean", "large", "onlyNegative") and st.num_past_class > 0:
+            cached = self.ckpt.load_array_sidecar(self.cur_state - 1, "similarity")
+            if cached is not None:
+                similarity = np.asarray(list(cached.values())[0])
+            else:
+                # unaugmented, unshuffled images, as JAX
+                loader = BatchLoader(self.dataset_train, self.cfg.data, shuffle=False,
+                                     augment=False)
+                similarity = compute_similarity(self.model, self.anchors_for, loader,
+                                                num_new=st.num_new_class,
+                                                num_old=st.num_past_class)
+                # the key JAX's sidecar of a one-element list has
+                self.ckpt.save_array_sidecar(self.cur_state - 1, "similarity",
+                                             {"[0]": similarity})
+        new_state = expand_classifier(self.model.state_dict(), st.num_new_class,
+                                      num_anchors=num_anchors, prior=self.cfg.model.prior,
+                                      similarity=similarity, method=cfg.init_method)
+        if cfg.scail and st.num_past_class > 0:
+            new_state = standardize_new_classifier(new_state, st.num_past_class, num_anchors)
+            print(f"scail: standardized {st.num_new_class} new-class filters to the old "
+                  "ranked-mean profile")
+        self.num_classes = st.num_knowing_class
+        self.model = create_retinanet(
+            self.cfg.model, self.num_classes, device=self.device,
+            generator=torch.Generator().manual_seed(self.cfg.seed))
+        self.model.load_state_dict(new_state)
+        self._new_train_state()
+
+    def _update_prev_model(self) -> None:
+        """The frozen teacher of distillation: the previous state's model
+        from its newest checkpoint, on the trainer's device; its class
+        vectors when ``classifier_loss`` is set."""
+        cfg = self.cfg.il
+        if not cfg.distill.enabled:
+            return
+        prev = self.cur_state - 1
+        teacher = create_retinanet(
+            self.cfg.model, self.states[prev].num_knowing_class, device=self.device,
+            generator=torch.Generator().manual_seed(self.cfg.seed))
+        tree, _ = self.ckpt.restore(prev, -1)
+        teacher.load_state_dict(tree["model"])
+        self.teacher_model = teacher.requires_grad_(False)
+        if cfg.classifier_loss:
+            self._teacher_class_vectors = torch.from_numpy(classifier_class_vectors(
+                tree["model"], self.cfg.model.num_anchors)).to(self.device)
+        self._steps.clear()
 
     # ------------------------------------------------------------------
     # train-step variants
@@ -316,6 +435,9 @@ class ILTrainer:
         kwargs = {}
         if self._trainable is not None:
             kwargs["trainable_mask"] = self._trainable
+        statics = self._loss_statics(is_replay, enhance_only=correction)
+        if statics.use_classifier_loss and self._teacher_class_vectors is not None:
+            kwargs["classifier_vectors"] = self._teacher_class_vectors
         images, boxes, labels = self._put_batch(batch)
         self.train_state, metrics = step(self.train_state, images, boxes, labels, **kwargs)
         if sync_metrics:

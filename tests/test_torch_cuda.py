@@ -6,8 +6,9 @@ ragged images, strides and paddings, NMS from k = 1 to 4096 with empty
 and degenerate images, the stem's float32 form and its refusal of a
 kernel that is not packed, and the wrappers' refusals. Then the train
 path: the stem Function's backward on the card, gradients reaching the
-stem's parameters through the kernel, and one float32 apply on the card
-against the same apply on the CPU. Then evaluation: the ``Evaluator``
+stem's parameters through the kernel, one float32 apply on the card
+against the same apply on the CPU, and a state-1 distillation micro-step
+(student and teacher each through the stem kernel) against the CPU. Then evaluation: the ``Evaluator``
 with the NMS kernel and with the iterative NMS gives the same rows, and
 ``detections_to_coco`` gives the same rows from card tensors as from
 their CPU copies.
@@ -594,6 +595,101 @@ def test_float32_apply_on_the_card_matches_the_cpu(dev, monkeypatch):
         assert (np.abs(d_dev[k] - w)[sel] <= (1e-3 * lr + ulp)[sel]).all(), k
         assert (np.abs(d_dev[k]) <= lr * (1 + 1e-6) + ulp).all(), k
     assert np.abs(d_dev["backbone.conv1.weight"]).max() > 0
+
+
+def _state1_pieces(dtype, device):
+    """A state-1 train step of the small R18: the teacher at 3 classes,
+    the student at 5 with its own backbone, FPN and trunks and the
+    ``mean`` expansion of the teacher's classifier; distillation and the
+    classifier-similarity loss; every_iter=1, clip 0.1."""
+    from cl_object_detection_tpu_torch.config import (FocalConfig, ILConfig, ModelConfig,
+                                                      ScheduleConfig)
+    from cl_object_detection_tpu_torch.il.losses import LossStatics
+    from cl_object_detection_tpu_torch.models.expand import classifier_class_vectors
+    from cl_object_detection_tpu_torch.models.expand import expand_classifier
+    from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+    from cl_object_detection_tpu_torch.train.optim import make_optimizer
+    from cl_object_detection_tpu_torch.train.state import TrainState
+    from cl_object_detection_tpu_torch.train.step import StepStatics, make_train_step
+
+    teacher = _small_cpu_model(dtype)
+    student = create_retinanet(ModelConfig(depth=18, fpn_channels=32, head_layers=2,
+                                           compute_dtype=dtype), 5, device="cpu",
+                               generator=torch.Generator().manual_seed(12))
+    own = student.state_dict()
+    sim = np.array([[0.6, 0.3, 0.1], [0.2, 0.5, 0.3]], np.float32)
+    expanded = expand_classifier(teacher.state_dict(), 2, similarity=sim)
+    student.load_state_dict({k: v if k.startswith("classification_head.output.") else own[k]
+                             for k, v in expanded.items()})
+    student, teacher = student.to(device), teacher.to(device)
+    statics = LossStatics(num_classes=5, num_past_class=3, incremental=True, use_distill=True,
+                          use_classifier_loss=True)
+    state = TrainState(student, make_optimizer(ScheduleConfig(lr=1e-4, every_iter=1), student))
+    step = make_train_step(student, teacher, anchors_for_shape(64, 96), ILConfig(),
+                           FocalConfig(), statics,
+                           StepStatics(every_iter=1, grad_clip=0.1, num_past_class=3,
+                                       num_knowing_class=5))
+    vectors = torch.from_numpy(classifier_class_vectors(teacher.state_dict())).to(device)
+    return state, step, teacher, statics, vectors
+
+
+def _state1_batch(device):
+    """``_train_batch``'s frames with GT of the new classes 3 and 4 (and
+    an old one)."""
+    images, boxes, labels = _train_batch(device)
+    labels = labels.clone()
+    labels[0, :2] = torch.tensor([3, 0])
+    labels[1, 0] = 4
+    return images, boxes, labels
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_state1_distill_micro_step_on_the_card(dev, monkeypatch, dtype):
+    """A state-1 distillation micro-step on fused uint8 frames launches the
+    stem kernel twice (the student under autograd, the teacher under
+    no_grad) and gives finite distillation and similarity terms. In
+    float32 (TF32 off) the card's metrics and gradients are held to the
+    CPU's at the CPU tests' bars: metrics at rtol 1e-4, gradients at
+    |d| <= 1e-3 |g_cpu| + 1e-4 max|g_cpu| per leaf; the teacher gets no
+    gradient."""
+    from cl_object_detection_tpu_torch.config import FocalConfig, ILConfig
+    from cl_object_detection_tpu_torch.il.losses import compute_losses
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    counter = sf.stem_fused_f32 if dtype == "float32" else sf.stem_fused
+    results = []
+    for device in (("cpu", dev) if dtype == "float32" else (dev,)):
+        state, step, teacher, statics, vectors = _state1_pieces(dtype, device)
+        batch = _state1_batch(device)
+        total, metrics = compute_losses(
+            state.model, *batch, torch.from_numpy(anchors_for_shape(64, 96).copy()).to(device),
+            ILConfig(), FocalConfig(), statics, teacher=teacher, classifier_vectors=vectors)
+        total.backward()
+        grads = {n: p.grad.cpu().numpy().copy() for n, p in state.model.named_parameters()}
+        assert all(p.grad is None for p in teacher.parameters())
+        state.model.zero_grad(set_to_none=True)
+        results.append(({k: float(v.detach()) for k, v in metrics.items()}, grads))
+        if torch.device(device).type == "cuda":
+            before = counter.launches
+            for _ in range(2):
+                state, m = step(state, *batch, classifier_vectors=vectors)
+            torch.cuda.synchronize()
+            assert counter.launches == before + 4
+            for k in ("dist_feat_loss", "dist_reg_loss", "dist_cls_loss", "sim_loss",
+                      "total_loss"):
+                assert np.isfinite(float(m[k])), k
+            assert float(m["sim_loss"]) > 0
+    if dtype == "bfloat16":
+        return
+    (m_cpu, g_cpu), (m_dev, g_dev) = results
+    assert set(m_cpu) == set(m_dev)
+    for k in m_cpu:
+        assert m_dev[k] == pytest.approx(m_cpu[k], rel=1e-4), k
+    for k, w in g_cpu.items():
+        assert (np.abs(g_dev[k] - w) <= 1e-3 * np.abs(w) + 1e-4 * np.abs(w).max()).all(), k
 
 
 # ----------------------------------------------------------- the trainer

@@ -316,17 +316,24 @@ def test_compute_losses_plain_path_matches_jax(frames, kind):
 
 
 def test_incremental_losses_are_not_ported_yet():
+    """The incremental terms still to port raise naming their sub-item:
+    the prototype loss (item 4b) and the MAS penalty (item 4c), from
+    compute_losses and from a train step with a teacher."""
     _, v = jax_model()
     model = port_model(v)
     batch = targs(make_batch(1))
-    for statics in (LossStatics(num_classes=C, num_past_class=1, incremental=True),
-                    LossStatics(num_classes=C, use_mas=True)):
-        with pytest.raises(NotImplementedError, match="item 4"):
+    cases = ((LossStatics(num_classes=C, num_past_class=1, incremental=True,
+                          use_prototype=True), "item 4b"),
+             (LossStatics(num_classes=C, use_mas=True), "item 4c"))
+    for statics, item in cases:
+        with pytest.raises(NotImplementedError, match=item):
             compute_losses(model, *batch, torch.from_numpy(ANCHORS), tcfg.ILConfig(),
                            tcfg.FocalConfig(), statics)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tstep.make_train_step(model, model, ANCHORS, tcfg.ILConfig(), tcfg.FocalConfig(),
-                              LossStatics(num_classes=C), tstep.StepStatics())
+    step = tstep.make_train_step(model, port_model(v), ANCHORS, tcfg.ILConfig(),
+                                 tcfg.FocalConfig(), cases[0][0], tstep.StepStatics())
+    state = TrainState(model, toptim.make_optimizer(tcfg.ScheduleConfig(), model))
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        step(state, *batch)
 
 
 # ----------------------------------------------------------------- optimizer

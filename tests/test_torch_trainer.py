@@ -480,8 +480,8 @@ def test_train_cli_without_cpu_or_cuda_raises(toy, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--start_state", "1"], "item 4"),
-    (["--scenario", "3", "2", "--end_state", "1"], "item 4"),
+    (["--scenario", "3", "2", "--end_state", "1", "--sample_num", "2"], "item 4b"),
+    (["--scenario", "3", "2", "--end_state", "1", "--mas", "true"], "item 4c"),
     (["--mesh", "true"], "item 6"),
     (["--zero1", "true"], "item 6"),
     (["--num_data", "2"], "item 6"),
@@ -496,8 +496,12 @@ def test_train_cli_refuses_what_is_not_ported(toy, tmp_path, capsys, flags, item
 def test_trainer_refuses_states_and_mesh(toy, tmp_path):
     json_path, images = toy
     base = port_cfg(jax_cfg(str(tmp_path)))
-    for cfg, item in ((base.replace(il=tcfg.ILConfig(scenario=("3", "2"), start_state=1)), "item 4"),
-                      (base.replace(il=tcfg.ILConfig(scenario=("3", "2"), end_state=1)), "item 4"),
+    for cfg, item in ((base.replace(il=tcfg.ILConfig(scenario=("3", "2"), start_state=1,
+                                                     bic=tcfg.BiCConfig(enabled=True))),
+                       "item 4d"),
+                      (base.replace(il=tcfg.ILConfig(
+                          scenario=("3", "2"), end_state=1,
+                          prototype=tcfg.PrototypeConfig(loss=True))), "item 4b"),
                       (base.replace(mesh=tcfg.MeshConfig(enabled=True)), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             ILTrainer(cfg, json_path, images, workdir=str(tmp_path), device="cpu")
