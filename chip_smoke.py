@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving, training, evaluation and incremental-state paths on one NVIDIA GPU and check them.
+"""Run the PyTorch/CUDA port's serving, training, evaluation, incremental and replay paths on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -163,8 +163,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    batches assembled beforehand) beside phase 8's state-0 figure, the
    teacher's forward alone (CUDA events), the similarity pass in
    images/s, the peak memory and the phase's seconds.
-11. The ``{"trainer": ...}``, ``{"eval": ...}`` and ``{"il_state1": ...}``
-   lines, the kernels' JSON line, then the ``{"ok": true, ...}`` line.
+11. State 1 with replay, prototypes and pseudo-labels, in two fresh run
+   directories each holding a copy of phase 10's state-0 checkpoint and
+   its similarity sidecar (cuDNN deterministic for the phase). With the
+   counters at 0, each run builds its trainer from ``cli.train``'s own
+   flags (``trainer_from_flags``: phase 8's model and data flags and
+   ``--scenario 15 5 --start_state 1 --start_epoch 1 --end_epoch 1
+   --new_state_epoch 1 --distill true --every_iter 2``) and drives it
+   with ``train_process`` (the cross-state entry): (a) ``--sample_num 2
+   --sample_method herd --persuado_label true --enhance_error true
+   --final_correction true --mix_data true``; (b) ``--sample_num 2
+   --sample_method prototype_herd --prototype_herd_mode slots
+   --prototype_loss true``; ``herd_ratio_threshold`` 0 and the prototype
+   term from epoch 1 (fields without a flag, set in the config). Checks:
+   every total_loss finite; replay micro-steps ran, in (a) each with
+   ``enhance_loss``, and the final correction ended within 20 rounds;
+   in (b) a finite ``prototype_loss`` in every new-image micro-step;
+   the exemplars (in (a) two per old class, 30) do not repeat, hold no
+   state-1 class, and equal the ``examplar`` sidecar, ``examplar.txt``
+   and the state-1 checkpoint's ``exemplar_ids``; in (a) pseudo-labels
+   stored for every new image (their count printed); the stem counter
+   equals the passes' batches (herding's two passes and the pseudo-label
+   pass in (a), the prototype pass and the prototype-herd scoring pass
+   in (b)) plus two per new-image micro-step (student and teacher) and
+   one per replay or correction micro-step, and no other kernel ran.
+   Then, in float32 with TF32 off, on one unaugmented batch of 8 state-1
+   images, the card against the CPU: herding's feature vectors and
+   ``compute_prototype_features`` of the state-0 model within 1e-5 of
+   their largest |value|, ``prototype_loss_from_batch`` at margin 1e4
+   (every pair inside it, so the gradient is not 0) and its gradient
+   within 1e-4, and ``generate_pseudo_labels`` of the state-0 model with
+   a random classification output conv (pre-bias logit std 1, bias
+   raised by 2, threshold 0.2): the same images, counts and classes,
+   boxes within 1e-3 px. Printed: each pass in images/s, ``run_batch``
+   alone per state-1 micro-step with the prototype term beside phase
+   10's, the peak memory and the phase's seconds.
+12. The ``{"trainer": ...}``, ``{"eval": ...}``, ``{"il_state1": ...}`` and
+   ``{"il_replay": ...}`` lines, the kernels' JSON line, then the
+   ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds a torch.profiler window over two B=32 predicts
 after phases 4 and 5 and over two micro-step pairs (two applies) in
@@ -1769,6 +1805,348 @@ def il_state1_path(tmp: str, state0_step_ms: float) -> dict:
                 phase_s=phase_s)
 
 
+REPLAY_TRAIN_FLAGS = ["--start_state", "1", "--start_epoch", "1", "--end_epoch", "1",
+                      "--new_state_epoch", "1", "--distill", "true", "--every_iter", "2",
+                      "--save_every", "1", "--record", "false"]
+REPLAY_RUNS = {
+    "a": ["--sample_num", "2", "--sample_method", "herd", "--persuado_label", "true",
+          "--enhance_error", "true", "--final_correction", "true", "--mix_data", "true"],
+    "b": ["--sample_num", "2", "--sample_method", "prototype_herd", "--prototype_herd_mode",
+          "slots", "--prototype_loss", "true"],
+}
+HERD_RATIO = 0.0                 # every (image, class) pair eligible: the toy boxes are small
+PSEUDO_BIAS_RAISE = 2.0          # on a random classification output conv (card vs CPU)
+PSEUDO_SCORE = 0.2               # the JAX package's own tests' pseudo-label threshold
+PSEUDO_LOGIT_STD = 1.0           # of that conv's pre-bias logits
+PROTO_MARGIN = 1e4               # the card-vs-CPU loss: every (new, old) pair inside it
+
+
+def _replay_override(cfg):
+    """The fields without a flag: herding's foreground-ratio threshold,
+    and the prototype term from epoch 1 (its start_epoch is 5)."""
+    import dataclasses
+
+    il = cfg.il
+    return cfg.replace(il=dataclasses.replace(
+        il, replay=dataclasses.replace(il.replay, herd_ratio_threshold=HERD_RATIO),
+        prototype=dataclasses.replace(il.prototype, start_epoch=0)))
+
+
+def il_replay_path(tmp: str, state1_step_ms: float) -> dict:
+    """Phase 11: state 1 with replay, prototypes and pseudo-labels, two
+    runs through ``trainer_from_flags`` + ``train_process`` from phase
+    10's state-0 checkpoint, then the IL passes on the card against the
+    CPU (module docstring)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.data.loader import BatchLoader
+    from cl_object_detection_tpu_torch.il import herding
+    from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
+    from cl_object_detection_tpu_torch.train import trainer as trainer_mod
+    from cl_object_detection_tpu_torch.train.loop import train_process
+
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "data")
+    src = os.path.join(tmp, "run_il", "checkpoint", "15_5", "state0")
+    flags = ["--train_json", os.path.join(data, "train.json"), "--image_dir",
+             os.path.join(data, "images")] + IL_MODEL_FLAGS + REPLAY_TRAIN_FLAGS
+    ILTrainer = trainer_mod.ILTrainer
+    names = ("compute_prototype_features", "prototype_herd_slot_scores",
+             "generate_pseudo_labels")
+    real = dict(run_batch=ILTrainer.run_batch, herd=herding.HerdSampler.sample,
+                **{n: getattr(trainer_mod, n) for n in names})
+    steps, passes = [], []
+
+    def run_batch(self, batch, is_replay=False, sync_metrics=True, correction=False):
+        before = stem_fused.launches
+        m = real["run_batch"](self, batch, is_replay=is_replay, sync_metrics=sync_metrics,
+                              correction=correction)
+        steps.append(dict(replay=is_replay, correction=correction,
+                          launches=stem_fused.launches - before, metrics=m))
+        return m
+
+    def timed(name, fn, loader_of, per_loader=1):
+        def wrapper(*args, **kw):
+            n = len(loader_of(*args)) * per_loader
+            images = len(loader_of(*args).dataset) * per_loader
+            torch.cuda.synchronize()
+            before, t0 = stem_fused.launches, time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            passes.append(dict(name=name, s=time.perf_counter() - t0, batches=n,
+                               images=images, launches=stem_fused.launches - before))
+            return out
+        return wrapper
+
+    def unaugmented(dataset, cfg):
+        return BatchLoader(dataset, cfg, shuffle=False, augment=False)
+
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    ILTrainer.run_batch = run_batch
+    herding.HerdSampler.sample = timed("herding", real["herd"],
+                                       lambda self, m, ds, cfg, *a: unaugmented(ds, cfg), 2)
+    trainer_mod.compute_prototype_features = timed(
+        "prototypes", real[names[0]], lambda m, anchors, loader, *a: loader)
+    trainer_mod.prototype_herd_slot_scores = timed(
+        "prototype_herd_slots", real[names[1]],
+        lambda m, anchors, ds, cfg, *a: unaugmented(ds, cfg))
+    trainer_mod.generate_pseudo_labels = timed(
+        "pseudo_labels", real[names[2]], lambda m, ds, cfg, *a: unaugmented(ds, cfg))
+    runs = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for tag, run_flags in REPLAY_RUNS.items():
+            # ---- this path: counters at 0 -> the tools, then state 1 ----
+            root = os.path.join(tmp, f"run_replay_{tag}")
+            dst = os.path.join(root, "checkpoint", "15_5", "state0")
+            shutil.copytree(os.path.join(src, "epoch1"), os.path.join(dst, "epoch1"))
+            shutil.copy(os.path.join(src, "similarity.npz"), dst)
+            del steps[:], passes[:]
+            zero_counts()
+            t0 = time.perf_counter()
+            tr = trainer_from_flags(["--root_dir", root] + flags + run_flags,
+                                    override=_replay_override)
+            train_process(tr)
+            run_s = time.perf_counter() - t0
+            counts = read_counts()
+            runs[tag] = check_replay_run(tag, tr, steps, passes, counts, run_s)
+            if tag == "b":
+                step_ms = state1_step_with_prototype(tr)
+            else:
+                del tr
+        peak = torch.cuda.max_memory_allocated()
+
+        # ---- the IL passes on the card against the CPU, float32 ----
+        cvc = replay_card_vs_cpu(tr)
+    finally:
+        ILTrainer.run_batch, herding.HerdSampler.sample = real["run_batch"], real["herd"]
+        for n in names:
+            setattr(trainer_mod, n, real[n])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    phase_s = time.perf_counter() - t_phase
+    rates = {p["name"]: p["images"] / p["s"] for r in runs.values() for p in r["passes"]}
+    log(f"il replay (R50 bf16 640x1024 B=8, deterministic cuDNN): passes in images/s "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
+        + f"; run_batch alone {step_ms:.1f} ms per state-1 micro-step with the prototype "
+        f"term (phase 10's, distillation and similarity: {state1_step_ms:.1f}); peak memory "
+        f"{peak / 2**30:.2f} GiB; phase 11 took {phase_s:.1f} s")
+    return dict(runs=runs, pass_images_per_s=rates, state1_prototype_step_ms=step_ms,
+                state1_step_ms_phase10=state1_step_ms, peak_gib=peak / 2**30,
+                card_vs_cpu=cvc, phase_s=phase_s)
+
+
+def check_replay_run(tag: str, tr, steps, passes, counts, run_s) -> dict:
+    """The checks of one phase-11 run (module docstring); returns its
+    record."""
+    import os
+
+    import numpy as np
+
+    for s in steps:
+        s["metrics"] = {k: float(v) for k, v in s["metrics"].items()}
+    state1 = [s for s in steps if not s["correction"]]
+    new = [s for s in state1 if not s["replay"]]
+    replay = [s for s in state1 if s["replay"]]
+    corrections = [s for s in steps if s["correction"]]
+    losses = np.asarray([s["metrics"]["total_loss"] for s in steps], np.float64)
+    ex = list(tr.dataset_replay.image_ids)
+    future = set(tr.coco.get_imgs_by_cats(tr.states[1].new_ids))
+    meta = tr.ckpt.restore(1, 1)[1]
+    with open(os.path.join(tr.ckpt.state_dir(1), "examplar.txt")) as f:
+        txt = [int(x) for x in f.read().split()]
+    pseudo = tr.dataset_train.pseudo_labels or {}
+    n_pseudo = sum(len(a) for a in pseudo.values())
+    rounds = len(corrections) / max(len(tr.replay_loader), 1)
+    pass_launches = sum(p["launches"] for p in passes)
+    pass_batches = sum(p["batches"] for p in passes)
+    want_stem = pass_batches + 2 * len(new) + len(replay) + len(corrections)
+    log(f"il replay run ({tag}) {' '.join(REPLAY_RUNS[tag])}: {run_s:.2f} s; micro-steps "
+        f"{len(new)} new-image + {len(replay)} replay + {len(corrections)} correction "
+        f"({rounds:g} rounds of {len(tr.replay_loader)}); stem launches per micro-step "
+        f"new {sorted({s['launches'] for s in new})}, replay "
+        f"{sorted({s['launches'] for s in replay + corrections})}; passes "
+        + ", ".join(f"{p['name']} {p['batches']} batches {p['launches']} launches "
+                    f"{p['s']:.2f} s" for p in passes)
+        + f"; launches {counts} (want stem {want_stem}); {len(ex)} exemplars {ex}; "
+        f"pseudo-labels {n_pseudo} over {len(pseudo)} images")
+    if not (len(losses) and np.isfinite(losses).all() and new and replay):
+        raise AssertionError(f"run {tag}: losses {losses}, {len(new)} new and {len(replay)} "
+                             "replay micro-steps")
+    if {s["launches"] for s in new} != {2} or {s["launches"] for s in replay + corrections} \
+            - {1} or any(p["launches"] != p["batches"] for p in passes):
+        raise AssertionError(f"run {tag}: want 2 stem launches per new-image micro-step, 1 per "
+                             "replay one and 1 per batch of each pass")
+    if counts["stem_fused"] != want_stem or pass_launches != pass_batches or any(
+            counts[k] for k in ("stem_fused_f32", "nms_fp", "int8_matmul", "int8_conv_nhwc")):
+        raise AssertionError(f"run {tag}: launches {counts}, want stem {want_stem}")
+    if not ex or len(set(ex)) != len(ex) or set(ex) & future or len(ex) > 2 * 15 \
+            or meta["exemplar_ids"] != ex or tr.ckpt.load_sidecar(1, "examplar") != ex \
+            or txt != ex:
+        raise AssertionError(f"run {tag}: exemplars {ex}, checkpoint {meta['exemplar_ids']}")
+    if tag == "a":
+        if not all("enhance_loss" in s["metrics"] for s in replay) or not corrections \
+                or rounds > 20 or rounds != int(rounds):
+            raise AssertionError("run a: replay without enhance_loss, or the final "
+                                 "correction did not end within 20 rounds")
+        if set(pseudo) != set(tr.dataset_train.image_ids):
+            raise AssertionError("run a: pseudo-labels not stored for every new image")
+        # each old class has two images of its own (the toy set's first 40)
+        picked = tr.herd_sampler.examplar_dict
+        if len(ex) != 2 * 15 or sorted(picked) != list(range(15)) or any(
+                len(ids) != 2 for ids in picked.values()):
+            raise AssertionError(f"run a: herding picked {dict(picked)}, want 2 per old class")
+    else:
+        if not all(np.isfinite(s["metrics"].get("prototype_loss", np.nan)) for s in new):
+            raise AssertionError("run b: a new-image micro-step without a finite prototype_loss")
+        if tr.prototype_features.shape[:2] != (15, 9) or tr._proto_exemplars != ex:
+            raise AssertionError("run b: prototypes or prototype-herd exemplars wrong")
+    per_class = {}
+    for img_id in ex:
+        for c in {a["category_id"] for a in tr.coco.get_anns_by_img(img_id)}:
+            per_class[c] = per_class.get(c, 0) + 1
+    log(f"il replay run ({tag}): exemplar images per old category "
+        f"{dict(sorted(per_class.items()))}")
+    return dict(seconds=run_s, micro_steps=[len(new), len(replay), len(corrections)],
+                correction_rounds=rounds, exemplars=len(ex), pseudo_labels=n_pseudo,
+                launches=counts,
+                passes=[{k: p[k] for k in ("name", "batches", "images", "launches", "s")}
+                        for p in passes])
+
+
+def state1_step_with_prototype(tr) -> float:
+    """``run_batch`` alone per state-1 micro-step (the prototype term,
+    distillation) on one epoch of batches assembled beforehand."""
+    import torch
+
+    tr.train_loader.set_epoch(2)
+    batches = list(tr.train_loader)
+    tr.run_batch(batches[0], sync_metrics=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        m = tr.run_batch(b, sync_metrics=False)
+    if "prototype_loss" not in m:
+        raise AssertionError("the timed state-1 micro-steps ran without the prototype term")
+    float(m["total_loss"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / len(batches) * 1e3
+
+
+def replay_card_vs_cpu(tr) -> dict:
+    """Phase 11's float32 checks (TF32 off) on one unaugmented batch of 8
+    state-1 images, the card against the CPU: herding's feature vectors
+    and ``compute_prototype_features`` of the state-0 model within 1e-5
+    of their largest |value|; ``prototype_loss_from_batch`` (the batch's
+    unfolded features against the slot-averaged prototypes, at margin
+    ``PROTO_MARGIN``: at the default 600 the new classes with positives
+    in this batch lie outside it and the gradient is 0) and its gradient
+    within 1e-4 of its largest |value|; ``generate_pseudo_labels`` of the state-0
+    model with a random classification output conv (bias raised by
+    ``PSEUDO_BIAS_RAISE``, threshold ``PSEUDO_SCORE``): the same images,
+    counts and classes, boxes within 1e-3 px."""
+    import copy
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.config import PseudoLabelConfig
+    from cl_object_detection_tpu_torch.data.loader import BatchLoader
+    from cl_object_detection_tpu_torch.il import herding, prototype
+    from cl_object_detection_tpu_torch.il.pseudo_label import generate_pseudo_labels
+    from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+    from cl_object_detection_tpu_torch.ops.boxes import positive_assignment
+
+    s0 = tr.ckpt.restore(0, 1)[0]["model"]
+    ds = copy.copy(tr.dataset_train)
+    ds.image_ids = list(ds.image_ids[:8])
+    ds.pseudo_labels = {}
+    batch = next(iter(BatchLoader(ds, tr.cfg.data, shuffle=False, augment=False)))
+    anchors = tr.anchors_for(batch.images)
+    cfg32 = dataclasses.replace(tr.cfg.model, compute_dtype="float32")
+    gen = torch.Generator().manual_seed(21)
+    w = s0["classification_head.output.weight"]
+    head = dict(weight=torch.randn(w.shape, generator=gen) / math.sqrt(w[0].numel()),
+                bias=s0["classification_head.output.bias"] + PSEUDO_BIAS_RAISE)
+    std = None
+    pcfg = PseudoLabelConfig(enabled=True, score_thresh=PSEUDO_SCORE)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    got = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            model = create_retinanet(cfg32, 15, device=dev)
+            model.load_state_dict(s0)
+            x = torch.from_numpy(batch.images).to(dev)
+            vec = herding.make_feature_fn(model)(x).cpu().numpy()
+            protos = prototype.compute_prototype_features(model, anchors, [batch], 15)
+            with torch.no_grad():
+                unf = model.classification_features(x)[3]
+            a = torch.tensor(anchors, device=dev)
+            pos, lab = zip(*(positive_assignment(a, torch.from_numpy(batch.boxes[i]).to(dev),
+                                                 torch.from_numpy(batch.labels[i]).to(dev))
+                             for i in range(len(x))))
+            unf.requires_grad_(True)
+            args = (unf, torch.stack(pos), torch.stack(lab),
+                    torch.from_numpy(protos.mean(axis=1)).to(dev))
+            g600 = torch.autograd.grad(prototype.prototype_loss_from_batch(
+                *args, num_past_class=15, num_new_class=5), unf)[0]
+            loss = prototype.prototype_loss_from_batch(*args, num_past_class=15,
+                                                       num_new_class=5, margin=PROTO_MARGIN)
+            loss.backward()
+            with torch.no_grad():
+                out = model.classification_head.output
+                out.weight.copy_(head["weight"].to(dev))
+                if std is None:
+                    # pre-bias logits of std PSEUDO_LOGIT_STD on this batch (the
+                    # card's forward decides, both devices use the result)
+                    std = float((model(x, enable_act=False)[0] - out.bias[0]).std())
+                    head["weight"] *= PSEUDO_LOGIT_STD / std
+                    out.weight.copy_(head["weight"].to(dev))
+                out.bias.copy_(head["bias"].to(dev))
+            pseudo = generate_pseudo_labels(model, ds, tr.cfg.data, pcfg,
+                                            tr.states.inverse_label_map())
+            got[dev] = dict(vec=vec, protos=protos, loss=float(loss.detach()),
+                            grad=unf.grad.cpu().numpy(), pseudo=pseudo,
+                            g600=float(g600.abs().max()))
+            del x
+            del model, unf
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    c, g = got["cpu"], got["cuda"]
+    vec_err = float(np.abs(g["vec"] - c["vec"]).max() / np.abs(c["vec"]).max())
+    proto_err = float(np.abs(g["protos"] - c["protos"]).max() / np.abs(c["protos"]).max())
+    loss_err = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    grad_err = float(np.abs(g["grad"] - c["grad"]).max() / np.abs(c["grad"]).max())
+    same = list(g["pseudo"]) == list(c["pseudo"]) and all(
+        [a["category_id"] for a in g["pseudo"][i]] == [a["category_id"] for a in c["pseudo"][i]]
+        for i in c["pseudo"])
+    box_err = max((float(np.abs(np.subtract(ga["bbox"], ca["bbox"])).max())
+                   for i in c["pseudo"] for ga, ca in zip(g["pseudo"][i], c["pseudo"][i])),
+                  default=0.0)
+    n_pseudo = sum(len(v) for v in c["pseudo"].values())
+    log(f"il replay: card against CPU, state-0 R50 float32, TF32 off, 8 state-1 images: "
+        f"herding vectors max |diff| / max |value| {vec_err:.3g} (bar 1e-5); prototypes "
+        f"{proto_err:.3g} (bar 1e-5; {int((np.abs(c['protos']).sum(axis=2) > 0).sum())} of "
+        f"{15 * 9} slots with positives); prototype loss at margin {PROTO_MARGIN:g} "
+        f"{c['loss']:.6g} (max |gradient| at margin 600: {c['g600']:.3g}) rel. diff "
+        f"{loss_err:.3g}, its gradient {grad_err:.3g} (bar 1e-4); pseudo-labels "
+        f"{n_pseudo} on both: same images, counts and classes {same}, boxes max |diff| "
+        f"{box_err:.3g} px (bar 1e-3)")
+    if not (vec_err <= 1e-5 and proto_err <= 1e-5 and loss_err <= 1e-4 and grad_err <= 1e-4
+            and same and box_err <= 1e-3 and n_pseudo and c["loss"] > 0):
+        raise AssertionError("the card's IL passes differ from the CPU's")
+    return dict(herding_rel=vec_err, prototypes_rel=proto_err, prototype_loss_rel=loss_err,
+                prototype_grad_rel=grad_err, pseudo_labels=n_pseudo, pseudo_same=same,
+                pseudo_box_max_abs=box_err)
+
+
 def similarity_card_vs_cpu(tr, s0):
     """``compute_similarity`` of the state-0 model in float32 with its
     classification bias raised by ``SIM_BIAS_RAISE``, on the card (TF32
@@ -1858,9 +2236,10 @@ def check_int8_at_eval_frame() -> float:
     return err
 
 
-def trainer_from_flags(argv):
+def trainer_from_flags(argv, override=None):
     """An ``ILTrainer`` on the card from ``cli.train``'s flags, built as
-    ``cli.train.main`` builds it (no training)."""
+    ``cli.train.main`` builds it (no training); ``override`` maps the
+    flags' config to the one the trainer gets (fields without a flag)."""
     import argparse
 
     from cl_object_detection_tpu_torch import resolve_device
@@ -1871,7 +2250,8 @@ def trainer_from_flags(argv):
     parser = argparse.ArgumentParser()
     add_train_flags(parser)
     a = parser.parse_args(argv)
-    return ILTrainer(args_to_config(a), *resolve_dataset_paths(a, "train"),
+    cfg = args_to_config(a)
+    return ILTrainer(override(cfg) if override else cfg, *resolve_dataset_paths(a, "train"),
                      workdir=a.root_dir, device=resolve_device(None))
 
 
@@ -2135,6 +2515,8 @@ def main() -> int:
         evaluation = eval_path(tmp)
         torch.cuda.empty_cache()
         il_state1 = il_state1_path(tmp, trainer["step_only_ms_640x1024"])
+        torch.cuda.empty_cache()
+        il_replay = il_replay_path(tmp, il_state1["state1_step_ms"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2148,6 +2530,7 @@ def main() -> int:
     log(json.dumps({"trainer": trainer}))
     log(json.dumps({"eval": evaluation}))
     log(json.dumps({"il_state1": il_state1}))
+    log(json.dumps({"il_replay": il_replay}))
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,12 @@ trainer with its data layer and checkpoints (``train.trainer.ILTrainer``,
 incremental state 1 (classifier expansion ``models.expand``, the
 similarity warm-start ``il.weight_init``, SCAIL ``il.scail``, and
 distillation from the frozen previous-state model in ``il.losses``,
-driven by ``ILTrainer.next_state`` and the cross-state entry). Three hand-written CUDA
+driven by ``ILTrainer.next_state`` and the cross-state entry) with
+replay, exemplars, prototypes and pseudo-labels (herding
+``il.herding``, prototype-herd and random exemplars, the prototype loss
+``il.prototype`` over ``RetinaNet.classification_features``, the
+teacher's pseudo-labels ``il.pseudo_label``, ``mix_data``,
+``enhance_error`` and the final correction). Three hand-written CUDA
 kernels for ``sm_90a`` carry it on the card: the fused stem (``ops/stem_fused.py`` + ``csrc/stem_fused.cu``),
 the batched fixed-point NMS (``ops/nms_fp.py`` + ``csrc/nms_fp.cu``) and
 the int8 kernel of the quantized convs, a GEMM that can gather a conv's

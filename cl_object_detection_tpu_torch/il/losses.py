@@ -5,8 +5,8 @@
 specialized by a frozen :class:`LossStatics`. The metric keys are the
 JAX package's (``cls_bg_loss``, ``cls_fg_loss``, ``reg_loss``,
 ``dist_cls_loss``, ``dist_reg_loss``, ``dist_feat_loss``, ``sim_loss``,
-``enhance_loss``, ``enhance_on_new_loss``, ``total_loss``), so records
-line up.
+``enhance_loss``, ``enhance_on_new_loss``, ``prototype_loss``,
+``total_loss``), so records line up.
 
   * plain path (state 0, replay batches, the classifier warm stage, the
     final correction): the focal loss on activated scores; on replay
@@ -25,10 +25,15 @@ line up.
     classification distillation on the teacher's foreground entries (on
     every old-class column of those anchors under ``ignore_gd``), on
     logits or probabilities per ``distill_logits``; the cosine-margin
-    classifier-similarity loss against the teacher's class vectors.
+    classifier-similarity loss against the teacher's class vectors;
+    under ``use_pseudo_progress`` the focal loss discounts old-class
+    false positives on pseudo-labelled anchors by ``pseudo_progress``;
+    under ``use_prototype`` the student's forward also gives the
+    3x3-unfolded classification-trunk features, and the prototype term
+    (``il/prototype.prototype_loss_from_batch``) pushes the batch's
+    new-class prototypes away from the stored old ones.
 
-The prototype term and pseudo-label progress (ROADMAP §1 item 4b) and
-the MAS penalty (item 4c) raise ``NotImplementedError``.
+The MAS penalty (ROADMAP §1 item 4c) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,9 +44,8 @@ import torch
 
 from ..config import FocalConfig, ILConfig
 from ..ops.focal_loss import focal_loss
+from .prototype import prototype_loss_from_batch
 
-PROTOTYPE_NOT_PORTED = ("the prototype loss and pseudo-label progress are not ported "
-                        "yet: ROADMAP §1 item 4b")
 MAS_NOT_PORTED = "the MAS penalty is not ported yet: ROADMAP §1 item 4c"
 
 
@@ -156,16 +160,17 @@ def compute_losses(
     *,
     teacher=None,                      # the frozen previous-state RetinaNet
     classifier_vectors: Optional[torch.Tensor] = None,  # the teacher's (C_old, D)
+    pseudo_progress: Optional[torch.Tensor] = None,     # () cur_epoch / end_epoch
+    prototype_features: Optional[torch.Tensor] = None,  # (C_old, D), slot-averaged
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, metrics); see the module docstring."""
     s = statics
-    if s.use_prototype or s.use_pseudo_progress:
-        raise NotImplementedError(PROTOTYPE_NOT_PORTED)
     if s.use_mas:
         raise NotImplementedError(MAS_NOT_PORTED)
     if s.incremental:
         result = _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg,
-                                     focal_cfg, s, teacher, classifier_vectors)
+                                     focal_cfg, s, teacher, classifier_vectors,
+                                     pseudo_progress, prototype_features)
         total = sum(result.values())
         return total, {**result, "total_loss": total}
     result: Dict[str, torch.Tensor] = {}
@@ -195,10 +200,15 @@ def compute_losses(
 
 def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILConfig,
                         focal_cfg: FocalConfig, s: LossStatics, teacher,
-                        class_vectors) -> Dict[str, torch.Tensor]:
+                        class_vectors, pseudo_progress,
+                        prototype_features) -> Dict[str, torch.Tensor]:
     """The loss terms of the incremental path, in the JAX package's order."""
     result: Dict[str, torch.Tensor] = {}
-    logits, regression, feats = model.forward_all(images, False)
+    use_prototype = s.use_prototype and prototype_features is not None
+    if use_prototype:
+        logits, regression, feats, unfolded = model.classification_features(images, False)
+    else:
+        logits, regression, feats = model.forward_all(images, False)
     cls = torch.sigmoid(logits)
     out = focal_loss(
         cls, regression, anchors, gt_boxes, gt_labels,
@@ -209,6 +219,7 @@ def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILC
         decrease_positive=il_cfg.decrease_positive,
         decrease_positive_by_iou=il_cfg.decrease_positive_by_iou,
         enhance_on_new=s.use_enhance_on_new,
+        pseudo_progress=pseudo_progress if s.use_pseudo_progress else None,
         fg_iou=focal_cfg.fg_iou, bg_iou=focal_cfg.bg_iou,
         bbox_std=tuple(focal_cfg.bbox_std),
     )
@@ -220,6 +231,11 @@ def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILC
     result["reg_loss"] = out.reg_loss.mean()
     if s.use_enhance_on_new:
         result["enhance_on_new_loss"] = out.enhance_on_new_loss
+    if use_prototype:
+        result["prototype_loss"] = prototype_loss_from_batch(
+            unfolded, ~out.bg_mask, out.pos_label, prototype_features,
+            num_past_class=s.num_past_class, num_new_class=s.num_classes - s.num_past_class,
+            margin=il_cfg.prototype.margin, weight=il_cfg.prototype.weight)
     if not s.use_distill:
         return result
     if teacher is None:

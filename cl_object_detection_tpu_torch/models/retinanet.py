@@ -2,7 +2,11 @@
 ``models/retinanet.py``).
 
   * ``forward(images, enable_act)`` -> (cls (B,A,C), reg (B,A,4))
+  * ``forward_features(images)`` -> [P3..P7]
   * ``forward_all(images, enable_act)`` -> (cls, reg, [P3..P7])
+  * ``classification_features(images, enable_act)`` -> (cls, reg,
+    [P3..P7], the 3x3-unfolded classification-trunk features
+    ``(B, sum H*W, C*9)`` in float32), the prototype methods' forward
 
 ``images`` is an NHWC batch: ``(B,H,W,3)``, ``(B,H/2,W/2,12)`` or
 ``(B,H/4,W/4,64)``, float (normalized) or uint8 (normalized on the
@@ -16,6 +20,7 @@ from typing import List, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import ModelConfig
 from .fpn import FPN
@@ -24,6 +29,14 @@ from .resnet import ResNetBackbone
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+
+def unfold3x3(x: torch.Tensor) -> torch.Tensor:
+    """The 3x3 neighbourhoods (zero padding 1) of an NCHW map as
+    ``(B, H*W, C*9)`` float32: pixels in row-major order, each row in the
+    JAX package's channel-major patch order (``c*9 + dy*3 + dx``), which
+    is ``F.unfold``'s own row order."""
+    return F.unfold(x.float(), kernel_size=3, padding=1).transpose(1, 2)
 
 
 class RetinaNet(nn.Module):
@@ -52,6 +65,9 @@ class RetinaNet(nn.Module):
         c3, c4, c5 = self.backbone(images)
         return self.fpn(c3, c4, c5)
 
+    def forward_features(self, images) -> List[torch.Tensor]:
+        return self._features(images)
+
     def _heads(self, feats, enable_act: bool):
         reg = torch.cat([self.regression_head(f) for f in feats], dim=1)
         cls = torch.cat([self.classification_head(f, enable_act) for f in feats],
@@ -65,6 +81,19 @@ class RetinaNet(nn.Module):
         feats = self._features(images)
         cls, reg = self._heads(feats, enable_act)
         return cls, reg, feats
+
+    def classification_features(self, images, enable_act: bool = True):
+        """``forward_all`` plus the 3x3-unfolded classification-trunk
+        features (the last trunk conv's output before its ReLU) of every
+        level, concatenated in P3..P7 order: anchor ``k`` of the flat
+        anchor axis is (cell ``k // A``, slot ``k % A``)."""
+        feats = self._features(images)
+        reg = torch.cat([self.regression_head(f) for f in feats], dim=1)
+        trunk = [self.classification_head.extract_feature(f) for f in feats]
+        cls = torch.cat([self.classification_head.classify(t, enable_act) for t in trunk],
+                        dim=1)
+        unfolded = torch.cat([unfold3x3(t) for t in trunk], dim=1)
+        return cls, reg, feats, unfolded
 
 
 def create_retinanet(cfg: ModelConfig, num_classes: int, device=None,

@@ -3,10 +3,10 @@
 state loop -> epoch loop -> iteration loop, with
   * warm-up freeze control per epoch;
   * replay interleaved into the epoch (``mix_data``) or as a tail pass,
-    with the Adam-beta1 swap around replay batches (replay exists only at
-    states >= 1, where the trainer still refuses it: ROADMAP §1 item 4b);
+    with the Adam-beta1 swap around replay batches (states >= 1);
   * scheduler step, checkpoint save, retention cleanup;
-  * the optional final correction (reached only with replay);
+  * the optional final correction (with replay and ``enhance_error``):
+    replay passes training only the ``enhance_error`` term, at most 20;
   * ``trainer.next_state()`` between states; a state after the first
     trains epochs 1..``new_state_epoch``;
   * ``--profile``: a torch.profiler trace of the second epoch.

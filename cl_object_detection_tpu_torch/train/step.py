@@ -85,12 +85,16 @@ def make_train_step(
     """Build the step for ``model`` (the model of the states it is given).
 
     Returns ``fn(state, images, boxes, labels, *, replay_grad=None,
-    trainable_mask=None, classifier_vectors=None) -> (state, metrics)``:
-    ``state`` is updated in place and returned; ``metrics`` holds the
-    detached loss terms under the JAX keys. ``replay_grad`` maps
-    parameter names to the A-GEM replay gradient; ``trainable_mask`` is
+    trainable_mask=None, classifier_vectors=None, pseudo_progress=None,
+    prototype_features=None) -> (state, metrics)``: ``state`` is updated
+    in place and returned; ``metrics`` holds the detached loss terms
+    under the JAX keys. ``replay_grad`` maps parameter names to the
+    A-GEM replay gradient; ``trainable_mask`` is
     ``train.trainer.trainable_mask``'s; ``classifier_vectors`` is the
-    teacher's ``(C_old, D)`` tensor of the classifier-similarity loss.
+    teacher's ``(C_old, D)`` tensor of the classifier-similarity loss;
+    ``pseudo_progress`` the pseudo-label discount's training progress
+    (a 0-d float32 tensor); ``prototype_features`` the stored old-class
+    prototypes averaged over the anchor slots, ``(C_old, D)``.
     ``teacher_model`` (None at state 0) is set to eval mode and frozen.
 
     With ``every_iter <= 1`` and ``enhance_only`` (the final correction),
@@ -121,12 +125,15 @@ def make_train_step(
     def step_fn(state: TrainState, images, boxes, labels, *,
                 replay_grad: Optional[Grads] = None,
                 trainable_mask: Optional[Dict[str, float]] = None,
-                classifier_vectors: Optional[torch.Tensor] = None):
+                classifier_vectors: Optional[torch.Tensor] = None,
+                pseudo_progress: Optional[torch.Tensor] = None,
+                prototype_features: Optional[torch.Tensor] = None):
         with torch.enable_grad():
             total, metrics = compute_losses(
                 state.model, images, boxes, labels, anchors, il_cfg, focal_cfg,
                 loss_statics, teacher=teacher_model,
-                classifier_vectors=classifier_vectors)
+                classifier_vectors=classifier_vectors, pseudo_progress=pseudo_progress,
+                prototype_features=prototype_features)
             total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         state.step += 1

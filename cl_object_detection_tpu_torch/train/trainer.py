@@ -22,13 +22,20 @@ stages, the LR schedule, the checkpoints and the resume:
     expands the classifier (``models/expand.py``), standardizes it under
     ``--scail`` and starts a fresh optimizer; the frozen teacher is the
     previous state's newest checkpoint, with its class vectors under
-    ``--classifier_loss``.
+    ``--classifier_loss``;
+  * the tools of a state >= 1, in JAX's order: the prototypes of the
+    previous state (``il/prototype.py``, cached as the
+    ``prototype_features`` array sidecar), the replay set (``--sample_num``
+    exemplars per old class by herding, prototype-herd or at random,
+    recorded as the ``examplar`` sidecar and ``examplar.txt``), the
+    expansion, the replay loader, the teacher, and the teacher's
+    pseudo-labels on the new images (``il/pseudo_label.py``; the teacher
+    is built for them even with distillation off).
 
 The IL methods that only act at states >= 1 and are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP §1 sub-item
-(``unported_il_method``): replay, prototypes and pseudo-labels (4b),
-MAS and A-GEM (4c), BiC (4d); ``MeshConfig.enabled`` raises naming
-item 6.
+(``unported_il_method``): MAS and A-GEM (4c), BiC (4d);
+``MeshConfig.enabled`` raises naming item 6.
 """
 from __future__ import annotations
 
@@ -43,10 +50,15 @@ import torch
 from .. import resolve_device
 from ..config import TrainConfig
 from ..data.coco import CocoJson
-from ..data.dataset import ILDataset
+from ..data.dataset import ILDataset, ReplayDataset
 from ..data.loader import BatchLoader
 from ..data.transforms import logical_image_hw
+from ..il.herding import HerdSampler
 from ..il.losses import LossStatics
+from ..il.prototype import (compute_prototype_features, prototype_herd_scores,
+                            prototype_herd_slot_scores, sample_by_scores,
+                            sample_by_slot_scores)
+from ..il.pseudo_label import generate_pseudo_labels
 from ..il.scail import standardize_new_classifier
 from ..il.weight_init import compute_similarity
 from ..models.expand import classifier_class_vectors, expand_classifier
@@ -61,12 +73,6 @@ from .step import StepStatics, make_train_step
 # the IL methods that act only at states >= 1 and are not ported yet:
 # (set in the ILConfig, what to call it, ROADMAP §1 sub-item)
 _UNPORTED_IL = (
-    (lambda il: il.replay.sample_num > 0, "replay (--sample_num > 0)", "4b"),
-    (lambda il: il.replay.enhance_error, "--enhance_error", "4b"),
-    (lambda il: il.final_correction, "--final_correction", "4b"),
-    (lambda il: il.replay.mix_data, "--mix_data", "4b"),
-    (lambda il: il.prototype.loss, "--prototype_loss", "4b"),
-    (lambda il: il.pseudo.enabled, "pseudo-labels (--persuado_label)", "4b"),
     (lambda il: il.mas.enabled, "MAS (--mas)", "4c"),
     (lambda il: il.agem.enabled, "A-GEM (--agem)", "4c"),
     (lambda il: il.bic.enabled, "BiC (--bic)", "4d"),
@@ -153,6 +159,7 @@ class ILTrainer:
             self.coco, self.states, image_dir, split="train",
             start_state=self.cur_state, use_data_ratio=cfg.data.use_data_ratio,
         )
+        self.dataset_replay: Optional[ReplayDataset] = None
         self.replay_loader: Optional[BatchLoader] = None
 
         # model ---------------------------------------------------------
@@ -207,16 +214,25 @@ class ILTrainer:
                 print(f"warning: optimizer state not imported ({e}); "
                       "continuing with fresh Adam moments")
 
-        # CL tools, in JAX's order: of its tools only expansion and the
-        # teacher exist in the port (the rest are refused above)
+        # CL tools, in JAX's order (its BiC, A-GEM and MAS are refused
+        # above). The prototypes and the exemplars come from the
+        # previous state's model, before the expansion.
         self.teacher_model = None
         self._teacher_class_vectors: Optional[torch.Tensor] = None
         self.mas_importance = None
-        self.prototype_features = None
+        self.herd_sampler: Optional[HerdSampler] = None
+        self.prototype_features: Optional[np.ndarray] = None
+        self._prototype_mean: Optional[torch.Tensor] = None
+        self._proto_exemplars: List[int] = []
+        self._progress: Dict[Any, torch.Tensor] = {}
         if self.cur_state >= 1:
+            self._init_prototyper()
+            self._init_replay_dataset()
             if cross_state:
                 self._expand_training_tools()
+            self._update_replay_loader()
             self._update_prev_model()
+            self._add_pseudo_labels()
         self.train_loader = self._make_train_loader()
 
     # ------------------------------------------------------------------
@@ -263,14 +279,21 @@ class ILTrainer:
     # ------------------------------------------------------------------
     def next_state(self) -> None:
         """Into the next state: the dataset moves to its classes, the
-        classifier expands (similarity warm-start, SCAIL) with a fresh
-        optimizer, and the teacher becomes the finished state's newest
-        checkpoint."""
+        finished state's prototypes, the classifier expands (similarity
+        warm-start, SCAIL) with a fresh optimizer, the replay set and its
+        loader are rebuilt, the teacher becomes the finished state's
+        newest checkpoint, and it pseudo-labels the new images."""
+        cfg = self.cfg.il
         self.cur_state += 1
         self.dataset_train.next_state()
+        self._init_prototyper()
         self._expand_training_tools()
+        if self.dataset_replay is not None or cfg.replay.sample_num > 0:
+            self._init_replay_dataset()
+            self._update_replay_loader()
         self.train_loader = self._make_train_loader()
         self._update_prev_model()
+        self._add_pseudo_labels()
 
     def _expand_training_tools(self) -> None:
         """Similarity warm-start, classifier expansion, SCAIL and a fresh
@@ -310,12 +333,13 @@ class ILTrainer:
         self.model.load_state_dict(new_state)
         self._new_train_state()
 
-    def _update_prev_model(self) -> None:
-        """The frozen teacher of distillation: the previous state's model
-        from its newest checkpoint, on the trainer's device; its class
-        vectors when ``classifier_loss`` is set."""
+    def _update_prev_model(self, force: bool = False) -> None:
+        """The frozen teacher of distillation (and, with ``force``, of the
+        pseudo-labels): the previous state's model from its newest
+        checkpoint, on the trainer's device; its class vectors when
+        ``classifier_loss`` is set."""
         cfg = self.cfg.il
-        if not cfg.distill.enabled:
+        if not force and not cfg.distill.enabled:
             return
         prev = self.cur_state - 1
         teacher = create_retinanet(
@@ -328,6 +352,150 @@ class ILTrainer:
             self._teacher_class_vectors = torch.from_numpy(classifier_class_vectors(
                 tree["model"], self.cfg.model.num_anchors)).to(self.device)
         self._steps.clear()
+
+    # ------------------------------------------------------------------
+    # replay, prototypes, pseudo-labels
+    # ------------------------------------------------------------------
+    def _prev_state_dataset(self, state: int) -> ILDataset:
+        return ILDataset(self.coco, self.states, self.image_dir, split="train",
+                         start_state=state)
+
+    def _future_img_ids(self) -> List[int]:
+        future: List[int] = []
+        for i in range(self.cur_state, len(self.states)):
+            future.extend(self.states[i].new_ids)
+        return self.coco.get_imgs_by_cats(future)
+
+    def _init_prototyper(self) -> None:
+        """The previous state's ``(C, 9, D)`` prototypes, read back from
+        its ``prototype_features`` array sidecar or computed over its
+        unaugmented training images (with the model as it stands) and
+        written there under JAX's key."""
+        cfg = self.cfg.il
+        if not (cfg.prototype.loss or cfg.replay.sample_method == "prototype_herd"):
+            return
+        prev = self.cur_state - 1
+        cached = self.ckpt.load_array_sidecar(prev, "prototype_features")
+        if cached is not None:
+            self.prototype_features = np.asarray(list(cached.values())[0])
+        else:
+            loader = BatchLoader(self._prev_state_dataset(prev), self.cfg.data,
+                                 shuffle=False, augment=False)
+            self.prototype_features = compute_prototype_features(
+                self.model, self.anchors_for, loader, self.states[prev].num_knowing_class)
+            self.ckpt.save_array_sidecar(prev, "prototype_features",
+                                         {"[0]": self.prototype_features})
+        # slot-averaged, as the loss reads them at every step
+        self._prototype_mean = torch.from_numpy(
+            self.prototype_features.mean(axis=1)).to(self.device)
+
+    def _init_replay_dataset(self) -> None:
+        """The replay set of ``sample_num`` exemplars per old class:
+        herding and prototype-herd picks accumulate across states, a
+        random draw is taken anew (seeded by ``cfg.seed``). Recorded as the
+        ``examplar`` sidecar and ``examplar.txt`` (+ ``examplar.png``)."""
+        cfg = self.cfg.il.replay
+        if cfg.sample_num <= 0:
+            return
+        self.dataset_replay = ReplayDataset(self.coco, self.states, self.image_dir,
+                                            per_num=cfg.sample_num, seed=self.cfg.seed)
+        prev = self.cur_state - 1
+        if cfg.sample_method == "herd":
+            if self.herd_sampler is None:
+                self.herd_sampler = HerdSampler(cfg.herd_ratio_threshold)
+            self.herd_sampler.sample(self.model, self._prev_state_dataset(prev), self.cfg.data,
+                                     cfg.sample_num, future_img_ids=self._future_img_ids())
+            self.dataset_replay.reset_explicit(cfg.sample_num, self.herd_sampler.examplar_list,
+                                               self.cur_state)
+        elif cfg.sample_method == "prototype_herd":
+            if self.prototype_features is None:
+                raise ValueError("prototype_herd sampling needs the prototypes")
+            prev_ds = self._prev_state_dataset(prev)
+            future = set(self._future_img_ids())
+            # the newest scores cover only the previous state's new
+            # classes, so earlier states' picks persist
+            if cfg.prototype_herd_mode == "slots":
+                slot_scores, counts = prototype_herd_slot_scores(
+                    self.model, self.anchors_for, prev_ds, self.cfg.data,
+                    self.prototype_features)
+                st = self.states[prev]
+                picked = sample_by_slot_scores(
+                    slot_scores, counts, cfg.sample_num,
+                    classes=range(st.num_past_class, st.num_knowing_class),
+                    already=self._proto_exemplars, exclude=future,
+                    num_anchors=self.prototype_features.shape[1])
+            else:
+                scores = prototype_herd_scores(self.model, self.anchors_for, prev_ds,
+                                               self.cfg.data, self.prototype_features)
+                scores = {c: {i: v for i, v in d.items() if i not in future}
+                          for c, d in scores.items()}
+                picked = sample_by_scores(scores, cfg.sample_num,
+                                          already=self._proto_exemplars)
+            self._proto_exemplars.extend(i for ids in picked.values() for i in ids)
+            self.dataset_replay.reset_explicit(cfg.sample_num, list(self._proto_exemplars),
+                                               self.cur_state)
+        else:  # random
+            self.dataset_replay.reset_by_state(self.cur_state)
+        self.ckpt.save_sidecar(self.cur_state, "examplar", list(self.dataset_replay.image_ids))
+        self._write_examplar_outputs()
+
+    def _write_examplar_outputs(self) -> None:
+        """``examplar.txt`` (one image id per line) and, with
+        ``output_examplar`` and OpenCV present, the ``examplar.png``
+        montage: ``sample_num`` thumbnails per old class, the class name
+        captioned."""
+        state_dir = self.ckpt.state_dir(self.cur_state)
+        img_ids = list(self.dataset_replay.image_ids)
+        with open(os.path.join(state_dir, "examplar.txt"), "w") as f:
+            for img_id in img_ids:
+                f.write(f"{img_id}\n")
+        if not self.cfg.output_examplar or not img_ids:
+            return
+        try:
+            import cv2
+        except ImportError:
+            return
+        per = self.cfg.il.replay.sample_num
+        num_classes = max(len(img_ids) // per, 1)
+        names = self.states[len(self.states) - 1].knowing_names[:num_classes]
+        th, tw = 180, 240  # thumbnail cell
+        rows = []
+        for r in range(num_classes):
+            cells = []
+            for c in range(per):
+                k = r * per + c
+                cell = np.zeros((th, tw, 3), np.uint8)
+                if k < len(img_ids):
+                    info = self.coco.imgs[img_ids[k]]
+                    im = cv2.imread(os.path.join(self.image_dir, info["file_name"]))
+                    if im is not None:
+                        cell = cv2.resize(im, (tw, th))
+                    cv2.putText(cell, names[r] if r < len(names) else "?", (4, 16),
+                                cv2.FONT_HERSHEY_SIMPLEX, 0.5, (0, 255, 0), 1, cv2.LINE_AA)
+                cells.append(cell)
+            rows.append(np.concatenate(cells, axis=1))
+        cv2.imwrite(os.path.join(state_dir, "examplar.png"), np.concatenate(rows, axis=0))
+
+    def _update_replay_loader(self) -> None:
+        if self.dataset_replay is None:
+            return
+        self.replay_loader = BatchLoader(
+            self.dataset_replay, self.cfg.data,
+            batch_size=self.cfg.il.replay.sample_batch_size,
+            shuffle=True, augment=True, seed=self.cfg.seed, is_replay=True)
+
+    def _add_pseudo_labels(self) -> None:
+        """The teacher's pseudo-labels on the new state's training images;
+        the teacher is built for them when distillation did not build it."""
+        cfg = self.cfg.il
+        if not cfg.pseudo.enabled:
+            return
+        if self.teacher_model is None:
+            self._update_prev_model(force=True)
+        self.dataset_train.pseudo_labels = generate_pseudo_labels(
+            self.teacher_model, self.dataset_train, self.cfg.data, cfg.pseudo,
+            self.states.inverse_label_map())
+        self.train_loader = self._make_train_loader()
 
     # ------------------------------------------------------------------
     # train-step variants
@@ -438,11 +606,24 @@ class ILTrainer:
         statics = self._loss_statics(is_replay, enhance_only=correction)
         if statics.use_classifier_loss and self._teacher_class_vectors is not None:
             kwargs["classifier_vectors"] = self._teacher_class_vectors
+        if statics.use_pseudo_progress:
+            kwargs["pseudo_progress"] = self._pseudo_progress()
+        if statics.use_prototype:
+            kwargs["prototype_features"] = self._prototype_mean
         images, boxes, labels = self._put_batch(batch)
         self.train_state, metrics = step(self.train_state, images, boxes, labels, **kwargs)
         if sync_metrics:
             return {k: float(v) for k, v in metrics.items()}
         return metrics
+
+    def _pseudo_progress(self) -> torch.Tensor:
+        """``cur_epoch / max(end_epoch, 1)`` as a float32 0-d tensor on the
+        device, made once per (epoch, end epoch)."""
+        key = (self.cur_epoch, self.end_epoch)
+        if key not in self._progress:
+            self._progress[key] = torch.tensor(self.cur_epoch / max(self.end_epoch, 1),
+                                               dtype=torch.float32, device=self.device)
+        return self._progress[key]
 
     def set_replay_beta(self, is_replay: bool) -> None:
         """Swap Adam's beta1 for replay batches; a no-op unless the batch
@@ -473,7 +654,8 @@ class ILTrainer:
             "epoch": epoch,
             "num_classes": self.num_classes,
             "knowing_class_ids": self.states[self.cur_state].knowing_ids,
-            "exemplar_ids": [],
+            "exemplar_ids": (list(self.dataset_replay.image_ids)
+                             if self.dataset_replay else []),
             "config": self.cfg.to_json(),
             "loss_hist": [float(x) for x in self.loss_hist],
             "epoch_loss": ([float(x) for x in epoch_loss]

@@ -8,7 +8,10 @@ kernel that is not packed, and the wrappers' refusals. Then the train
 path: the stem Function's backward on the card, gradients reaching the
 stem's parameters through the kernel, one float32 apply on the card
 against the same apply on the CPU, and a state-1 distillation micro-step
-(student and teacher each through the stem kernel) against the CPU. Then evaluation: the ``Evaluator``
+(student and teacher each through the stem kernel) against the CPU; the
+IL passes of replay, prototypes and pseudo-labels (herding's feature
+vectors, the prototype sums and the prototype loss with its gradient,
+the pseudo-labels) against the CPU in float32. Then evaluation: the ``Evaluator``
 with the NMS kernel and with the iterative NMS gives the same rows, and
 ``detections_to_coco`` gives the same rows from card tensors as from
 their CPU copies.
@@ -840,9 +843,106 @@ def test_checkpoint_saved_on_the_card_restores_bit_for_bit(dev, toy_dataset, tmp
             assert torch.equal(got["state"][i][m], st[m]), (i, m)
 
 
+# --------------------------------------- replay, prototypes, pseudo-labels
+
+def _tf32_off(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+def test_herding_features_on_the_card_match_the_cpu(dev, monkeypatch):
+    """``il.herding.make_feature_fn`` of the small float32 R18 on fused
+    uint8 frames, TF32 off: one launch of the stem kernel's float32 form,
+    and the vectors within 1e-5 of the CPU's largest |value| (chip_smoke
+    phase 11's bar)."""
+    from cl_object_detection_tpu_torch.il import herding
+
+    _tf32_off(monkeypatch)
+    cpu, card = _small_model("float32")
+    images = _train_batch(dev)[0]
+    before = sf.stem_fused_f32.launches
+    got = herding.make_feature_fn(card)(images).cpu().numpy()
+    torch.cuda.synchronize()
+    assert sf.stem_fused_f32.launches == before + 1
+    want = herding.make_feature_fn(cpu)(images.cpu()).numpy()
+    assert got.shape == want.shape == (2, sum(n * n for n in herding.FEATURE_SIZES) * 32)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_prototype_sums_and_loss_on_the_card_match_the_cpu(dev, monkeypatch):
+    """The prototype pass of one batch (``make_batch_prototype_fn``: sums
+    and counts over the positive anchors) and ``prototype_loss_from_batch``
+    of its unfolded features (class 0 old, classes 1 and 2 new) with its
+    gradient, on the card and on the CPU in float32, TF32 off: counts
+    equal, sums within 1e-5 of the largest |value|, the loss at rtol
+    1e-4, its gradient within 1e-4 of the largest |value|."""
+    from cl_object_detection_tpu_torch.il import prototype
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+    from cl_object_detection_tpu_torch.ops.boxes import positive_assignment
+
+    _tf32_off(monkeypatch)
+    out = []
+    for model, device in zip(_small_model("float32"), ("cpu", dev)):
+        images, boxes, labels = _train_batch(device)
+        anchors = torch.from_numpy(anchors_for_shape(64, 96).copy()).to(device)
+        sums, counts = prototype.make_batch_prototype_fn(model, 3)(anchors, images, boxes,
+                                                                    labels)
+        with torch.no_grad():
+            unfolded = model.classification_features(images)[3]
+        pos, lab = zip(*(positive_assignment(anchors, b, l) for b, l in zip(boxes, labels)))
+        unfolded.requires_grad_(True)
+        old = (sums[:1] / counts[:1, :, None].clamp(min=1)).mean(dim=1)
+        loss = prototype.prototype_loss_from_batch(unfolded, torch.stack(pos), torch.stack(lab),
+                                                   old, num_past_class=1, num_new_class=2)
+        loss.backward()
+        out.append([t.detach().cpu().numpy() for t in (sums, counts, loss, unfolded.grad)])
+    (s_c, c_c, l_c, g_c), (s_d, c_d, l_d, g_d) = out
+    assert c_c.sum() > 0 and np.array_equal(c_c, c_d)
+    assert np.abs(s_d - s_c).max() <= 1e-5 * np.abs(s_c).max()
+    assert float(l_c) > 0 and float(l_d) == pytest.approx(float(l_c), rel=1e-4)
+    assert np.abs(g_d - g_c).max() <= 1e-4 * np.abs(g_c).max()
+
+
+def test_pseudo_labels_on_the_card_match_the_cpu(dev, toy_dataset, monkeypatch):
+    """``generate_pseudo_labels`` of a 3-class float32 teacher with random
+    output convs (logit std near 1, bias -2) over the state-1 images of
+    scenario 3+2 (fused uint8 frames), TF32 off, threshold 0.2: on the
+    card and on the CPU the same images, counts and classes, boxes within
+    1e-3 px (chip_smoke phase 11's bar), and labels to keep."""
+    import copy
+
+    from cl_object_detection_tpu_torch.config import DataConfig, PseudoLabelConfig
+    from cl_object_detection_tpu_torch.data.coco import CocoJson
+    from cl_object_detection_tpu_torch.data.dataset import ILDataset
+    from cl_object_detection_tpu_torch.il.pseudo_label import generate_pseudo_labels
+    from cl_object_detection_tpu_torch.states import ILStates
+
+    _tf32_off(monkeypatch)
+    json_path, images = toy_dataset
+    coco = CocoJson(json_path)
+    states = ILStates(list(coco.classes.values()), coco.classes_inverse, ["3", "2"])
+    ds = ILDataset(coco, states, images, split="train", start_state=1)
+    cfg = DataConfig(batch_size=2, min_side=48, max_side=64, height=64, width=64,
+                     max_boxes=8, num_workers=0, prefetch=0, fused_stem=True,
+                     transfer_dtype="uint8")
+    card = _eval_model(dev, "float32", num_classes=3)
+    got = {}
+    for model in (card, copy.deepcopy(card).to("cpu")):
+        got[next(model.parameters()).device.type] = generate_pseudo_labels(
+            model, ds, cfg, PseudoLabelConfig(enabled=True, score_thresh=0.2),
+            states.inverse_label_map())
+    c, d = got["cpu"], got["cuda"]
+    assert list(c) == list(d) == list(ds.image_ids)
+    assert sum(len(a) for a in c.values()) > 0
+    for img_id, anns in c.items():
+        assert [a["category_id"] for a in d[img_id]] == [a["category_id"] for a in anns]
+        for ga, ca in zip(d[img_id], anns):
+            assert np.abs(np.subtract(ga["bbox"], ca["bbox"])).max() <= 1e-3
+
+
 # ------------------------------------------------------------ evaluation
 
-def _eval_model(dev, dtype):
+def _eval_model(dev, dtype, num_classes=5):
     """The small R18 with random output convs scaled as in
     tests/test_torch_eval.py (logit std near 1, bias -2), so that every
     image has detections at score_thresh 1e-3."""
@@ -853,7 +953,8 @@ def _eval_model(dev, dtype):
 
     gen = torch.Generator().manual_seed(3)
     model = create_retinanet(ModelConfig(depth=18, fpn_channels=32, head_layers=2,
-                                         compute_dtype=dtype), 5, device=dev, generator=gen)
+                                         compute_dtype=dtype), num_classes, device=dev,
+                             generator=gen)
     with torch.no_grad():
         for head, std in ((model.classification_head, 1.0), (model.regression_head, 0.3)):
             w = head.output.weight

@@ -4,6 +4,9 @@ warm-start (``il/weight_init.py``), SCAIL (``il/scail.py``), the
 incremental half of ``il/losses.compute_losses`` and the trainer from
 state 0 into state 1 (``train/trainer.py``, ``train/loop.py``,
 ``cli/train.py``). Weights cross from JAX through ``models.bridge``.
+The item-4b flags (replay, its switches, the prototype loss and
+pseudo-labels) run through ``cli.train`` into state 1 here; their
+functions are held to JAX in tests/test_torch_il_replay.py.
 
 Models: R18, FPN 32, 2 head layers, 3 old + 2 new classes, 128 x 128
 frames (the trainer: 128 x 192).
@@ -486,9 +489,7 @@ def test_train_step_runs_the_teacher_under_no_grad_not_inference_mode():
 
 
 @pytest.mark.parametrize("statics,item", [
-    (dict(use_prototype=True), "item 4b"),
-    (dict(use_pseudo_progress=True), "item 4b"),
-    (dict(use_mas=True), "item 4c"),
+    pytest.param(dict(use_mas=True), "item 4c", id="statics2-item 4c"),
 ])
 def test_unported_loss_terms_raise(statics, item):
     _, v = jax_model(C_OLD, 0)
@@ -497,6 +498,35 @@ def test_unported_loss_terms_raise(statics, item):
                                torch.from_numpy(ANCHORS), tcfg.ILConfig(), tcfg.FocalConfig(),
                                tlosses.LossStatics(num_classes=C_OLD, incremental=True,
                                                    **statics))
+
+
+@pytest.mark.parametrize("statics,key", [
+    (dict(use_prototype=True), "prototype_loss"),
+    (dict(use_pseudo_progress=True), "cls_bg_loss"),
+])
+def test_ported_4b_loss_terms_compute(statics, key):
+    """The prototype term and the pseudo-label progress (ROADMAP §1 item
+    4b, once refused here) compute: finite, with the prototype term
+    positive against old prototypes at the origin (inside the margin),
+    and the progress 0 discounting old-class entries of the pseudo-label
+    anchors below their undiscounted loss."""
+    _, v = jax_model(C, 1)
+    model, batch = port_model(v, C), targs(make_batch(1))
+    base = tlosses.LossStatics(num_classes=C, num_past_class=C_OLD, incremental=True)
+    kw = dict(prototype_features=torch.zeros(C_OLD, 32 * 9),
+              pseudo_progress=torch.tensor(0.0))
+    il = tcfg.ILConfig(prototype=tcfg.PrototypeConfig(loss=True))
+    with torch.no_grad():
+        _, plain = tlosses.compute_losses(model, *batch, torch.from_numpy(ANCHORS), il,
+                                          tcfg.FocalConfig(), base, **kw)
+        _, got = tlosses.compute_losses(model, *batch, torch.from_numpy(ANCHORS), il,
+                                        tcfg.FocalConfig(),
+                                        dataclasses.replace(base, **statics), **kw)
+    assert key in got and all(torch.isfinite(x) for x in got.values())
+    if key == "prototype_loss":
+        assert "prototype_loss" not in plain and float(got[key]) > 0
+    else:
+        assert float(got[key]) <= float(plain[key])
 
 
 # ------------------------------------------------------------ the trainer
@@ -566,7 +596,9 @@ def two_state(toy, tmp_path_factory):
     _capture_expansion(pt, captured)
     j_train_process(jt)
     train_process(pt)
-    return dict(jt=jt, pt=pt, captured=captured, jc=jc, tmp=tmp)
+    yield dict(jt=jt, pt=pt, captured=captured, jc=jc, tmp=tmp)
+    # ~1.1 GB of checkpoints (both packages', the entry's and the resume's)
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _state1_losses(trainer):
@@ -714,18 +746,105 @@ def test_train_cli_trains_state0_then_state1(toy, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--sample_num", "2"], "item 4b"),
-    (["--enhance_error", "true"], "item 4b"),
-    (["--final_correction", "true"], "item 4b"),
-    (["--mix_data", "true"], "item 4b"),
-    (["--prototype_loss", "true"], "item 4b"),
-    (["--persuado_label", "true"], "item 4b"),
-    (["--mas", "true"], "item 4c"),
-    (["--agem", "true"], "item 4c"),
-    (["--bic", "true"], "item 4d"),
+    pytest.param(["--mas", "true"], "item 4c", id="flags6-item 4c"),
+    pytest.param(["--agem", "true"], "item 4c", id="flags7-item 4c"),
+    pytest.param(["--bic", "true"], "item 4d", id="flags8-item 4d"),
 ])
 def test_train_cli_refuses_unported_methods_at_state1(toy, tmp_path, capsys, flags, item):
     with pytest.raises(SystemExit):
         train_main(_cli(toy, str(tmp_path), "--end_state", "1", *flags))
     assert item in capsys.readouterr().err
     assert not os.path.exists(os.path.join(str(tmp_path), "checkpoint"))
+
+
+@pytest.fixture
+def run_dir(tmp_path):
+    """``tmp_path``, emptied after the test: a state-1 run writes ~270 MB
+    of R18 checkpoints (parameters and Adam moments)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.fixture(scope="module")
+def state0_run(toy, tmp_path_factory):
+    """One state-0 epoch through ``cli.train``, entered from by the cases
+    below."""
+    root = str(tmp_path_factory.mktemp("state0_run"))
+    tr = train_main(_cli(toy, root, "--start_state", "0", "--end_state", "0"))
+    yield tr.ckpt.state_dir(0)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+# the ROADMAP §1 item 4b switches, once refused here; the replay-only ones
+# run with replay (random exemplars, which need no foreground-ratio filter)
+_REPLAY = ["--sample_num", "2", "--sample_method", "random", "--sample_batch_size", "2"]
+
+
+def _il_override(**fields):
+    """Set ILConfig sub-config fields that have no flag (as JAX's own tests
+    set them in the config): {"replay": {...}, "prototype": {...}}."""
+    def apply(cfg):
+        il = cfg.il
+        for sub, values in fields.items():
+            il = dataclasses.replace(il, **{sub: dataclasses.replace(getattr(il, sub),
+                                                                     **values)})
+        return cfg.replace(il=il)
+    return apply
+
+
+@pytest.mark.parametrize("flags,override,want", [
+    (["--sample_num", "2"], _il_override(replay=dict(herd_ratio_threshold=0.05)), "replay"),
+    (["--enhance_error", "true", *_REPLAY], None, "enhance_loss"),
+    (["--final_correction", "true", "--enhance_error", "true", *_REPLAY], None, "correction"),
+    (["--mix_data", "true", *_REPLAY], None, "mixed"),
+    (["--prototype_loss", "true", "--distill", "true"],
+     _il_override(prototype=dict(start_epoch=0)), "prototype_loss"),
+    (["--persuado_label", "true"], None, "pseudo"),
+], ids=["sample_num", "enhance_error", "final_correction", "mix_data", "prototype_loss",
+        "persuado_label"])
+def test_train_cli_runs_4b_methods_into_state1(toy, state0_run, run_dir, flags, override,
+                                               want):
+    """Each item-4b flag through ``cli.train`` into state 1 (the
+    cross-state entry from one state-0 checkpoint) on the CPU: state 1
+    trains, every loss finite, and the flag's work shows. Herding runs at
+    ``herd_ratio_threshold`` 0.05 and the prototype term from epoch 1
+    (fields without a flag): the toy boxes are at most a quarter of the
+    image, and ``start_epoch`` is 5 by default."""
+    dst = run_dir / "checkpoint" / "3_2" / "state0"
+    shutil.copytree(os.path.join(state0_run, "epoch1"), dst / "epoch1")
+    seen = []
+    real_run, real_init = ILTrainer.run_batch, ILTrainer.__init__
+
+    def run_batch(self, batch, is_replay=False, sync_metrics=True, correction=False):
+        m = real_run(self, batch, is_replay=is_replay, sync_metrics=True,
+                     correction=correction)
+        seen.append((is_replay, correction, set(m)))
+        return m
+
+    def init(self, cfg, *a, **k):
+        real_init(self, override(cfg) if override else cfg, *a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ILTrainer, "run_batch", run_batch)
+        mp.setattr(ILTrainer, "__init__", init)
+        tr = train_main(_cli(toy, str(run_dir), "--start_state", "1", *flags))
+    assert tr.cur_state == 1 and tr.ckpt.epochs(1) == [1] and seen
+    assert np.isfinite(np.asarray(tr.loss_hist)).all()
+    replay = [keys for r, c, keys in seen if r and not c]
+    order = [r for r, c, _ in seen if not c]
+    if want == "replay":
+        ex = list(tr.dataset_replay.image_ids)
+        assert ex and replay and tr.ckpt.restore(1, 1)[1]["exemplar_ids"] == ex
+        assert tr.herd_sampler is not None and tr.herd_sampler.examplar_list == ex
+    elif want == "enhance_loss":
+        assert replay and all("enhance_loss" in k for k in replay)
+    elif want == "correction":
+        assert any(c for _, c, _ in seen)
+    elif want == "mixed":                   # a new-image step after a replay one
+        assert True in order and False in order[order.index(True):]
+    elif want == "prototype_loss":
+        assert tr.prototype_features is not None
+        assert all("prototype_loss" in k for r, c, k in seen if not r)
+    else:
+        assert tr.teacher_model is not None
+        assert set(tr.dataset_train.pseudo_labels) == set(tr.dataset_train.image_ids)

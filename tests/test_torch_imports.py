@@ -41,6 +41,9 @@ def test_port_imports_no_jax():
             "cl_object_detection_tpu_torch.il.losses",
             "cl_object_detection_tpu_torch.il.scail",
             "cl_object_detection_tpu_torch.il.weight_init",
+            "cl_object_detection_tpu_torch.il.herding",
+            "cl_object_detection_tpu_torch.il.prototype",
+            "cl_object_detection_tpu_torch.il.pseudo_label",
             "cl_object_detection_tpu_torch.models.expand",
             "cl_object_detection_tpu_torch.train.optim",
             "cl_object_detection_tpu_torch.train.state",

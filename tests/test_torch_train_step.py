@@ -316,24 +316,32 @@ def test_compute_losses_plain_path_matches_jax(frames, kind):
 
 
 def test_incremental_losses_are_not_ported_yet():
-    """The incremental terms still to port raise naming their sub-item:
-    the prototype loss (item 4b) and the MAS penalty (item 4c), from
-    compute_losses and from a train step with a teacher."""
+    """The MAS penalty (item 4c), still to port, raises naming its
+    sub-item from compute_losses and from a train step with a teacher;
+    the prototype loss (item 4b, ported) runs in both, its term finite
+    and positive against old prototypes at the origin."""
     _, v = jax_model()
     model = port_model(v)
     batch = targs(make_batch(1))
-    cases = ((LossStatics(num_classes=C, num_past_class=1, incremental=True,
-                          use_prototype=True), "item 4b"),
-             (LossStatics(num_classes=C, use_mas=True), "item 4c"))
-    for statics, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            compute_losses(model, *batch, torch.from_numpy(ANCHORS), tcfg.ILConfig(),
-                           tcfg.FocalConfig(), statics)
+    mas = LossStatics(num_classes=C, use_mas=True)
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        compute_losses(model, *batch, torch.from_numpy(ANCHORS), tcfg.ILConfig(),
+                       tcfg.FocalConfig(), mas)
     step = tstep.make_train_step(model, port_model(v), ANCHORS, tcfg.ILConfig(),
-                                 tcfg.FocalConfig(), cases[0][0], tstep.StepStatics())
+                                 tcfg.FocalConfig(), mas, tstep.StepStatics())
     state = TrainState(model, toptim.make_optimizer(tcfg.ScheduleConfig(), model))
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    with pytest.raises(NotImplementedError, match="item 4c"):
         step(state, *batch)
+    proto = LossStatics(num_classes=C, num_past_class=1, incremental=True, use_prototype=True)
+    old = torch.zeros(1, model.classification_head.conv1.weight.shape[0] * 9)
+    _, metrics = compute_losses(model, *batch, torch.from_numpy(ANCHORS), tcfg.ILConfig(),
+                                tcfg.FocalConfig(), proto, prototype_features=old)
+    assert float(metrics["prototype_loss"].detach()) > 0
+    step = tstep.make_train_step(model, port_model(v), ANCHORS, tcfg.ILConfig(),
+                                 tcfg.FocalConfig(), proto, tstep.StepStatics(every_iter=1))
+    state, metrics = step(state, *batch, prototype_features=old)
+    assert state.step == 1 and np.isfinite(float(metrics["prototype_loss"]))
+    assert np.isfinite(float(metrics["total_loss"]))
 
 
 # ----------------------------------------------------------------- optimizer

@@ -480,7 +480,7 @@ def test_train_cli_without_cpu_or_cuda_raises(toy, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--scenario", "3", "2", "--end_state", "1", "--sample_num", "2"], "item 4b"),
+    (["--scenario", "3", "2", "--end_state", "1", "--agem", "true"], "item 4c"),
     (["--scenario", "3", "2", "--end_state", "1", "--mas", "true"], "item 4c"),
     (["--mesh", "true"], "item 6"),
     (["--zero1", "true"], "item 6"),
@@ -501,7 +501,7 @@ def test_trainer_refuses_states_and_mesh(toy, tmp_path):
                        "item 4d"),
                       (base.replace(il=tcfg.ILConfig(
                           scenario=("3", "2"), end_state=1,
-                          prototype=tcfg.PrototypeConfig(loss=True))), "item 4b"),
+                          agem=tcfg.AGEMConfig(enabled=True))), "item 4c"),
                       (base.replace(mesh=tcfg.MeshConfig(enabled=True)), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             ILTrainer(cfg, json_path, images, workdir=str(tmp_path), device="cpu")
