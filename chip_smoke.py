@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving, training, evaluation, incremental and replay paths on one GPU and check them.
+"""Run the PyTorch/CUDA port's serving, training, evaluation and incremental paths (replay and the IL battery included) on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -198,9 +198,54 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    boxes within 1e-3 px. Printed: each pass in images/s, ``run_batch``
    alone per state-1 micro-step with the prototype term beside phase
    10's, the peak memory and the phase's seconds.
-12. The ``{"trainer": ...}``, ``{"eval": ...}``, ``{"il_state1": ...}`` and
-   ``{"il_replay": ...}`` lines, the kernels' JSON line, then the
-   ``{"ok": true, ...}`` line.
+12. The IL battery: MAS, A-GEM and BiC with distillation, random replay
+   and pseudo-labels, in a fresh run directory holding a copy of phase
+   10's state-0 checkpoint under the ``15_3_2`` tag (the same 15 classes
+   and data; cuDNN deterministic for the phase). With the counters at
+   0, one ``cli.train.main`` call with phase 8's model and data flags and
+   ``--scenario 15 3 2 --start_state 1 --end_state 2 --start_epoch 1
+   --end_epoch 1 --new_state_epoch 1 --every_iter 2 --init_method mean
+   --distill true --classifier_loss true --sample_num 2 --sample_method
+   random --mas true --agem true --bic true --persuado_label true``
+   (``--agem_refresh_every`` at its default 1) enters state 1 from the
+   state-0 checkpoint and trains states 1 and 2, one epoch each.
+   Checks: every total_loss finite and a finite ``mas_loss`` in every
+   micro-step; no replay or correction micro-step (A-GEM on); the stem
+   counter equals one launch per batch of each pass (two similarity
+   passes, two MAS passes, two pseudo-label passes, one A-GEM refresh
+   per micro-step, two BiC epochs) plus two per new-image micro-step
+   (student and teacher), and no other kernel ran; the MAS importance
+   (the trainer's and both sidecars) finite and zero on every excluded
+   leaf; the A-GEM projection fired at an apply, or the phase prints
+   that <g, g_r> >= 0 at every apply; BiC's state-1 slot moved in state
+   1 and carried over unchanged, its state-2 slot moved off (1, 0), and
+   the state-2 checkpoint's ``il_meta["bic"]`` equals the trainer's
+   scalars. Then ``cli.validate --state 2 --epoch 1 --bic true`` on the
+   test split of phase 9 through the ``Evaluator`` with
+   ``nms_impl="pallas_fp"`` (one stem and one NMS launch per batch): the
+   ``_bic`` JSON and CSV exist, the rows are finite, and the rows of the
+   state-1 and state-2 classes differ from ``cli.validate`` without
+   ``--bic``. Then, in float32 with TF32 off, on one unaugmented batch of
+   2 state-2 images and the state-2 checkpoint, the card (deterministic
+   cuDNN; autotuned beside it, printed) against the CPU: one MAS
+   importance batch, one A-GEM replay gradient, and one BiC step (its
+   gradient, and the change of the alphas and betas), at the train
+   step's gradient bar (|d| <= 1e-3 |g_cpu| + 1e-4 max|g_cpu| per leaf).
+   A ReLU pre-activation or a max-pool pair within rounding of a tie
+   decides where the gradient flows, so at this size rounding alone moves
+   a leaf's gradient past that bar: the card's own gradients at weights
+   moved by one float32 ulp (four seeds) are computed beside it, and the
+   card's worst leaf of the importance and of the replay gradient must
+   stay within the larger of the bar and twice the largest of those
+   moves; the BiC gradient and step hold the bar.
+   Printed: the MAS pass in images/s, the A-GEM refresh in ms
+   per refresh and per replay batch, the BiC epoch in images/s,
+   ``run_batch`` alone per state-2 micro-step (MAS penalty, projection,
+   distillation) beside phase 10's state-1 figure, the peak memory and
+   the phase's seconds.
+13. The ``{"trainer": ...}``, ``{"eval": ...}``, ``{"il_state1": ...}``,
+   ``{"il_replay": ...}`` and ``{"il_battery": ...}`` lines, the kernels'
+   JSON line, then the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds a torch.profiler window over two B=32 predicts
 after phases 4 and 5 and over two micro-step pairs (two applies) in
@@ -2236,6 +2281,459 @@ def check_int8_at_eval_frame() -> float:
     return err
 
 
+BATTERY_IL_FLAGS = ["--distill", "true", "--classifier_loss", "true", "--sample_num", "2",
+                    "--sample_method", "random", "--mas", "true", "--agem", "true",
+                    "--bic", "true", "--persuado_label", "true"]
+BATTERY_FLAGS = ["--scenario", "15", "3", "2", "--start_state", "1", "--end_state", "2",
+                 "--start_epoch", "1", "--end_epoch", "1", "--new_state_epoch", "1",
+                 "--every_iter", "2", "--save_every", "1", "--record", "false",
+                 "--init_method", "mean"] + BATTERY_IL_FLAGS
+
+
+def il_battery_path(tmp: str, state1_step_ms: float) -> dict:
+    """Phase 12: MAS, A-GEM and BiC with distillation, random replay and
+    pseudo-labels through ``cli.train.main`` from phase 10's state-0
+    checkpoint into states 1 and 2, ``cli.validate --bic``, and the
+    battery's passes on the card against the CPU (module docstring)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch import config as config_mod
+    from cl_object_detection_tpu_torch.cli import validate
+    from cl_object_detection_tpu_torch.cli.train import main as train_main
+    from cl_object_detection_tpu_torch.il import agem as agem_mod
+    from cl_object_detection_tpu_torch.il import bic as bic_mod
+    from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
+    from cl_object_detection_tpu_torch.train import step as step_mod
+    from cl_object_detection_tpu_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "data")
+    src = os.path.join(tmp, "run_il", "checkpoint", "15_5", "state0")
+    root = os.path.join(tmp, "run_battery")
+    flags = ["--root_dir", root, "--train_json", os.path.join(data, "train.json"),
+             "--image_dir", os.path.join(data, "images")] + IL_MODEL_FLAGS[3:] + BATTERY_FLAGS
+    ILTrainer = trainer_mod.ILTrainer
+    names = ("compute_similarity", "compute_importance", "generate_pseudo_labels")
+    real = dict(run_batch=ILTrainer.run_batch, refresh=agem_mod.AGem.compute_replay_grad,
+                bic_epoch=bic_mod.BicTrainer.train_epoch, project=step_mod._agem_project,
+                predict_cfg=config_mod.PredictConfig,
+                **{n: getattr(trainer_mod, n) for n in names})
+    steps, passes, dots = [], [], []
+
+    def run_batch(self, batch, is_replay=False, sync_metrics=True, correction=False):
+        before = stem_fused.launches
+        m = real["run_batch"](self, batch, is_replay=is_replay, sync_metrics=sync_metrics,
+                              correction=correction)
+        steps.append(dict(state=self.cur_state, replay=is_replay, correction=correction,
+                          launches=stem_fused.launches - before, metrics=m))
+        return m
+
+    def timed(name, fn, loader_of):
+        def wrapper(*args, **kw):
+            loader = loader_of(*args)
+            torch.cuda.synchronize()
+            before, t0 = stem_fused.launches, time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            passes.append(dict(name=name, s=time.perf_counter() - t0, batches=len(loader),
+                               images=len(loader.dataset),
+                               launches=stem_fused.launches - before))
+            return out
+        return wrapper
+
+    def project(grads, replay_grad):
+        dots.append(float(sum(torch.sum(g * replay_grad[k]) for k, g in grads.items())))
+        return real["project"](grads, replay_grad)
+
+    def unaugmented(dataset, cfg):
+        from cl_object_detection_tpu_torch.data.loader import BatchLoader
+
+        return BatchLoader(dataset, cfg, shuffle=False, augment=False)
+
+    shutil.copytree(os.path.join(src, "epoch1"),
+                    os.path.join(root, "checkpoint", "15_3_2", "state0", "epoch1"))
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    ILTrainer.run_batch = run_batch
+    agem_mod.AGem.compute_replay_grad = timed("agem_refresh", real["refresh"],
+                                              lambda self, *a: self.replay_loader)
+    bic_mod.BicTrainer.train_epoch = timed("bic_epoch", real["bic_epoch"],
+                                           lambda self, *a: self.bic_loader)
+    step_mod._agem_project = project
+    trainer_mod.compute_similarity = timed("similarity", real[names[0]],
+                                           lambda m, anchors, loader, *a: loader)
+    trainer_mod.compute_importance = timed("mas", real[names[1]],
+                                           lambda m, anchors, loader, *a: loader)
+    trainer_mod.generate_pseudo_labels = timed(
+        "pseudo_labels", real[names[2]], lambda m, ds, cfg, *a: unaugmented(ds, cfg))
+    try:
+        # ---- this path: counters at 0 -> states 1 and 2 with the battery ----
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = train_main(flags)
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        record = check_battery_run(tr, steps, passes, dots, counts, run_s)
+        step_ms = battery_step_ms(tr)
+
+        # ---- cli.validate --state 2 --bic true through the NMS kernel ----
+        config_mod.PredictConfig = functools.partial(real["predict_cfg"], nms_impl="pallas_fp")
+        vflags = ["--root_dir", root, "--test_json", os.path.join(data, "test.json"),
+                  "--image_dir", os.path.join(data, "images"), "--state", "2", "--epoch", "1",
+                  "--threshold", "0.001"] + IL_MODEL_FLAGS[3:] + ["--scenario", "15", "3", "2"]
+        zero_counts()
+        t0 = time.perf_counter()
+        res_bic = validate.main(vflags + ["--bic", "true"])
+        val_s = time.perf_counter() - t0
+        vcounts = read_counts()
+        res_plain = validate.main(vflags)
+        record["validate"] = check_battery_validate(tr, root, res_bic, res_plain, vcounts,
+                                                    val_s)
+    finally:
+        ILTrainer.run_batch = real["run_batch"]
+        agem_mod.AGem.compute_replay_grad = real["refresh"]
+        bic_mod.BicTrainer.train_epoch = real["bic_epoch"]
+        step_mod._agem_project = real["project"]
+        config_mod.PredictConfig = real["predict_cfg"]
+        for n in names:
+            setattr(trainer_mod, n, real[n])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+
+    # ---- the battery's passes on the card against the CPU, float32 ----
+    record["card_vs_cpu"] = battery_card_vs_cpu(tr)
+    phase_s = time.perf_counter() - t_phase
+    rates = record["rates"]
+    log(f"il battery (R50 bf16 640x1024 B=8, deterministic cuDNN): MAS pass "
+        f"{rates['mas_images_per_s']:.2f} images/s; A-GEM refresh "
+        f"{rates['agem_ms_per_refresh']:.1f} ms per refresh, "
+        f"{rates['agem_ms_per_replay_batch']:.1f} ms per replay batch of "
+        f"{tr.replay_loader.batch_size}; BiC epoch {rates['bic_images_per_s']:.2f} images/s; "
+        f"run_batch alone {step_ms:.1f} ms per state-2 micro-step (MAS penalty, projection, "
+        f"distillation; phase 10's state 1: {state1_step_ms:.1f}); peak memory "
+        f"{peak / 2**30:.2f} GiB; phase 12 took {phase_s:.1f} s")
+    record.update(state2_step_ms=step_ms, state1_step_ms_phase10=state1_step_ms,
+                  peak_gib=peak / 2**30, phase_s=phase_s)
+    return record
+
+
+def check_battery_run(tr, steps, passes, dots, counts, run_s) -> dict:
+    """The checks of phase 12's training run (module docstring); returns
+    its record."""
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.il import mas as mas_mod
+
+    for s in steps:
+        s["metrics"] = {k: float(v) for k, v in s["metrics"].items()}
+    losses = np.asarray([s["metrics"]["total_loss"] for s in steps], np.float64)
+    by_state = {k: [s for s in steps if s["state"] == k] for k in (1, 2)}
+    by_pass = {}
+    for p in passes:
+        by_pass.setdefault(p["name"], []).append(p)
+    want_stem = sum(p["batches"] for p in passes) + 2 * len(steps)
+    projected = sum(d < 0 for d in dots)
+    log(f"il battery run: cli.train.main states 1 and 2 (scenario 15+3+2, "
+        f"{' '.join(BATTERY_IL_FLAGS)}): {run_s:.2f} s; micro-steps {len(by_state[1])} + {len(by_state[2])}, stem launches "
+        f"per micro-step {sorted({s['launches'] for s in steps})}; passes "
+        + ", ".join(f"{k} {len(v)} x ({sum(p['batches'] for p in v)} batches, "
+                    f"{sum(p['launches'] for p in v)} launches, "
+                    f"{sum(p['s'] for p in v):.2f} s)" for k, v in by_pass.items())
+        + f"; launches {counts} (want stem {want_stem}); A-GEM <g, g_r> at the "
+        f"{len(dots)} applies {[f'{d:.3g}' for d in dots]}: projected {projected}")
+    if not (len(losses) and np.isfinite(losses).all() and by_state[1] and by_state[2]):
+        raise AssertionError(f"losses {losses} over states {[s['state'] for s in steps]}")
+    if any(s["replay"] or s["correction"] for s in steps):
+        raise AssertionError("a replay or correction micro-step ran with A-GEM on")
+    if not all(np.isfinite(s["metrics"].get("mas_loss", np.nan)) for s in steps):
+        raise AssertionError("a micro-step of state 1 or 2 without a finite mas_loss")
+    if {s["launches"] for s in steps} != {2} or any(
+            p["launches"] != p["batches"] or not p["batches"] for p in passes):
+        raise AssertionError("want 2 stem launches per new-image micro-step and 1 per batch "
+                             "of each pass")
+    if counts["stem_fused"] != want_stem or any(
+            counts[k] for k in ("stem_fused_f32", "nms_fp", "int8_matmul", "int8_conv_nhwc")):
+        raise AssertionError(f"launches {counts}, want stem {want_stem}")
+    want_passes = {"similarity": 2, "mas": 2, "pseudo_labels": 2, "bic_epoch": 2}
+    if any(len(by_pass.get(k, [])) != n for k, n in want_passes.items()) or len(
+            by_pass.get("agem_refresh", [])) != len(steps):
+        raise AssertionError(f"passes {[(k, len(v)) for k, v in by_pass.items()]}, want "
+                             f"{want_passes} and one A-GEM refresh per micro-step")
+    if not dots:
+        raise AssertionError("no A-GEM projection was taken")
+    if not projected:
+        log("il battery run: <g, g_r> >= 0 at every apply: the projection left every "
+            "update unchanged")
+    imp = tr.mas_importance
+    bad = [k for k, v in imp.items() if not bool(torch.isfinite(v).all())
+           or (mas_mod._excluded(k) and bool(v.any()))]
+    kept = sum(1 for k, v in imp.items() if not mas_mod._excluded(k) and bool(v.any()))
+    for state in (0, 1):
+        side = tr.ckpt.load_array_sidecar(state, "mas_importance")
+        bad += [f"state{state}:{k}" for k, v in side.items()
+                if not np.isfinite(v).all() or (mas_mod._excluded(k) and v.any())]
+    log(f"il battery run: MAS importance of state 1 finite, {kept} of {len(imp)} leaves "
+        f"nonzero, the {sum(map(mas_mod._excluded, imp))} excluded ones zero: {not bad}")
+    if bad or not kept:
+        raise AssertionError(f"MAS importance not finite or nonzero on excluded leaves: {bad}")
+    meta1 = tr.ckpt.restore(1, 1)[1]["bic"]
+    meta2 = tr.ckpt.restore(2, 1)[1]["bic"]
+    live = {"alphas": tr.bic.params.alphas.tolist(), "betas": tr.bic.params.betas.tolist()}
+    log(f"il battery run: BiC after state 1 {meta1}, after state 2 {meta2}, live {live}")
+    if meta2 != live or tr.bic.cur_state != 2:
+        raise AssertionError("the state-2 checkpoint's BiC scalars differ from the trainer's")
+    if (meta1["alphas"][0], meta1["betas"][0]) == (1.0, 0.0) \
+            or (live["alphas"][1], live["betas"][1]) == (1.0, 0.0):
+        raise AssertionError("a BiC slot did not move off (1, 0) in its state")
+    if (live["alphas"][0], live["betas"][0]) != (meta1["alphas"][0], meta1["betas"][0]):
+        raise AssertionError("the state-1 BiC slot changed in state 2")
+    if tr.agem.replay_grad["classification_head.output.weight"].shape[0] != 9 * 20:
+        raise AssertionError("the replay gradient is not the expanded model's")
+    mas_p, refresh, bic_p = by_pass["mas"], by_pass["agem_refresh"], by_pass["bic_epoch"]
+    rates = dict(
+        mas_images_per_s=sum(p["images"] for p in mas_p) / sum(p["s"] for p in mas_p),
+        agem_ms_per_refresh=sum(p["s"] for p in refresh) / len(refresh) * 1e3,
+        agem_ms_per_replay_batch=sum(p["s"] for p in refresh)
+        / sum(p["batches"] for p in refresh) * 1e3,
+        bic_images_per_s=sum(p["images"] for p in bic_p) / sum(p["s"] for p in bic_p),
+        similarity_images_per_s=sum(p["images"] for p in by_pass["similarity"])
+        / sum(p["s"] for p in by_pass["similarity"]),
+        pseudo_images_per_s=sum(p["images"] for p in by_pass["pseudo_labels"])
+        / sum(p["s"] for p in by_pass["pseudo_labels"]))
+    return dict(seconds=run_s, micro_steps=[len(by_state[1]), len(by_state[2])],
+                launches=counts, projected=projected, applies=len(dots), bic=live,
+                passes={k: [{f: p[f] for f in ("batches", "images", "launches", "s")}
+                            for p in v] for k, v in by_pass.items()},
+                rates=rates)
+
+
+def battery_step_ms(tr) -> float:
+    """``run_batch`` alone per state-2 micro-step (the MAS penalty, the
+    A-GEM projection against the last replay gradient, distillation) on
+    one epoch of batches assembled beforehand."""
+    import torch
+
+    tr.train_loader.set_epoch(2)
+    batches = list(tr.train_loader)
+    tr.run_batch(batches[0], sync_metrics=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        m = tr.run_batch(b, sync_metrics=False)
+    if "mas_loss" not in m:
+        raise AssertionError("the timed state-2 micro-steps ran without the MAS penalty")
+    float(m["total_loss"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / len(batches) * 1e3
+
+
+def check_battery_validate(tr, root, res_bic, res_plain, vcounts, val_s) -> dict:
+    """``cli.validate --state 2 --bic true`` (the NMS kernel once per
+    batch): the ``_bic`` outputs exist, the rows are finite, and the rows
+    of the state-1 and state-2 classes (whose slots are off (1, 0))
+    differ from the uncorrected run's."""
+    import os
+
+    import numpy as np
+
+    out = os.path.join(root, "val_result", "15_3_2", "state2")
+    with open(os.path.join(out, "voc2007_results_epoch1_bic.json")) as f:
+        rows_bic = json.load(f)
+    with open(os.path.join(out, "voc2007_results_epoch1.json")) as f:
+        rows_plain = json.load(f)
+    new_cats = set(tr.states[2].knowing_ids[tr.states[1].num_past_class:])
+
+    def new_rows(rows):
+        return sorted((r["image_id"], r["category_id"], round(r["score"], 7))
+                      for r in rows if r["category_id"] in new_cats)
+
+    flat = np.asarray([r["bbox"] + [r["score"]] for r in rows_bic], np.float64)
+    csv_ok = os.path.exists(os.path.join(out, "val_result_1_bic.csv"))
+    differ = new_rows(rows_bic) != new_rows(rows_plain)
+    log(f"il battery: cli.validate --state 2 --epoch 1 --bic true (Evaluator, pallas_fp): "
+        f"{val_s:.2f} s, {len(rows_bic)} rows, mAP50 {res_bic[1].mean_ap50:.4f} (uncorrected "
+        f"{res_plain[1].mean_ap50:.4f}); launches {vcounts}; _bic JSON and CSV written: "
+        f"{csv_ok}; rows of the state-1 and state-2 classes differ from the uncorrected "
+        f"run's: {differ} ({len(new_rows(rows_bic))} against {len(new_rows(rows_plain))})")
+    if not (rows_bic and csv_ok and np.isfinite(flat).all() and differ):
+        raise AssertionError("cli.validate --bic: missing outputs, rows not finite, or the "
+                             "correction left the new classes' rows unchanged")
+    if not vcounts["nms_fp"] or vcounts["nms_fp"] != vcounts["stem_fused"] or any(
+            vcounts[k] for k in ("stem_fused_f32", "int8_matmul", "int8_conv_nhwc")):
+        raise AssertionError(f"validate launches {vcounts}, want one stem and one NMS launch "
+                             "per batch")
+    return dict(seconds=val_s, rows=len(rows_bic), map50_bic=res_bic[1].mean_ap50,
+                map50_plain=res_plain[1].mean_ap50, launches=vcounts)
+
+
+def _grads_rel(got: dict, want: dict) -> tuple:
+    """(largest |d| / (1e-3 |g_cpu| + 1e-4 max|g_cpu|) over every leaf,
+    largest |d| / max|g_cpu|, the three leaves furthest beyond the bar):
+    the first <= 1 is the train step's gradient bar."""
+    per_leaf = {}
+    rel = 0.0
+    for k, w in want.items():
+        g, w = got[k].double().cpu(), w.double()
+        d = (g - w).abs()
+        m = float(w.abs().max())
+        if m == 0:
+            per_leaf[k] = float("inf") if float(d.max()) > 0 else 0.0
+            continue
+        per_leaf[k] = float((d / (1e-3 * w.abs() + 1e-4 * m)).max())
+        rel = max(rel, float(d.max()) / m)
+    worst = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:3]
+    return worst[0][1], rel, [(k, float(f"{v:.3g}")) for k, v in worst]
+
+
+# (tag, device, cuDNN deterministic, seed of the one-ulp move or None):
+# the card under deterministic cuDNN (no autotuning), as the other
+# card-vs-CPU checks run, and beside it the card autotuned (the main
+# path's cudnn.benchmark); the card at the checkpoint's weights each moved
+# by -1, 0 or +1 float32 ulp (four seeds), which measures how far rounding
+# alone moves the card's own gradients; the CPU at the checkpoint's weights
+BATTERY_ULP_SEEDS = (1, 2, 3, 4)
+BATTERY_CHECK_RUNS = ((("card", "cuda", True, None), ("card_autotuned", "cuda", False, None))
+                      + tuple((f"card_ulp{i}", "cuda", True, i) for i in BATTERY_ULP_SEEDS)
+                      + (("cpu", "cpu", True, None),))
+
+
+def _ulp_moved(state: dict, seed: int) -> dict:
+    """``state`` with every float parameter (not the frozen-BN statistics)
+    multiplied by 1 + s 2^-23, s in {-1, 0, 1} drawn per element."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in state.items():
+        if v.dtype == torch.float32 and "running" not in k:
+            sign = torch.randint(-1, 2, v.shape, generator=gen).float()
+            v = v * (1 + sign * 2.0 ** -23)
+        out[k] = v
+    return out
+
+
+def _leaf_worst(got: dict, want: dict) -> dict:
+    """Per leaf, the worst |d| / (1e-3 |g_want| + 1e-4 max|g_want|)."""
+    return {leaf: _grads_rel({leaf: got[leaf]}, {leaf: w})[0] for leaf, w in want.items()}
+
+
+def battery_card_vs_cpu(tr, runs=BATTERY_CHECK_RUNS) -> dict:
+    """Phase 12's float32 checks (TF32 off) on one unaugmented batch of 2
+    state-2 images and the state-2 checkpoint, the card against the CPU:
+    one MAS importance batch, one A-GEM replay gradient, and one BiC step
+    (its gradient, and the change of the alphas and betas). The train
+    step's gradient bar is |d| <= 1e-3 |g_cpu| + 1e-4 max|g_cpu| per
+    leaf. A ReLU pre-activation or a max-pool pair within rounding of a
+    tie decides where the gradient flows, so at this size rounding alone
+    moves a leaf's gradient past that bar: for the importance and the
+    replay gradient, the card's own gradients at weights moved by one
+    float32 ulp (four seeds) measure how far, and the card's worst leaf
+    against the CPU must stay within the larger of the bar and twice the
+    largest of those moves. The BiC gradient and step hold the bar."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from cl_object_detection_tpu_torch.data.loader import BatchLoader
+    from cl_object_detection_tpu_torch.il import agem, bic, mas
+    from cl_object_detection_tpu_torch.il.losses import LossStatics, compute_losses
+    from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+
+    s2 = tr.ckpt.restore(2, 1)[0]["model"]
+    ds = copy.copy(tr.dataset_train)
+    ds.image_ids = list(ds.image_ids[:2])
+    ds.pseudo_labels = {}
+    batch = next(iter(BatchLoader(ds, dataclasses.replace(tr.cfg.data, batch_size=2),
+                                  shuffle=False, augment=False)))
+    anchors = tr.anchors_for(batch.images)
+    cfg32 = dataclasses.replace(tr.cfg.model, compute_dtype="float32")
+    st = tr.states[2]
+    counts = [s.num_new_class for s in tr.states.states]
+    agem_statics = LossStatics(num_classes=20, num_past_class=st.num_past_class,
+                               incremental=False, is_replay=True)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    got = {}
+    try:
+        for tag, dev, deterministic, seed in runs:
+            torch.backends.cudnn.deterministic = deterministic
+            torch.backends.cudnn.benchmark = not deterministic
+            model = create_retinanet(cfg32, 20, device=dev)
+            model.load_state_dict(s2 if seed is None else _ulp_moved(s2, seed))
+            args = [torch.tensor(a, device=dev)
+                    for a in (anchors, batch.images, batch.boxes, batch.labels)]
+            imp = mas.make_importance_step(model)(*args)
+            rep = agem.AGem(model, anchors, tr.cfg.il, tr.cfg.focal, agem_statics,
+                            [batch]).compute_replay_grad()
+            got[tag] = dict(imp={k: v.cpu() for k, v in imp.items()},
+                            rep={k: v.cpu() for k, v in rep.items()})
+            del imp, rep
+            if seed is not None:
+                del model, args
+                continue
+            bt = bic.BicTrainer(model, anchors, tr.cfg.il, tr.cfg.focal, tr.cfg.il.bic, counts,
+                                2, st.num_past_class, [batch])
+            bt.params.load({"alphas": tr.bic.params.alphas.numpy(),
+                            "betas": tr.bic.params.betas.numpy()})
+            a, b = (torch.nn.Parameter(t.clone().to(dev)) for t in (bt.params.alphas,
+                                                                     bt.params.betas))
+            total, _ = compute_losses(bic._Frozen(model), *args[1:], args[0], tr.cfg.il,
+                                      tr.cfg.focal, bt.statics,
+                                      bic_correct=lambda x: bt.correct(x, a, b))
+            ga, gb = torch.autograd.grad(total, [a, b])
+            before = bt.params.alphas.clone(), bt.params.betas.clone()
+            bt.train_epoch()
+            got[tag].update(
+                bic_grad={"alphas": ga.cpu(), "betas": gb.cpu()},
+                bic_step={"alphas": bt.params.alphas - before[0],
+                          "betas": bt.params.betas - before[1]},
+                bic={"alphas": bt.params.alphas.tolist(), "betas": bt.params.betas.tolist()})
+            del model, args, bt
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = saved
+    moved = [r[0] for r in runs if r[3] is not None]
+    moves = {k: [_grads_rel(got[m][k], got["card"][k])[0] for m in moved]
+             for k in ("imp", "rep")}
+    out, bad = {}, []
+    for tag in ("card", "card_autotuned"):
+        res = {}
+        for k in ("imp", "rep", "bic_grad", "bic_step"):
+            worst, rel, leaves = _grads_rel(got[tag][k], got["cpu"][k])
+            res[k] = dict(worst_of_bar=worst, max_rel=rel, leaves=leaves)
+            limit = 1.0
+            if k in moves:
+                limit = max(1.0, 2 * max(moves[k]))
+                res[k].update(past_the_bar=sum(v > 1 for v in _leaf_worst(
+                    got[tag][k], got["cpu"][k]).values()), ulp_moves=moves[k], limit=limit)
+            if tag == "card" and worst > limit:
+                bad.append(f"{k}: {worst:.3g} > {limit:.3g}")
+        out[tag] = res
+        log(f"il battery: {tag} against the CPU, state-2 R50 float32, TF32 off, 2 state-2 "
+            f"images (worst |d| / (1e-3 |g_cpu| + 1e-4 max|g_cpu|) over the leaves, "
+            f"max |d| / max |g_cpu|, the leaves furthest out; for the importance and the "
+            f"replay gradient also the leaves past the bar, the card's own worst moves at "
+            f"weights moved by one ulp, and the limit max(1, twice the largest move)): "
+            + "; ".join(f"{k} {r['worst_of_bar']:.3g} ({r['max_rel']:.3g}) {r['leaves']}"
+                        + (f", {r['past_the_bar']} of {len(got['cpu'][k])} leaves past the "
+                           f"bar, one-ulp moves {[float(f'{m:.3g}') for m in r['ulp_moves']]}, "
+                           f"limit {r['limit']:.3g}" if k in moves else "")
+                        for k, r in res.items())
+            + f"; BiC after one step {got[tag]['bic']}, CPU {got['cpu']['bic']}")
+    if bad:
+        raise AssertionError(f"the card's battery passes differ from the CPU's beyond the bar "
+                             f"and beyond twice the card's own one-ulp moves: {bad}")
+    return out
+
+
 def trainer_from_flags(argv, override=None):
     """An ``ILTrainer`` on the card from ``cli.train``'s flags, built as
     ``cli.train.main`` builds it (no training); ``override`` maps the
@@ -2517,6 +3015,8 @@ def main() -> int:
         il_state1 = il_state1_path(tmp, trainer["step_only_ms_640x1024"])
         torch.cuda.empty_cache()
         il_replay = il_replay_path(tmp, il_state1["state1_step_ms"])
+        torch.cuda.empty_cache()
+        il_battery = il_battery_path(tmp, il_state1["state1_step_ms"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2531,6 +3031,7 @@ def main() -> int:
     log(json.dumps({"eval": evaluation}))
     log(json.dumps({"il_state1": il_state1}))
     log(json.dumps({"il_replay": il_replay}))
+    log(json.dumps({"il_battery": il_battery}))
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,10 @@ replay, exemplars, prototypes and pseudo-labels (herding
 ``il.herding``, prototype-herd and random exemplars, the prototype loss
 ``il.prototype`` over ``RetinaNet.classification_features``, the
 teacher's pseudo-labels ``il.pseudo_label``, ``mix_data``,
-``enhance_error`` and the final correction). Three hand-written CUDA
+``enhance_error`` and the final correction) and the rest of the IL
+battery (MAS ``il.mas`` with its penalty in ``il.losses``, A-GEM
+``il.agem`` with the step's projection, BiC ``il.bic`` with its
+correction at evaluation). Three hand-written CUDA
 kernels for ``sm_90a`` carry it on the card: the fused stem (``ops/stem_fused.py`` + ``csrc/stem_fused.cu``),
 the batched fixed-point NMS (``ops/nms_fp.py`` + ``csrc/nms_fp.cu``) and
 the int8 kernel of the quantized convs, a GEMM that can gather a conv's

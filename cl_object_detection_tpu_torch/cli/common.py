@@ -218,14 +218,6 @@ def refuse_unported(parser: argparse.ArgumentParser, a: argparse.Namespace) -> N
         parser.error("multi-device training (--mesh, --num_model, --num_data, "
                      "--zero1, --coordinator_address, --num_processes, "
                      "--process_id) is not ported yet: ROADMAP §1 item 6")
-    from ..train.trainer import unported_il_method
-
-    refusal = unported_il_method(args_to_config(a).il)
-    if refusal:
-        parser.error(refusal)
-    if a.val and a.bic:
-        parser.error("--val true with --bic true (validation with the BiC bias "
-                     "correction) is not ported yet: ROADMAP §1 item 4d")
 
 
 def args_to_config(a: argparse.Namespace) -> TrainConfig:

@@ -13,7 +13,9 @@ Images are read by ``data/image_io.read_image`` and resized by
 device unless ``--cpu`` is given, and raises when there is none.
 Checkpoints are the port's own (under ``<root_dir>/checkpoint`` as the
 port's trainer writes them); ``--torch_ckpt`` runs a reference-format
-state dict instead. ``--bic`` is refused (ROADMAP §1 item 4d).
+state dict instead. ``--bic`` applies the checkpoint's BiC correction
+(its ``il_meta["bic"]`` scalars; ignored with a warning for
+``--torch_ckpt``, which carries no meta).
 """
 from __future__ import annotations
 
@@ -57,8 +59,7 @@ def main(argv=None):
     parser.add_argument("--depth", type=int, default=50)
     parser.add_argument("--score_thresh", type=float, default=0.5)
     parser.add_argument("--bic", action="store_true",
-                        help="apply the checkpoint's BiC bias correction "
-                             "(not ported: refused)")
+                        help="apply the checkpoint's BiC bias correction")
     parser.add_argument("--quantize", action="store_true",
                         help="int8 dynamic-PTQ convs (ops/quant.py)")
     parser.add_argument("--cpu", action="store_true",
@@ -72,9 +73,6 @@ def main(argv=None):
                         help="class count for --torch_ckpt (default: "
                              "len(class list))")
     a = parser.parse_args(argv)
-    if a.bic:
-        parser.error("--bic (the BiC bias correction, il/bic.bic_correct_from_meta) "
-                     "is not ported yet: ROADMAP §1 item 4d")
     try:
         import cv2
     except ImportError as e:
@@ -108,12 +106,15 @@ def main(argv=None):
         cat = label_to_cat.get(int(label))
         return classes.get(cat, str(label))
 
+    bic_correct = None
     if a.torch_ckpt:
         from ..models.convert import load_reference_checkpoint
 
         num_classes = a.num_classes or len(classes)
         model = create_retinanet(ModelConfig(depth=a.depth), num_classes, device=device)
         load_reference_checkpoint(model, a.torch_ckpt)
+        if a.bic:
+            print("warning: --bic ignored for --torch_ckpt (no meta)")
     else:
         # where cli.train writes them (its workdir is --root_dir)
         ckpt = CheckpointManager(
@@ -122,7 +123,17 @@ def main(argv=None):
         num_classes = il_meta["num_classes"] if il_meta else len(classes)
         model = create_retinanet(ModelConfig(depth=a.depth), num_classes, device=device)
         model.load_state_dict(tree["model"])
-    predict = make_predict_fn(model, PredictConfig(quantize=a.quantize))
+        if a.bic:
+            from ..il.bic import bic_correct_from_meta
+
+            # the per-state new-class counts come from the scenario flag,
+            # the knowing count from the checkpoint's meta
+            counts = [int(s) if str(s).isdigit() else 1 for s in a.scenario]
+            bic_correct = bic_correct_from_meta(il_meta, counts, num_classes)
+            if bic_correct is None:
+                print("warning: --bic requested but the checkpoint carries no BiC state")
+    predict = make_predict_fn(model, PredictConfig(quantize=a.quantize),
+                              bic_correct=bic_correct)
     dcfg = DataConfig()
 
     os.makedirs(a.out_dir, exist_ok=True)

@@ -15,10 +15,9 @@ at or below the epoch before it, and trains states ``--start_state`` to
 0, then state 1 from the expanded classifier with the state-0 model as
 teacher; ``--start_state 1`` enters state 1 from the state-0
 checkpoint); ``--val true`` then validates the last epoch
-(``cli.validate.run_validation``). Flags for what the port lacks (replay,
-prototypes, pseudo-labels, MAS, A-GEM and BiC at states >= 1,
-multi-device, ``--val`` with ``--bic``) are refused naming the ROADMAP
-item. ``main`` returns the trainer.
+(``cli.validate.run_validation``, with the checkpoint's BiC correction
+under ``--bic true``). The multi-device flags are refused naming the
+ROADMAP item. ``main`` returns the trainer.
 """
 from __future__ import annotations
 

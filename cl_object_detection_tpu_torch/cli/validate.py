@@ -13,8 +13,13 @@ and raises when there is none. Checkpoints are the port's own
 (``utils/checkpoint.py``, under ``<root_dir>/checkpoint`` as the port's
 trainer writes them); ``--torch_ckpt`` evaluates a reference-format
 state dict (``.pt`` or ``.npz``) instead, loaded once for every epoch.
-``--bic``, the mesh flags and ``--topk_method approx`` are refused
-naming the ROADMAP item that ports them.
+``--bic true`` applies each checkpoint's BiC correction (its
+``il_meta["bic"]`` scalars, ``il/bic.bic_correct_from_meta``) and adds
+``_bic`` to the result JSONs and the decline CSV; an epoch without BiC
+state is predicted uncorrected and written without the suffix, and
+``--torch_ckpt`` (no meta) ignores the flag with a warning. The mesh
+flags and ``--topk_method approx`` are refused naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -31,8 +36,7 @@ def get_parser():
 
     add_train_flags(parser)
     # NB: --bic comes from add_train_flags; on the validate CLI it means
-    # "apply the checkpoint's BiC bias correction at inference" (refused:
-    # ROADMAP §1 item 4d)
+    # "apply the checkpoint's BiC bias correction at inference"
     parser.add_argument("--state", type=int, default=0)
     parser.add_argument("--epoch", type=int, nargs="+", default=[-1])
     parser.add_argument("--threshold", type=float, default=0.05)
@@ -66,9 +70,6 @@ def refuse_unported(parser: argparse.ArgumentParser, a: argparse.Namespace) -> N
     naming the ROADMAP item that ports it."""
     from .common import uses_mesh
 
-    if a.bic:
-        parser.error("--bic true (the BiC bias correction, "
-                     "il/bic.bic_correct_from_meta) is not ported yet: ROADMAP §1 item 4d")
     if uses_mesh(a):
         parser.error("multi-device evaluation (--mesh and its flags) is not ported "
                      "yet: ROADMAP §1 item 6")
@@ -88,9 +89,6 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
     from ..utils.checkpoint import CheckpointManager
     from .common import args_to_config, resolve_dataset_paths
 
-    if getattr(a, "bic", False):
-        raise NotImplementedError("the BiC bias correction at evaluation is not "
-                                  "ported yet: ROADMAP §1 item 4d")
     device = resolve_device("cpu" if getattr(a, "cpu", False) else None)
     cfg = args_to_config(a)
     state = state if state is not None else getattr(a, "state", 0)
@@ -140,9 +138,13 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
     os.makedirs(result_dir, exist_ok=True)
     _copy_run_artifacts(ckpt.state_dir(state), result_dir)
 
-    def result_json_path(epoch):
+    use_bic = bool(getattr(a, "bic", False))
+    suffix = "_bic" if use_bic else ""
+
+    def result_json_path(epoch, with_bic=None):
         # NB: distinct name — ``json_path`` above is the DATASET json
-        return os.path.join(result_dir, f"{a.dataset}_results_epoch{epoch}.json")
+        sfx = suffix if with_bic is None else ("_bic" if with_bic else "")
+        return os.path.join(result_dir, f"{a.dataset}_results_epoch{epoch}{sfx}.json")
 
     def new_model():
         return create_retinanet(cfg.model, num_classes, device=device)
@@ -150,6 +152,7 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
     # resolve epoch list, split into cached rows vs checkpoints to predict
     rows_by_epoch = {}
     to_predict = {}
+    bic_by_epoch = {}
     torch_model = None
     for epoch in epochs:
         if getattr(a, "torch_ckpt", None):
@@ -163,6 +166,8 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
                 torch_model = new_model()
                 load_reference_checkpoint(torch_model, a.torch_ckpt,
                                           allow_pickle=getattr(a, "trust_torch_ckpt", False))
+                if use_bic:
+                    print("warning: --bic ignored for --torch_ckpt (no meta)")
             to_predict[epoch] = torch_model
             continue
         if epoch == -1:
@@ -181,16 +186,30 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
             with open(result_json_path(epoch)) as f:
                 rows_by_epoch[epoch] = json.load(f)
         else:
-            tree, _ = ckpt.restore(state, epoch)
+            tree, il_meta = ckpt.restore(state, epoch)
             model = new_model()
             model.load_state_dict(tree["model"])
             to_predict[epoch] = model
+            if use_bic:
+                from ..il.bic import bic_correct_from_meta
+
+                counts = [s.num_new_class for s in states.states]
+                bc = bic_correct_from_meta(il_meta, counts, num_classes)
+                if bc is None:
+                    # uncorrected rows must not land in the _bic json
+                    # (--just_val would read them as corrected)
+                    print(f"warning: --bic requested but the epoch {epoch} checkpoint "
+                          "carries no BiC state; writing its uncorrected rows without "
+                          "the _bic suffix")
+                else:
+                    bic_by_epoch[epoch] = bc
 
     if to_predict:
         # all requested epochs share ONE decode pass over the split
-        predicted = evaluator.predict_dataset_multi(to_predict, progress=True)
+        predicted = evaluator.predict_dataset_multi(to_predict, progress=True,
+                                                    bic_correct_by_key=bic_by_epoch)
         for epoch, rows in predicted.items():
-            with open(result_json_path(epoch), "w") as f:
+            with open(result_json_path(epoch, use_bic and epoch in bic_by_epoch), "w") as f:
                 json.dump(rows, f)
             rows_by_epoch[epoch] = rows
 
@@ -210,7 +229,7 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
 
     if getattr(a, "output_csv", True):
         csv_name = ("val_result_" + "_".join(str(e) for e in sorted(results))
-                    + ".csv")
+                    + suffix + ".csv")
         decline_csv(
             results,
             states[state].knowing_names,

@@ -31,22 +31,25 @@ JAX package's (``cls_bg_loss``, ``cls_fg_loss``, ``reg_loss``,
     under ``use_prototype`` the student's forward also gives the
     3x3-unfolded classification-trunk features, and the prototype term
     (``il/prototype.prototype_loss_from_batch``) pushes the batch's
-    new-class prototypes away from the stored old ones.
-
-The MAS penalty (ROADMAP §1 item 4c) raises ``NotImplementedError``.
+    new-class prototypes away from the stored old ones;
+  * on both paths, under ``use_mas`` with the importance and the previous
+    parameters given, the MAS penalty ``mas_loss``
+    (``ratio * sum(importance * (theta - theta_prev)^2)``);
+  * ``bic_correct`` (a logits -> logits callable, the BiC correction):
+    on the plain path the logits are taken without the activation and
+    the scores are ``sigmoid(bic_correct(logits))``; on the incremental
+    path the logits are corrected before the sigmoid.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import FocalConfig, ILConfig
 from ..ops.focal_loss import focal_loss
 from .prototype import prototype_loss_from_batch
-
-MAS_NOT_PORTED = "the MAS penalty is not ported yet: ROADMAP §1 item 4c"
 
 
 @dataclass(frozen=True)
@@ -121,6 +124,21 @@ def _cosine_feat_loss(feat_s: Sequence[torch.Tensor],
     return total
 
 
+def mas_penalty(params: Mapping[str, torch.Tensor], prev_params: Mapping[str, torch.Tensor],
+                importance: Mapping[str, torch.Tensor], ratio: float) -> torch.Tensor:
+    """The MAS regularizer ``ratio * sum(importance * (theta - theta_prev)^2)``
+    over the parameters by name, in float32. A leaf without an importance
+    or a previous value, or whose shape differs from the previous one (the
+    expanded classification output), contributes 0."""
+    total = 0.0
+    for name, p in params.items():
+        om, pp = importance.get(name), prev_params.get(name)
+        if om is None or pp is None or p.shape != pp.shape:
+            continue
+        total = total + torch.sum(om * (p.float() - pp.float()) ** 2)
+    return ratio * total
+
+
 def classifier_vectors(weight: torch.Tensor, num_anchors: int = 9) -> torch.Tensor:
     """Per-class flattened classifier weights ``(C, A*kh*kw*cin)`` of the
     OIHW classification output weight (output channel a*C + c), in the
@@ -162,22 +180,42 @@ def compute_losses(
     classifier_vectors: Optional[torch.Tensor] = None,  # the teacher's (C_old, D)
     pseudo_progress: Optional[torch.Tensor] = None,     # () cur_epoch / end_epoch
     prototype_features: Optional[torch.Tensor] = None,  # (C_old, D), slot-averaged
+    bic_correct: Optional[Callable] = None,             # logits -> corrected logits
+    mas_prev_params: Optional[Mapping[str, torch.Tensor]] = None,
+    mas_importance: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, metrics); see the module docstring."""
     s = statics
-    if s.use_mas:
-        raise NotImplementedError(MAS_NOT_PORTED)
     if s.incremental:
         result = _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg,
                                      focal_cfg, s, teacher, classifier_vectors,
-                                     pseudo_progress, prototype_features)
-        total = sum(result.values())
-        return total, {**result, "total_loss": total}
+                                     pseudo_progress, prototype_features, bic_correct)
+    else:
+        result = _plain_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg,
+                               focal_cfg, s, bic_correct)
+        if s.enhance_only:
+            total = result["enhance_loss"]
+            return total, {**result, "total_loss": total}
+    if s.use_mas and mas_importance is not None and mas_prev_params is not None:
+        result["mas_loss"] = mas_penalty(dict(model.named_parameters()), mas_prev_params,
+                                         mas_importance, il_cfg.mas.ratio)
+    total = sum(result.values())
+    return total, {**result, "total_loss": total}
+
+
+def _plain_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILConfig,
+                  focal_cfg: FocalConfig, s: LossStatics,
+                  bic_correct) -> Dict[str, torch.Tensor]:
+    """The loss terms of the plain path, in the JAX package's order."""
     result: Dict[str, torch.Tensor] = {}
-    cls, regression = model(images, enable_act=True)
+    if bic_correct is not None:
+        logits, regression = model(images, enable_act=False)
+        cls = torch.sigmoid(bic_correct(logits))
+    else:
+        cls, regression = model(images, enable_act=True)
     if s.enhance_only:
-        total = result["enhance_loss"] = _enhance_error(cls, s)
-        return total, {**result, "total_loss": total}
+        result["enhance_loss"] = _enhance_error(cls, s)
+        return result
 
     out = focal_loss(
         cls, regression, anchors, gt_boxes, gt_labels,
@@ -193,15 +231,13 @@ def compute_losses(
     result["reg_loss"] = out.reg_loss.mean()
     if s.use_enhance_error and s.is_replay and not s.is_bic:
         result["enhance_loss"] = _enhance_error(cls, s)
-
-    total = sum(result.values())
-    return total, {**result, "total_loss": total}
+    return result
 
 
 def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILConfig,
                         focal_cfg: FocalConfig, s: LossStatics, teacher,
                         class_vectors, pseudo_progress,
-                        prototype_features) -> Dict[str, torch.Tensor]:
+                        prototype_features, bic_correct) -> Dict[str, torch.Tensor]:
     """The loss terms of the incremental path, in the JAX package's order."""
     result: Dict[str, torch.Tensor] = {}
     use_prototype = s.use_prototype and prototype_features is not None
@@ -209,6 +245,8 @@ def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILC
         logits, regression, feats, unfolded = model.classification_features(images, False)
     else:
         logits, regression, feats = model.forward_all(images, False)
+    if bic_correct is not None:
+        logits = bic_correct(logits)
     cls = torch.sigmoid(logits)
     out = focal_loss(
         cls, regression, anchors, gt_boxes, gt_labels,

@@ -2,11 +2,18 @@
 
 state loop -> epoch loop -> iteration loop, with
   * warm-up freeze control per epoch;
+  * the A-GEM replay gradient refreshed before every
+    ``AGEMConfig.refresh_every``-th new-image micro-step (at 1, every
+    one, as the reference does);
   * replay interleaved into the epoch (``mix_data``) or as a tail pass,
-    with the Adam-beta1 swap around replay batches (states >= 1);
+    with the Adam-beta1 swap around replay batches (states >= 1); with
+    A-GEM on, no replay pass runs (its gradient carries the replay set);
+  * the BiC epoch (states >= 1) after the replay, before the scheduler
+    step and the save, so the checkpoint carries the trained scalars;
   * scheduler step, checkpoint save, retention cleanup;
-  * the optional final correction (with replay and ``enhance_error``):
-    replay passes training only the ``enhance_error`` term, at most 20;
+  * the optional final correction (with replay and ``enhance_error``,
+    A-GEM off): replay passes training only the ``enhance_error`` term,
+    at most 20;
   * ``trainer.next_state()`` between states; a state after the first
     trains epochs 1..``new_state_epoch``;
   * ``--profile``: a torch.profiler trace of the second epoch.
@@ -17,7 +24,8 @@ the device on every step. Each epoch appends its timings to
 ``trainer.epoch_log``: the seconds of the iteration loop (ending in the
 last metric read, which waits for the device), the seconds the loop
 waited for the loader, the loader's own mean seconds per batch (in its
-thread), and the checkpoint save's blocking seconds.
+thread), the BiC epoch's seconds, and the checkpoint save's blocking
+seconds.
 """
 from __future__ import annotations
 
@@ -144,8 +152,13 @@ def train_process(trainer: ILTrainer, recorder: Optional[Recorder] = None,
                           f"| {time.time() - t0:.2f}s")
                 pending = None
 
+            agem_counter = 0
             for iter_num, batch in enumerate(_timed(trainer.train_loader, waits)):
                 trainer.set_replay_beta(False)
+                if cfg.il.agem.enabled and trainer.agem is not None:
+                    if agem_counter % max(cfg.il.agem.refresh_every, 1) == 0:
+                        trainer.agem.compute_replay_grad(trainer.model)
+                    agem_counter += 1
                 t0 = time.time()
                 dev_metrics = trainer.run_batch(batch, is_replay=False,
                                                 sync_metrics=False)
@@ -188,6 +201,13 @@ def train_process(trainer: ILTrainer, recorder: Optional[Recorder] = None,
                 trainer.set_replay_beta(False)
             train_s = time.perf_counter() - t_epoch
 
+            bic_s = None
+            if trainer.bic is not None and cur_state > 0:
+                t_bic = time.perf_counter()
+                bic_loss = trainer.bic.train_epoch(trainer.model)
+                bic_s = time.perf_counter() - t_bic
+                print(f"BiC epoch loss: {bic_loss:.4f}")
+
             trainer.step_scheduler(cur_epoch)
             save_s = None
             if cur_epoch % max(cfg.save_every, 1) == 0 or cur_epoch == end_epoch:
@@ -202,7 +222,7 @@ def train_process(trainer: ILTrainer, recorder: Optional[Recorder] = None,
                 "images": micro_steps * trainer.train_loader.batch_size,
                 "train_s": train_s, "loader_wait_s": float(sum(waits)),
                 "loader_batch_s": float(np.mean(batch_s)) if batch_s else None,
-                "save_blocking_s": save_s,
+                "bic_s": bic_s, "save_blocking_s": save_s,
             }
             trainer.epoch_log.append(record)
             print(f"Epoch {cur_epoch} done: mean loss "

@@ -86,7 +86,8 @@ def make_train_step(
 
     Returns ``fn(state, images, boxes, labels, *, replay_grad=None,
     trainable_mask=None, classifier_vectors=None, pseudo_progress=None,
-    prototype_features=None) -> (state, metrics)``: ``state`` is updated
+    prototype_features=None, mas_prev_params=None, mas_importance=None)
+    -> (state, metrics)``: ``state`` is updated
     in place and returned; ``metrics`` holds the detached loss terms
     under the JAX keys. ``replay_grad`` maps parameter names to the
     A-GEM replay gradient; ``trainable_mask`` is
@@ -94,8 +95,11 @@ def make_train_step(
     teacher's ``(C_old, D)`` tensor of the classifier-similarity loss;
     ``pseudo_progress`` the pseudo-label discount's training progress
     (a 0-d float32 tensor); ``prototype_features`` the stored old-class
-    prototypes averaged over the anchor slots, ``(C_old, D)``.
-    ``teacher_model`` (None at state 0) is set to eval mode and frozen.
+    prototypes averaged over the anchor slots, ``(C_old, D)``;
+    ``mas_prev_params`` and ``mas_importance`` map parameter names to the
+    previous state's parameters and their MAS importance
+    (``il.mas.compute_importance``). ``teacher_model`` (None at state 0)
+    is set to eval mode and frozen.
 
     With ``every_iter <= 1`` and ``enhance_only`` (the final correction),
     a batch whose loss is not > 0 skips the optimizer, moments included,
@@ -127,13 +131,16 @@ def make_train_step(
                 trainable_mask: Optional[Dict[str, float]] = None,
                 classifier_vectors: Optional[torch.Tensor] = None,
                 pseudo_progress: Optional[torch.Tensor] = None,
-                prototype_features: Optional[torch.Tensor] = None):
+                prototype_features: Optional[torch.Tensor] = None,
+                mas_prev_params: Optional[Grads] = None,
+                mas_importance: Optional[Grads] = None):
         with torch.enable_grad():
             total, metrics = compute_losses(
                 state.model, images, boxes, labels, anchors, il_cfg, focal_cfg,
                 loss_statics, teacher=teacher_model,
                 classifier_vectors=classifier_vectors, pseudo_progress=pseudo_progress,
-                prototype_features=prototype_features)
+                prototype_features=prototype_features, mas_prev_params=mas_prev_params,
+                mas_importance=mas_importance)
             total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         state.step += 1

@@ -28,14 +28,20 @@ stages, the LR schedule, the checkpoints and the resume:
     ``prototype_features`` array sidecar), the replay set (``--sample_num``
     exemplars per old class by herding, prototype-herd or at random,
     recorded as the ``examplar`` sidecar and ``examplar.txt``), the
-    expansion, the replay loader, the teacher, and the teacher's
-    pseudo-labels on the new images (``il/pseudo_label.py``; the teacher
-    is built for them even with distillation off).
+    expansion, BiC (its held-out set carved out of the replay and the
+    training streams, ``il/bic.py``; the learned scalars of earlier
+    states carry over), the replay loader, A-GEM (``il/agem.py``), the
+    teacher (built for MAS even with distillation off), MAS
+    (``il/mas.py``: the importance, cached as the ``mas_importance`` array
+    sidecar of the previous state under the port's parameter names, and
+    the previous parameters), and the teacher's pseudo-labels on the new
+    images (``il/pseudo_label.py``; the teacher is built for them even
+    with distillation off). ``next_state`` computes the importance with
+    the finished state's model on its data before it moves on; the
+    cross-state entry, finding no sidecar, computes it with the expanded
+    model on the new state's data, as JAX does.
 
-The IL methods that only act at states >= 1 and are not ported yet raise
-``NotImplementedError`` naming their ROADMAP §1 sub-item
-(``unported_il_method``): MAS and A-GEM (4c), BiC (4d);
-``MeshConfig.enabled`` raises naming item 6.
+``MeshConfig.enabled`` raises naming ROADMAP §1 item 6.
 """
 from __future__ import annotations
 
@@ -50,11 +56,14 @@ import torch
 from .. import resolve_device
 from ..config import TrainConfig
 from ..data.coco import CocoJson
-from ..data.dataset import ILDataset, ReplayDataset
+from ..data.dataset import BicDataset, ILDataset, ReplayDataset
 from ..data.loader import BatchLoader
 from ..data.transforms import logical_image_hw
+from ..il.agem import AGem
+from ..il.bic import BicTrainer, carve_bic_val_set
 from ..il.herding import HerdSampler
 from ..il.losses import LossStatics
+from ..il.mas import compute_importance
 from ..il.prototype import (compute_prototype_features, prototype_herd_scores,
                             prototype_herd_slot_scores, sample_by_scores,
                             sample_by_slot_scores)
@@ -70,13 +79,6 @@ from .optim import lr_at_epoch, make_optimizer, set_beta1, set_learning_rate
 from .state import TrainState
 from .step import StepStatics, make_train_step
 
-# the IL methods that act only at states >= 1 and are not ported yet:
-# (set in the ILConfig, what to call it, ROADMAP §1 sub-item)
-_UNPORTED_IL = (
-    (lambda il: il.mas.enabled, "MAS (--mas)", "4c"),
-    (lambda il: il.agem.enabled, "A-GEM (--agem)", "4c"),
-    (lambda il: il.bic.enabled, "BiC (--bic)", "4d"),
-)
 MESH_NOT_PORTED = ("multi-device training (MeshConfig.enabled, the mesh and "
                    "multi-process flags) is not ported yet: ROADMAP §1 item 6")
 
@@ -86,19 +88,6 @@ WARM_WHITE_LIST = {
     "fpn": ("classification_head.", "regression_head."),
     "resnet": ("fpn.", "classification_head.", "regression_head."),
 }
-
-
-def unported_il_method(il) -> Optional[str]:
-    """The refusal message of the first IL method set in ``il`` (an
-    ``ILConfig``) that the port lacks, when the run reaches a state >= 1;
-    None when there is nothing to refuse."""
-    end_state = il.end_state if il.end_state is not None else il.start_state
-    if max(il.start_state, end_state) < 1:
-        return None
-    for is_set, what, item in _UNPORTED_IL:
-        if is_set(il):
-            return f"{what} at states >= 1 is not ported yet: ROADMAP §1 item {item}"
-    return None
 
 
 def trainable_mask(model: torch.nn.Module,
@@ -119,9 +108,6 @@ class ILTrainer:
                  workdir: str = ".", device=None):
         if cfg.mesh.enabled:
             raise NotImplementedError(MESH_NOT_PORTED)
-        refusal = unported_il_method(cfg.il)
-        if refusal:
-            raise NotImplementedError(refusal)
         self.cfg = cfg
         self.workdir = workdir
         self.device = resolve_device(device)
@@ -214,12 +200,14 @@ class ILTrainer:
                 print(f"warning: optimizer state not imported ({e}); "
                       "continuing with fresh Adam moments")
 
-        # CL tools, in JAX's order (its BiC, A-GEM and MAS are refused
-        # above). The prototypes and the exemplars come from the
-        # previous state's model, before the expansion.
+        # CL tools, in JAX's order. The prototypes and the exemplars come
+        # from the previous state's model, before the expansion.
         self.teacher_model = None
         self._teacher_class_vectors: Optional[torch.Tensor] = None
-        self.mas_importance = None
+        self.mas_importance: Optional[Dict[str, torch.Tensor]] = None
+        self.mas_prev_params: Optional[Dict[str, torch.Tensor]] = None
+        self.agem: Optional[AGem] = None
+        self.bic: Optional[BicTrainer] = None
         self.herd_sampler: Optional[HerdSampler] = None
         self.prototype_features: Optional[np.ndarray] = None
         self._prototype_mean: Optional[torch.Tensor] = None
@@ -230,8 +218,11 @@ class ILTrainer:
             self._init_replay_dataset()
             if cross_state:
                 self._expand_training_tools()
+            self._init_bic()
             self._update_replay_loader()
+            self._init_agem()
             self._update_prev_model()
+            self._update_mas()
             self._add_pseudo_labels()
         self.train_loader = self._make_train_loader()
 
@@ -278,19 +269,26 @@ class ILTrainer:
     # state transition
     # ------------------------------------------------------------------
     def next_state(self) -> None:
-        """Into the next state: the dataset moves to its classes, the
+        """Into the next state: the MAS importance of the finished state
+        (its model, its data), the dataset moves to the new classes, the
         finished state's prototypes, the classifier expands (similarity
-        warm-start, SCAIL) with a fresh optimizer, the replay set and its
-        loader are rebuilt, the teacher becomes the finished state's
-        newest checkpoint, and it pseudo-labels the new images."""
+        warm-start, SCAIL) with a fresh optimizer, the replay set, BiC, the
+        replay loader and A-GEM are rebuilt (BiC's learned scalars carry
+        over), the teacher becomes the finished state's newest checkpoint
+        (and MAS's previous parameters), and it pseudo-labels the new
+        images."""
         cfg = self.cfg.il
+        if cfg.mas.enabled:
+            self._update_mas_for_next()
         self.cur_state += 1
         self.dataset_train.next_state()
         self._init_prototyper()
         self._expand_training_tools()
         if self.dataset_replay is not None or cfg.replay.sample_num > 0:
             self._init_replay_dataset()
+            self._init_bic()
             self._update_replay_loader()
+            self._init_agem()
         self.train_loader = self._make_train_loader()
         self._update_prev_model()
         self._add_pseudo_labels()
@@ -334,12 +332,13 @@ class ILTrainer:
         self._new_train_state()
 
     def _update_prev_model(self, force: bool = False) -> None:
-        """The frozen teacher of distillation (and, with ``force``, of the
-        pseudo-labels): the previous state's model from its newest
-        checkpoint, on the trainer's device; its class vectors when
+        """The frozen teacher of distillation and MAS (and, with ``force``,
+        of the pseudo-labels): the previous state's model from its newest
+        checkpoint, on the trainer's device; its parameters are MAS's
+        previous ones, and its class vectors are taken when
         ``classifier_loss`` is set."""
         cfg = self.cfg.il
-        if not force and not cfg.distill.enabled:
+        if not force and not cfg.distill.enabled and not cfg.mas.enabled:
             return
         prev = self.cur_state - 1
         teacher = create_retinanet(
@@ -348,6 +347,7 @@ class ILTrainer:
         tree, _ = self.ckpt.restore(prev, -1)
         teacher.load_state_dict(tree["model"])
         self.teacher_model = teacher.requires_grad_(False)
+        self.mas_prev_params = dict(teacher.named_parameters())
         if cfg.classifier_loss:
             self._teacher_class_vectors = torch.from_numpy(classifier_class_vectors(
                 tree["model"], self.cfg.model.num_anchors)).to(self.device)
@@ -484,6 +484,78 @@ class ILTrainer:
             batch_size=self.cfg.il.replay.sample_batch_size,
             shuffle=True, augment=True, seed=self.cfg.seed, is_replay=True)
 
+    # ------------------------------------------------------------------
+    # BiC, A-GEM, MAS
+    # ------------------------------------------------------------------
+    def _init_bic(self) -> None:
+        """BiC for the current state: its held-out set carved out of the
+        training and the replay streams, its loader, and its trainer; the
+        scalars of the state before carry over (only the current slot
+        trains)."""
+        cfg = self.cfg.il
+        if not cfg.bic.enabled:
+            return
+        if self.dataset_replay is None:
+            raise ValueError("BiC requires replay (--sample_num > 0)")
+        carry = self.bic.params if self.bic is not None else None
+        st = self.states[self.cur_state]
+        bic_ids, seen_lists, train_ids, replay_ids = carve_bic_val_set(
+            self.dataset_train.image_ids, self.dataset_replay.image_ids,
+            self.dataset_replay.seen_class_ids, self.dataset_train.seen_class_ids,
+            st.new_ids, self.coco, cfg.replay.sample_num, cfg.bic.ratio)
+        self.dataset_train.image_ids = train_ids
+        self.dataset_replay.image_ids = replay_ids
+        bic_ds = BicDataset(self.coco, self.states, self.image_dir, bic_ids, seen_lists)
+        bic_loader = BatchLoader(bic_ds, self.cfg.data, shuffle=True, augment=True,
+                                 seed=self.cfg.seed)
+        counts = [s.num_new_class for s in self.states.states]
+        self.bic = BicTrainer(self.model, self.anchors_for, cfg, self.cfg.focal, cfg.bic,
+                              counts, self.cur_state, st.num_past_class, bic_loader)
+        if carry is not None:
+            self.bic.params = carry
+
+    def _init_agem(self) -> None:
+        """A-GEM over the replay loader, on the plain replay-path loss."""
+        if not self.cfg.il.agem.enabled:
+            self.agem = None
+            return
+        if self.replay_loader is None:
+            raise ValueError("A-GEM requires the replay dataset (--sample_num > 0)")
+        st = self.states[self.cur_state]
+        statics = LossStatics(num_classes=self.num_classes, num_past_class=st.num_past_class,
+                              incremental=False, is_replay=True)
+        self.agem = AGem(self.model, self.anchors_for, self.cfg.il, self.cfg.focal, statics,
+                         self.replay_loader)
+
+    def _update_mas(self) -> None:
+        """The MAS importance at a state entry: read back from the previous
+        state's ``mas_importance`` sidecar (each leaf where its shape
+        matches the current parameter, zeros elsewhere), or computed with
+        the current model over the training loader and written there."""
+        if not self.cfg.il.mas.enabled:
+            return
+        prev = self.cur_state - 1
+        cached = self.ckpt.load_array_sidecar(prev, "mas_importance")
+        if cached is not None:
+            self.mas_importance = {}
+            for name, p in self.model.named_parameters():
+                arr = cached.get(name)
+                self.mas_importance[name] = (
+                    torch.from_numpy(arr).to(self.device)
+                    if arr is not None and tuple(arr.shape) == tuple(p.shape)
+                    else torch.zeros_like(p, dtype=torch.float32))
+        else:
+            self.mas_importance = compute_importance(self.model, self.anchors_for,
+                                                     self._make_train_loader())
+            self.ckpt.save_array_sidecar(prev, "mas_importance", self.mas_importance)
+
+    def _update_mas_for_next(self) -> None:
+        """The finished state's importance (its model, its training loader),
+        written as its ``mas_importance`` sidecar."""
+        self.mas_importance = compute_importance(self.model, self.anchors_for,
+                                                 self._make_train_loader())
+        self.ckpt.save_array_sidecar(self.cur_state, "mas_importance", self.mas_importance)
+
     def _add_pseudo_labels(self) -> None:
         """The teacher's pseudo-labels on the new state's training images;
         the teacher is built for them when distillation did not build it."""
@@ -610,6 +682,14 @@ class ILTrainer:
             kwargs["pseudo_progress"] = self._pseudo_progress()
         if statics.use_prototype:
             kwargs["prototype_features"] = self._prototype_mean
+        if statics.use_mas:
+            kwargs["mas_prev_params"] = self.mas_prev_params
+            kwargs["mas_importance"] = self.mas_importance
+        if (self.cfg.il.agem.enabled and self.agem is not None
+                and not is_replay and not correction):
+            if self.agem.replay_grad is None:
+                self.agem.compute_replay_grad(self.model)
+            kwargs["replay_grad"] = self.agem.replay_grad
         images, boxes, labels = self._put_batch(batch)
         self.train_state, metrics = step(self.train_state, images, boxes, labels, **kwargs)
         if sync_metrics:
@@ -661,6 +741,9 @@ class ILTrainer:
             "epoch_loss": ([float(x) for x in epoch_loss]
                            if epoch_loss is not None else None),
         }
+        if self.bic is not None:
+            il_meta["bic"] = {"alphas": self.bic.params.alphas.tolist(),
+                              "betas": self.bic.params.betas.tolist()}
         self.ckpt.save(self.cur_state, epoch, self.model, self.optimizer,
                        self.train_state.step, il_meta,
                        async_save=self.cfg.async_checkpoint)
@@ -686,6 +769,8 @@ class ILTrainer:
         self.train_state.step = int(tree["step"])
         self.train_state.acc_count = 0
         self._beta_is_replay = None
+        if il_meta and "bic" in il_meta and self.bic is not None:
+            self.bic.params.load(il_meta["bic"])
         if il_meta and il_meta.get("loss_hist"):
             self.loss_hist = collections.deque(il_meta["loss_hist"], maxlen=500)
         return il_meta["epoch"] if il_meta else 0

@@ -11,7 +11,9 @@ against the same apply on the CPU, and a state-1 distillation micro-step
 (student and teacher each through the stem kernel) against the CPU; the
 IL passes of replay, prototypes and pseudo-labels (herding's feature
 vectors, the prototype sums and the prototype loss with its gradient,
-the pseudo-labels) against the CPU in float32. Then evaluation: the ``Evaluator``
+the pseudo-labels) against the CPU in float32; one MAS importance batch
+and one A-GEM replay gradient against the CPU in float32. Then
+evaluation: the ``Evaluator``
 with the NMS kernel and with the iterative NMS gives the same rows, and
 ``detections_to_coco`` gives the same rows from card tensors as from
 their CPU copies.
@@ -901,6 +903,59 @@ def test_prototype_sums_and_loss_on_the_card_match_the_cpu(dev, monkeypatch):
     assert np.abs(s_d - s_c).max() <= 1e-5 * np.abs(s_c).max()
     assert float(l_c) > 0 and float(l_d) == pytest.approx(float(l_c), rel=1e-4)
     assert np.abs(g_d - g_c).max() <= 1e-4 * np.abs(g_c).max()
+
+
+def _assert_grads_close(got: dict, want: dict):
+    """The train step's gradient bar: |d| <= 1e-3 |g_cpu| + 1e-4 max|g_cpu|
+    per leaf."""
+    assert set(got) == set(want)
+    for name, w in want.items():
+        g = got[name].detach().cpu().numpy()
+        w = w.detach().numpy()
+        bad = np.abs(g - w) > 1e-3 * np.abs(w) + 1e-4 * np.abs(w).max()
+        assert not bad.any(), (name, int(bad.sum()), float(np.abs(g - w).max()))
+
+
+def test_mas_importance_and_agem_replay_grad_on_the_card_match_the_cpu(dev, monkeypatch):
+    """One MAS importance batch (``il.mas.make_importance_step``: |grad| of
+    the output norm) and one A-GEM replay gradient (``il.agem.AGem`` over
+    one batch: clipped, BN leaves zeroed) of the small float32 R18 on
+    fused uint8 frames, TF32 off, on the card (the stem kernel's float32
+    form under grad, one launch each) and on the CPU: every leaf at the
+    gradient bar, the importance nonzero on every leaf MAS keeps, the BN
+    leaves of the replay gradient zero, the parameters' ``.grad``
+    untouched."""
+    from types import SimpleNamespace
+
+    from cl_object_detection_tpu_torch.config import FocalConfig, ILConfig
+    from cl_object_detection_tpu_torch.il import agem, mas
+    from cl_object_detection_tpu_torch.il.losses import LossStatics
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+
+    _tf32_off(monkeypatch)
+    anchors = anchors_for_shape(64, 96)
+    out = []
+    for model, device in zip(_small_model("float32"), ("cpu", dev)):
+        images, boxes, labels = _train_batch(device)
+        before = sf.stem_fused_f32.launches
+        imp = mas.make_importance_step(model)(torch.from_numpy(anchors.copy()).to(device),
+                                              images, boxes, labels)
+        batch = SimpleNamespace(images=images.cpu().numpy(), boxes=boxes.cpu().numpy(),
+                                labels=labels.cpu().numpy())
+        statics = LossStatics(num_classes=3, num_past_class=2, is_replay=True)
+        replay = agem.AGem(model, anchors, ILConfig(), FocalConfig(), statics,
+                           [batch]).compute_replay_grad()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert sf.stem_fused_f32.launches == before + 2
+        assert all(p.grad is None for p in model.parameters())
+        out.append((imp, replay))
+    (imp_c, rep_c), (imp_d, rep_d) = out
+    _assert_grads_close(imp_d, imp_c)
+    _assert_grads_close(rep_d, rep_c)
+    mask = mas.importance_mask(imp_c)
+    assert all(float(v.abs().max()) > 0 for k, v in imp_c.items() if mask[k].all())
+    assert not rep_d["backbone.bn1.weight"].any()
 
 
 def test_pseudo_labels_on_the_card_match_the_cpu(dev, toy_dataset, monkeypatch):

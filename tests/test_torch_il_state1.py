@@ -488,16 +488,27 @@ def test_train_step_runs_the_teacher_under_no_grad_not_inference_mode():
         assert torch.equal(v, before[k]), k
 
 
-@pytest.mark.parametrize("statics,item", [
-    pytest.param(dict(use_mas=True), "item 4c", id="statics2-item 4c"),
+@pytest.mark.parametrize("statics,key", [
+    pytest.param(dict(use_mas=True), "mas_loss", id="statics2-item 4c"),
 ])
-def test_unported_loss_terms_raise(statics, item):
+def test_unported_loss_terms_raise(statics, key):
+    """The MAS penalty (ROADMAP §1 item 4c, once refused here) computes on
+    the incremental path: finite and positive against previous
+    parameters moved off the model's, 0 against the model's own."""
     _, v = jax_model(C_OLD, 0)
-    with pytest.raises(NotImplementedError, match=item):
-        tlosses.compute_losses(port_model(v, C_OLD), *targs(make_batch(1)),
-                               torch.from_numpy(ANCHORS), tcfg.ILConfig(), tcfg.FocalConfig(),
-                               tlosses.LossStatics(num_classes=C_OLD, incremental=True,
-                                                   **statics))
+    model = port_model(v, C_OLD)
+    params = dict(model.named_parameters())
+    importance = {k: torch.ones_like(p) for k, p in params.items()}
+    kw = dict(mas_importance=importance)
+    for shift, positive in ((1e-3, True), (0.0, False)):
+        prev = {k: p.detach() + shift for k, p in params.items()}
+        _, metrics = tlosses.compute_losses(
+            model, *targs(make_batch(1)), torch.from_numpy(ANCHORS),
+            tcfg.ILConfig(mas=tcfg.MASConfig(enabled=True)), tcfg.FocalConfig(),
+            tlosses.LossStatics(num_classes=C_OLD, incremental=True, **statics),
+            mas_prev_params=prev, **kw)
+        value = metrics[key].detach()
+        assert torch.isfinite(value) and (float(value) > 0) == positive
 
 
 @pytest.mark.parametrize("statics,key", [
@@ -745,16 +756,46 @@ def test_train_cli_trains_state0_then_state1(toy, tmp_path):
     assert entry.cur_state == 1 and entry.num_classes == C
 
 
-@pytest.mark.parametrize("flags,item", [
-    pytest.param(["--mas", "true"], "item 4c", id="flags6-item 4c"),
-    pytest.param(["--agem", "true"], "item 4c", id="flags7-item 4c"),
-    pytest.param(["--bic", "true"], "item 4d", id="flags8-item 4d"),
+@pytest.mark.parametrize("flags,want", [
+    pytest.param(["--mas", "true"], "mas", id="flags6-item 4c"),
+    pytest.param(["--agem", "true", "--sample_num", "2", "--sample_method", "random",
+                  "--sample_batch_size", "2"], "agem", id="flags7-item 4c"),
+    pytest.param(["--bic", "true", "--sample_num", "2", "--sample_method", "random",
+                  "--sample_batch_size", "2"], "bic", id="flags8-item 4d"),
 ])
-def test_train_cli_refuses_unported_methods_at_state1(toy, tmp_path, capsys, flags, item):
-    with pytest.raises(SystemExit):
-        train_main(_cli(toy, str(tmp_path), "--end_state", "1", *flags))
-    assert item in capsys.readouterr().err
-    assert not os.path.exists(os.path.join(str(tmp_path), "checkpoint"))
+def test_train_cli_refuses_unported_methods_at_state1(toy, state0_run, run_dir, flags, want):
+    """MAS, A-GEM and BiC (ROADMAP §1 items 4c and 4d, once refused here)
+    through ``cli.train`` into state 1 (the cross-state entry from one
+    state-0 checkpoint) on the CPU: the state-1 checkpoint is written and
+    the method's work shows (the importance sidecar and a finite
+    ``mas_loss`` in every step; the replay gradient, keyed like the
+    expanded model; the trained state-1 BiC scalars in the checkpoint)."""
+    dst = run_dir / "checkpoint" / "3_2" / "state0"
+    shutil.copytree(os.path.join(state0_run, "epoch1"), dst / "epoch1")
+    seen = []
+    real_run = ILTrainer.run_batch
+
+    def run_batch(self, batch, is_replay=False, sync_metrics=True, correction=False):
+        m = real_run(self, batch, is_replay=is_replay, sync_metrics=True,
+                     correction=correction)
+        seen.append(m)
+        return m
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ILTrainer, "run_batch", run_batch)
+        tr = train_main(_cli(toy, str(run_dir), "--start_state", "1", *flags))
+    assert tr.cur_state == 1 and tr.ckpt.epochs(1) == [1] and seen
+    meta = tr.ckpt.restore(1, 1)[1]
+    if want == "mas":
+        assert os.path.exists(os.path.join(tr.ckpt.state_dir(0), "mas_importance.npz"))
+        assert all(np.isfinite(m["mas_loss"]) for m in seen)
+    elif want == "agem":
+        assert tr.agem is not None and tr.agem.replay_grad is not None
+        assert tr.agem.replay_grad["classification_head.output.weight"].shape == \
+            tr.model.classification_head.output.weight.shape
+    else:
+        assert meta["bic"]["alphas"] == tr.bic.params.alphas.tolist()
+        assert meta["bic"]["alphas"][0] != 1.0
 
 
 @pytest.fixture

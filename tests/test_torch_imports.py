@@ -34,7 +34,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(got["modules"]) >= 55, got["modules"]
+    assert len(got["modules"]) >= 61, got["modules"]
     assert {"cl_object_detection_tpu_torch.ops.quant",
             "cl_object_detection_tpu_torch.ops.int8_matmul",
             "cl_object_detection_tpu_torch.ops.focal_loss",
@@ -44,6 +44,9 @@ def test_port_imports_no_jax():
             "cl_object_detection_tpu_torch.il.herding",
             "cl_object_detection_tpu_torch.il.prototype",
             "cl_object_detection_tpu_torch.il.pseudo_label",
+            "cl_object_detection_tpu_torch.il.mas",
+            "cl_object_detection_tpu_torch.il.agem",
+            "cl_object_detection_tpu_torch.il.bic",
             "cl_object_detection_tpu_torch.models.expand",
             "cl_object_detection_tpu_torch.train.optim",
             "cl_object_detection_tpu_torch.train.state",

@@ -316,22 +316,29 @@ def test_compute_losses_plain_path_matches_jax(frames, kind):
 
 
 def test_incremental_losses_are_not_ported_yet():
-    """The MAS penalty (item 4c), still to port, raises naming its
-    sub-item from compute_losses and from a train step with a teacher;
-    the prototype loss (item 4b, ported) runs in both, its term finite
-    and positive against old prototypes at the origin."""
+    """The MAS penalty (item 4c, once refused here) and the prototype loss
+    (item 4b) run in compute_losses and in a train step with a teacher:
+    ``mas_loss`` finite and positive against previous parameters moved
+    off the model's, the prototype term finite and positive against old
+    prototypes at the origin."""
     _, v = jax_model()
     model = port_model(v)
     batch = targs(make_batch(1))
     mas = LossStatics(num_classes=C, use_mas=True)
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        compute_losses(model, *batch, torch.from_numpy(ANCHORS), tcfg.ILConfig(),
-                       tcfg.FocalConfig(), mas)
-    step = tstep.make_train_step(model, port_model(v), ANCHORS, tcfg.ILConfig(),
+    teacher = port_model(v)
+    prev = {k: p.detach() + 1e-3 for k, p in teacher.named_parameters()}
+    importance = {k: torch.ones_like(p) for k, p in prev.items()}
+    mas_kw = dict(mas_prev_params=prev, mas_importance=importance)
+    _, metrics = compute_losses(model, *batch, torch.from_numpy(ANCHORS), tcfg.ILConfig(),
+                                tcfg.FocalConfig(), mas, **mas_kw)
+    assert float(metrics["mas_loss"].detach()) > 0
+    step = tstep.make_train_step(model, teacher, ANCHORS, tcfg.ILConfig(),
                                  tcfg.FocalConfig(), mas, tstep.StepStatics())
+    mas_state = TrainState(model, toptim.make_optimizer(tcfg.ScheduleConfig(), model))
+    mas_state, metrics = step(mas_state, *batch, **mas_kw)
+    assert mas_state.step == 1 and np.isfinite(float(metrics["mas_loss"]))
+    assert float(metrics["mas_loss"]) > 0
     state = TrainState(model, toptim.make_optimizer(tcfg.ScheduleConfig(), model))
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        step(state, *batch)
     proto = LossStatics(num_classes=C, num_past_class=1, incremental=True, use_prototype=True)
     old = torch.zeros(1, model.classification_head.conv1.weight.shape[0] * 9)
     _, metrics = compute_losses(model, *batch, torch.from_numpy(ANCHORS), tcfg.ILConfig(),

@@ -30,8 +30,10 @@ Tolerances:
     takes micro-step 7's loss past rtol 1e-4 (ROADMAP §3);
   * a killed-and-resumed port run equals an unbroken one bit for bit.
 """
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -479,32 +481,59 @@ def test_train_cli_without_cpu_or_cuda_raises(toy, tmp_path, monkeypatch):
     assert not os.path.exists(os.path.join(str(tmp_path), "checkpoint"))
 
 
+_STATE1 = ["--scenario", "3", "2", "--end_state", "1", "--end_epoch", "1",
+           "--new_state_epoch", "1"]
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--scenario", "3", "2", "--end_state", "1", "--agem", "true"], "item 4c"),
-    (["--scenario", "3", "2", "--end_state", "1", "--mas", "true"], "item 4c"),
+    pytest.param(_STATE1 + ["--agem", "true", "--sample_num", "1", "--sample_method",
+                            "random"], None, id="flags0-item 4c"),
+    pytest.param(_STATE1 + ["--mas", "true"], None, id="flags1-item 4c"),
     (["--mesh", "true"], "item 6"),
     (["--zero1", "true"], "item 6"),
     (["--num_data", "2"], "item 6"),
     (["--coordinator_address", "localhost:1234"], "item 6"),
 ])
 def test_train_cli_refuses_what_is_not_ported(toy, tmp_path, capsys, flags, item):
+    """The mesh flags are refused naming ROADMAP §1 item 6; A-GEM and MAS
+    (item 4c, once refused here) train state 0 and then state 1, whose
+    checkpoint is written."""
+    if item is None:
+        try:
+            trainer = train_main(_cli(toy, str(tmp_path), "--cpu", *flags))
+            assert trainer.cur_state == 1 and trainer.ckpt.epochs(1) == [1]
+            assert trainer.agem is not None or trainer.mas_importance is not None
+        finally:       # two states of R18 checkpoints, ~300 MB
+            shutil.rmtree(tmp_path, ignore_errors=True)
+        return
     with pytest.raises(SystemExit):
         train_main(_cli(toy, str(tmp_path), "--cpu", *flags))
     assert item in capsys.readouterr().err
 
 
 def test_trainer_refuses_states_and_mesh(toy, tmp_path):
+    """The mesh is refused naming ROADMAP §1 item 6. BiC and A-GEM (items
+    4d and 4c, once refused here) build their tools at a state-1 start
+    with replay: BiC's held-out loader and scalars, A-GEM over the replay
+    loader; without replay each raises as JAX's trainer does."""
     json_path, images = toy
     base = port_cfg(jax_cfg(str(tmp_path)))
-    for cfg, item in ((base.replace(il=tcfg.ILConfig(scenario=("3", "2"), start_state=1,
-                                                     bic=tcfg.BiCConfig(enabled=True))),
-                       "item 4d"),
-                      (base.replace(il=tcfg.ILConfig(
-                          scenario=("3", "2"), end_state=1,
-                          agem=tcfg.AGEMConfig(enabled=True))), "item 4c"),
-                      (base.replace(mesh=tcfg.MeshConfig(enabled=True)), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            ILTrainer(cfg, json_path, images, workdir=str(tmp_path), device="cpu")
+    replay = tcfg.ReplayConfig(sample_num=1, sample_method="random")
+    bic_cfg = base.replace(il=tcfg.ILConfig(scenario=("3", "2"), start_state=1, replay=replay,
+                                            bic=tcfg.BiCConfig(enabled=True)))
+    tr = ILTrainer(bic_cfg, json_path, images, workdir=str(tmp_path), device="cpu")
+    assert tr.bic is not None and tr.bic.cur_state == 1 and len(tr.bic.bic_loader) > 0
+    agem_cfg = base.replace(il=tcfg.ILConfig(scenario=("3", "2"), start_state=1, end_state=1,
+                                             replay=replay, agem=tcfg.AGEMConfig(enabled=True)))
+    tr = ILTrainer(agem_cfg, json_path, images, workdir=str(tmp_path), device="cpu")
+    assert tr.agem is not None and tr.agem.replay_loader is tr.replay_loader
+    for cfg in (bic_cfg, agem_cfg):
+        no_replay = cfg.replace(il=dataclasses.replace(cfg.il, replay=tcfg.ReplayConfig()))
+        with pytest.raises(ValueError, match="requires"):
+            ILTrainer(no_replay, json_path, images, workdir=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ILTrainer(base.replace(mesh=tcfg.MeshConfig(enabled=True)), json_path, images,
+                  workdir=str(tmp_path), device="cpu")
 
 
 def test_train_cli_as_a_module(toy, tmp_path):

@@ -18,6 +18,7 @@ import functools
 import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -222,12 +223,24 @@ def test_validate_quantize_runs(port_run):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--bic", "true"], "item 4"),
+    pytest.param(["--bic", "true"], None, id="flags0-item 4"),
     (["--mesh", "true"], "item 6"),
     (["--num_data", "2"], "item 6"),
     (["--topk_method", "approx"], "item 8"),
 ])
-def test_validate_refuses_what_is_not_ported(data, tmp_path, capsys, flags, item):
+def test_validate_refuses_what_is_not_ported(small_models, data, weights, tmp_path, capsys,
+                                             flags, item):
+    """The mesh flags and ``--topk_method approx`` are refused naming their
+    ROADMAP items. ``--bic true`` (item 4d, once refused here) runs: on a
+    ``--torch_ckpt`` (no meta) it warns that it ignores the flag and
+    writes the uncorrected rows without the ``_bic`` suffix, the decline
+    CSV with it."""
+    if item is None:
+        validate.main(_args(data, str(tmp_path), *flags, "--torch_ckpt", weights[0]))
+        assert "warning: --bic ignored for --torch_ckpt" in capsys.readouterr().out
+        assert os.path.exists(_result_dir(str(tmp_path), "voc2007_results_epoch0.json"))
+        assert os.path.exists(_result_dir(str(tmp_path), "val_result_0_bic.csv"))
+        return
     with pytest.raises(SystemExit):
         validate.main(_args(data, str(tmp_path), *flags))
     assert item in capsys.readouterr().err
@@ -266,11 +279,28 @@ def test_train_val_true_validates_the_last_epoch(small_models, data, tmp_path, c
     assert os.path.exists(_result_dir(root, "params.json"))
 
 
-def test_train_refuses_val_with_bic(data, tmp_path, capsys):
-    with pytest.raises(SystemExit):
-        train_main(["--root_dir", str(tmp_path), "--train_json", data["train"], "--cpu",
-                    "--val", "true", "--bic", "true"])
-    assert "item 4" in capsys.readouterr().err
+def test_train_refuses_val_with_bic(small_models, data, tmp_path):
+    """``cli.train --val true --bic true`` (item 4d, once refused here):
+    state 0, then state 1 with random replay and BiC, then validation of
+    state 1 with the checkpoint's BiC correction, whose rows land in the
+    ``_bic`` JSON beside the ``_bic`` decline CSV."""
+    root = str(tmp_path / "run")
+    try:
+        trainer = train_main([
+            "--root_dir", root, "--train_json", data["train"], "--image_dir", data["images"],
+            "--scenario", "3", "2", "--end_state", "1", "--depth", "18", "--image_height",
+            "64", "--image_width", "64", "--min_side", "48", "--max_side", "64",
+            "--batch_size", "2", "--end_epoch", "1", "--new_state_epoch", "1", "--every_iter",
+            "1", "--sample_num", "1", "--sample_method", "random", "--record", "false",
+            "--print_il_info", "false", "--cpu", "--val", "true", "--bic", "true"])
+        assert trainer.cur_state == 1 and trainer.bic is not None
+        meta = trainer.ckpt.restore(1, 1)[1]
+        assert meta["bic"]["alphas"] == trainer.bic.params.alphas.tolist()
+        out = os.path.join(root, "val_result", "3_2", "state1")
+        assert os.path.exists(os.path.join(out, "voc2007_results_epoch1_bic.json"))
+        assert os.path.exists(os.path.join(out, "val_result_1_bic.csv"))
+    finally:           # two states of R18 checkpoints, ~260 MB
+        shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture
@@ -311,10 +341,22 @@ def test_detect_matches_jax(small_models, small_frames, data, weights, tmp_path)
         assert got.shape == cv2.imread(str(tmp_path / "jax" / name)).shape
 
 
-def test_detect_refuses_bic_and_needs_cv2(data, tmp_path, capsys, monkeypatch):
-    with pytest.raises(SystemExit):
-        detect.main(["--image_dir", str(tmp_path), "--bic", "--cpu"])
-    assert "item 4" in capsys.readouterr().err
+def test_detect_refuses_bic_and_needs_cv2(small_models, small_frames, data, weights, tmp_path,
+                                         capsys, monkeypatch):
+    """``--bic`` (item 4d, once refused here) runs: on a ``--torch_ckpt``
+    (no meta) it warns that it ignores the flag and draws the images;
+    without OpenCV the CLI raises naming it."""
+    images = str(tmp_path / "images")
+    os.makedirs(images)
+    name = sorted(n for n in os.listdir(data["images"]) if n.startswith("test_"))[0]
+    with open(os.path.join(data["images"], name), "rb") as f, \
+            open(os.path.join(images, name), "wb") as g:
+        g.write(f.read())
+    counts = detect.main(["--image_dir", images, "--train_json", data["test"], "--scenario",
+                          "5", "--depth", "18", "--torch_ckpt", weights[0], "--bic", "--cpu",
+                          "--out_dir", str(tmp_path / "out")])
+    assert "warning: --bic ignored for --torch_ckpt" in capsys.readouterr().out
+    assert list(counts) == [name] and os.listdir(tmp_path / "out") == [name]
     import builtins
 
     real_import = builtins.__import__
