@@ -4,17 +4,25 @@ A stdlib HTTP server whose handler threads decode and letterbox images
 and queue them; one device thread micro-batches the queue into the
 predict path (``device_loop``), padding every batch to ``--max_batch``.
 
+    python -m cl_object_detection_tpu_torch.cli.serve --root_dir run \
+        --scenario 20 --state 0 [--epoch -1] [--nms_impl pallas_fp] \
+        [--quantize] [--port 8500] [--cpu]
+    python -m cl_object_detection_tpu_torch.cli.serve --from_export art/
+        # a cli.export artifact: no checkpoint tree, no model code
     python -m cl_object_detection_tpu_torch.cli.serve --weights w.npz \
         [--params_json run/params.json] [--depth 50] [--height 608 \
-        --width 832] [--fused_stem] [--nms_impl pallas_fp] [--quantize] \
-        [--port 8500] [--cpu]
+        --width 832] [--fused_stem] ...
 
-``--weights`` is a flat ``"/"``-keyed ``.npz`` of the JAX variable tree
-(``models/bridge.py``). Frame, depth, stem form and dtype come from the
-flags, else from the run's ``params.json``, else the config defaults;
-the class count comes from the weights. ``--quantize`` runs the int8
-convs of ``ops/quant.py``; ``--from_export`` (the JAX package's
-exported-artifact path) is not ported and is refused.
+Three routes. ``--root_dir`` (the default, ``.``) serves a checkpoint
+the port's trainer wrote, rebuilt by ``eval.deploy.load_serving_bundle``
+from the run's ``params.json`` (frame, depth, stem form). ``--from_export``
+serves an artifact of ``cli.export`` through ``eval.deploy.load_artifact``,
+taking batch, frame, layout and dtype from its ``meta.json``.
+``--weights`` serves a flat ``"/"``-keyed ``.npz`` of the JAX variable
+tree (``models/bridge.py``); frame, depth, stem form and dtype come from
+the flags, else from ``--params_json``, else the config defaults, and
+the class count from the weights. ``--quantize`` runs the int8 convs of
+``ops/quant.py`` (an artifact carries its own).
 
 Request bodies are decoded by ``data/image_io.decode_image``: PNG
 without any image library, JPEG and the rest through OpenCV or PIL when
@@ -29,7 +37,6 @@ API:
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import queue
 import struct
@@ -137,22 +144,61 @@ def make_run_predict(predict, device) -> Callable[[np.ndarray], Dict[str, np.nda
     return run_predict
 
 
+def _bridged_model(a, device):
+    """The ``--weights`` route: a model from a JAX variable tree; returns
+    (model, depth, height, width, s2d, fused)."""
+    from ..config import DataConfig
+    from ..eval.deploy import model_config_from_run
+    from ..models.bridge import load_jax_variables, load_npz
+    from ..models.retinanet import create_retinanet
+
+    run_cfg: dict = {}
+    if a.params_json:
+        with open(a.params_json) as f:
+            run_cfg = json.load(f)
+    mcfg = model_config_from_run(run_cfg, a.depth)
+    run_data = run_cfg.get("data", {})
+    height = a.height or int(run_data.get("height", DataConfig.height))
+    width = a.width or int(run_data.get("width", DataConfig.width))
+    s2d = bool(run_data.get("s2d_stem", False))
+    fused = (a.fused_stem if a.fused_stem is not None
+             else bool(run_data.get("fused_stem", False))) and not s2d
+    tree = load_npz(a.weights)
+    num_classes = a.num_classes or (
+        tree["params"]["classification_head"]["output"]["bias"].shape[0]
+        // mcfg.num_anchors)
+    model = create_retinanet(mcfg, num_classes, device=device)
+    load_jax_variables(model, tree)
+    return model, mcfg.depth, height, width, s2d, fused
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--weights", required=True,
-                        help="flat '/'-keyed .npz of the JAX variable tree")
+    parser.add_argument("--root_dir", default=None,
+                        help="a run directory of the port's trainer (its "
+                             "checkpoint tree and params.json); default '.' "
+                             "unless --weights or --from_export is given")
+    parser.add_argument("--scenario", nargs="+", default=["20"])
+    parser.add_argument("--state", type=int, default=0)
+    parser.add_argument("--epoch", type=int, default=-1)
+    parser.add_argument("--depth", type=int, default=None,
+                        help="backbone depth; default: read from the "
+                             "training run's params.json (else 50)")
+    parser.add_argument("--weights", default=None,
+                        help="instead of --root_dir: a flat '/'-keyed .npz "
+                             "of the JAX variable tree (models/bridge.py)")
     parser.add_argument("--params_json", default=None,
-                        help="a training run's params.json (model/data "
-                             "sections)")
-    parser.add_argument("--depth", type=int, default=None)
-    parser.add_argument("--height", type=int, default=None)
-    parser.add_argument("--width", type=int, default=None)
+                        help="with --weights: a training run's params.json "
+                             "(model/data sections)")
+    parser.add_argument("--height", type=int, default=None, help="with --weights")
+    parser.add_argument("--width", type=int, default=None, help="with --weights")
     parser.add_argument("--num_classes", type=int, default=None,
-                        help="default: from the classifier's output bias")
+                        help="with --weights; default: from the classifier's "
+                             "output bias")
     parser.add_argument("--fused_stem", action="store_true", default=None,
-                        help="serve 4x4 space-to-depth frames through the "
-                             "fused stem kernel")
+                        help="with --weights: serve 4x4 space-to-depth frames "
+                             "through the fused stem kernel")
     parser.add_argument("--nms_impl", default="pallas_fp",
                         choices=["pallas_fp", "iterative", "scan"])
     parser.add_argument("--port", type=int, default=8500)
@@ -165,51 +211,69 @@ def main(argv=None):
     parser.add_argument("--quantize", action="store_true",
                         help="int8 dynamic-PTQ convs (ops/quant.py)")
     parser.add_argument("--from_export", default=None,
-                        help="not ported: refused")
+                        help="serve a cli.export artifact directory (the "
+                             "exported program of eval/deploy.py; ignores "
+                             "--root_dir/--scenario/--state/--epoch/--depth/"
+                             "--quantize/--nms_impl and takes batch/frame/"
+                             "dtype from the artifact's meta.json)")
     parser.add_argument("--cpu", action="store_true")
     a = parser.parse_args(argv)
-    if a.from_export:
-        parser.error("--from_export (exported StableHLO artifacts) is not "
-                     "ported; serve the weights with --weights")
+    if a.weights and (a.root_dir or a.from_export):
+        parser.error("--weights serves a bridged .npz: it excludes --root_dir and "
+                     "--from_export")
+    bridge_only = [f for f in ("params_json", "height", "width", "num_classes", "fused_stem")
+                   if getattr(a, f) is not None]
+    if bridge_only and not a.weights:
+        parser.error(f"--{bridge_only[0]} applies to --weights only")
 
     from .. import resolve_device
-    from ..config import DataConfig, ModelConfig, PredictConfig
+    from ..config import PredictConfig
     from ..data.image_io import decode_image
     from ..data.transforms import normalize_image, resize_bilinear, space_to_depth
     from ..eval.predictor import make_predict_fn
-    from ..models.bridge import load_jax_variables, load_npz
-    from ..models.retinanet import create_retinanet
 
     device = resolve_device("cpu" if a.cpu else None)
-    run_cfg: dict = {}
-    if a.params_json:
-        with open(a.params_json) as f:
-            run_cfg = json.load(f)
-    mc_fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    run_model = {k: (tuple(v) if isinstance(v, list) else v)
-                 for k, v in run_cfg.get("model", {}).items() if k in mc_fields}
-    if a.depth is not None:
-        run_model["depth"] = a.depth
-    mcfg = ModelConfig(**run_model)
-    run_data = run_cfg.get("data", {})
-    height = a.height or int(run_data.get("height", DataConfig.height))
-    width = a.width or int(run_data.get("width", DataConfig.width))
-    s2d = bool(run_data.get("s2d_stem", False))
-    fused = (a.fused_stem if a.fused_stem is not None
-             else bool(run_data.get("fused_stem", False))) and not s2d
-    uint8 = a.transfer_dtype == "uint8"
+    if a.from_export:
+        # the artifact path: no checkpoint tree, no model classes; the
+        # weights, architecture, post-process and frame contract ride in
+        # the exported program and meta.json (eval/deploy.py)
+        from ..eval.deploy import load_artifact
 
-    tree = load_npz(a.weights)
-    num_classes = a.num_classes or (
-        tree["params"]["classification_head"]["output"]["bias"].shape[0]
-        // mcfg.num_anchors)
-    model = create_retinanet(mcfg, num_classes, device=device)
-    load_jax_variables(model, tree)
-    # the predict path keeps every candidate the server might emit
-    predict = make_predict_fn(model, PredictConfig(
-        score_thresh=min(0.05, a.score_thresh), nms_impl=a.nms_impl,
-        quantize=a.quantize))
-    run_predict = make_run_predict(predict, device)
+        if a.quantize:
+            print("note: --quantize is ignored with --from_export "
+                  "(quantization bakes in at cli.export time)")
+        run_predict, meta = load_artifact(a.from_export, device)
+        depth, height, width = meta["depth"], meta["height"], meta["width"]
+        s2d, fused = bool(meta["s2d"]), bool(meta["fused"])
+        uint8 = meta["transfer_dtype"] == "uint8"
+        quantize = bool(meta["quantize"])
+        if a.transfer_dtype != meta["transfer_dtype"]:
+            print(f"note: artifact input dtype is "
+                  f"{meta['transfer_dtype']} (--transfer_dtype ignored)")
+        if a.max_batch != meta["batch"]:
+            print(f"--max_batch {a.max_batch} -> {meta['batch']} "
+                  f"(the artifact's static batch)")
+            a.max_batch = meta["batch"]
+        if a.score_thresh < meta["score_thresh"]:
+            print(f"warning: --score_thresh {a.score_thresh} below the "
+                  f"artifact's baked {meta['score_thresh']} floor")
+    else:
+        if a.weights:
+            model, depth, height, width, s2d, fused = _bridged_model(a, device)
+        else:
+            from ..eval.deploy import load_serving_bundle
+
+            bundle = load_serving_bundle(a.root_dir or ".", a.scenario, a.state, a.epoch,
+                                         a.depth, device)
+            model, depth = bundle.model, bundle.mcfg.depth
+            height, width, s2d, fused = bundle.height, bundle.width, bundle.s2d, bundle.fused
+        uint8 = a.transfer_dtype == "uint8"
+        quantize = a.quantize
+        # the predict path keeps every candidate the server might emit
+        predict = make_predict_fn(model, PredictConfig(
+            score_thresh=min(0.05, a.score_thresh), nms_impl=a.nms_impl,
+            quantize=a.quantize))
+        run_predict = make_run_predict(predict, device)
     frame_shape, frame_dtype = frame_spec(height, width, s2d, fused, uint8)
 
     def letterbox(img):
@@ -242,9 +306,9 @@ def main(argv=None):
     warm = submit(work, np.zeros(frame_shape, frame_dtype), 1.0, a.request_ttl)
     if warm is None or "error" in warm:
         raise SystemExit(f"warm-up predict failed: {warm}")
-    print(f"serving on :{a.port} (batch {a.max_batch}, depth {mcfg.depth}, "
-          f"frame {height}x{width}, {'int8' if a.quantize else 'float'} convs, "
-          f"{device})", flush=True)
+    print(f"serving on :{a.port} (batch {a.max_batch}, depth {depth}, "
+          f"frame {height}x{width}, {'int8' if quantize else 'float'} convs, "
+          f"{device}{', artifact ' + a.from_export if a.from_export else ''})", flush=True)
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):

@@ -18,8 +18,7 @@ state dict (``.pt`` or ``.npz``) instead, loaded once for every epoch.
 ``_bic`` to the result JSONs and the decline CSV; an epoch without BiC
 state is predicted uncorrected and written without the suffix, and
 ``--torch_ckpt`` (no meta) ignores the flag with a warning. The mesh
-flags and ``--topk_method approx`` are refused naming the ROADMAP item
-that ports them.
+flags are refused naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -42,8 +41,9 @@ def get_parser():
     parser.add_argument("--threshold", type=float, default=0.05)
     parser.add_argument("--topk_method", default="exact",
                         choices=["exact", "approx"],
-                        help="pre-NMS candidate selection ('approx' is not "
-                             "ported: refused)")
+                        help="pre-NMS candidate selection ('approx': the "
+                             "exact stable top-k of the float32 scores, what "
+                             "lax.approx_max_k computes off the TPU)")
     parser.add_argument("--quantize", type=str2bool, default=False,
                         help="int8 dynamic-PTQ convs on the predict path "
                              "(ops/quant.py); A/B against fp before "
@@ -73,9 +73,6 @@ def refuse_unported(parser: argparse.ArgumentParser, a: argparse.Namespace) -> N
     if uses_mesh(a):
         parser.error("multi-device evaluation (--mesh and its flags) is not ported "
                      "yet: ROADMAP §1 item 6")
-    if a.topk_method == "approx":
-        parser.error("--topk_method approx (lax.approx_max_k) is not ported yet: "
-                     "ROADMAP §1 item 8")
 
 
 def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] = None):

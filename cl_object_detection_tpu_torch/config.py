@@ -82,7 +82,10 @@ class PredictConfig:
                                        # "pallas_fp" (the batched NMS
                                        # kernel, ops/nms_fp.py); legacy
                                        # "pallas" aliases pallas_fp
-    topk_method: str = "exact"         # "exact"; "approx" is not ported
+    topk_method: str = "exact"         # "exact" | "approx" (the exact
+                                       # stable top-k of the float32
+                                       # scores: lax.approx_max_k off
+                                       # the TPU; ops/nms.py)
     bbox_std: Tuple[float, float, float, float] = (0.1, 0.1, 0.2, 0.2)
     quantize: bool = False             # int8 convs on the predict path
                                        # (ops/quant.py)

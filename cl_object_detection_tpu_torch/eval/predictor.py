@@ -31,14 +31,15 @@ def make_predict_fn(model, predict_cfg: PredictConfig,
     the tensors' device: the CUDA kernel on the card, its plain version
     on the CPU (identical keep masks).
 
+    ``topk_method="approx"`` selects on the float32 cast of the logits
+    by the exact stable top-k (``ops.nms._select_topk``), as XLA's
+    ``approx_max_k`` does off the TPU.
+
     ``quantize=True`` runs the model through ``ops.quant.quantized_apply``:
     int8 convs (the int8 GEMM kernel on the card), head outputs and stem
     float. The model itself is not changed, so float and quantized
     predict functions of one model can be used side by side.
     """
-    if predict_cfg.topk_method != "exact":
-        raise ValueError(f"topk_method={predict_cfg.topk_method!r} is not "
-                         "ported; use 'exact'")
     apply_fn = quantized_apply(model) if predict_cfg.quantize else model
     anchor_cache: Dict[Tuple[int, int, str], torch.Tensor] = {}
 

@@ -16,9 +16,12 @@ with the sum exact in int32, in one of two modes:
   ``lax.conv_general_dilated`` on s8 x s8 -> s32; no im2col copy).
 
 The TPU kernel's case (one scalar scale, no bias, bf16 out) is a filled
-``scale``. Each wrapper takes the kernel for CUDA tensors and its plain
-version (``int8_matmul_reference``, ``int8_conv_nhwc_reference``) for CPU
-tensors; there is no other fallback. ``int8_matmul.launches`` counts the
+``scale``. Each wrapper checks its arguments and calls its
+``torch.library`` operator (``cldet::int8_matmul``,
+``cldet::int8_conv_nhwc``; ``ops/library.py``), which takes the kernel
+for CUDA tensors and its plain version (``int8_matmul_reference``,
+``int8_conv_nhwc_reference``) for CPU tensors; there is no other
+fallback. ``int8_matmul.launches`` counts the
 kernel's launches in both modes, ``int8_conv_nhwc.launches`` those in
 conv mode.
 """
@@ -31,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from . import library
 
 K_MULTIPLE = 64                          # GEMM mode pads K to this (the kernel takes 16)
 K_SLICE = 128                            # the kernel's K slice per pipeline stage, bytes
@@ -145,18 +149,35 @@ def int8_matmul(x: torch.Tensor, w_nk: torch.Tensor, scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """(M,K) int8 x (N,K) int8 -> (M,N) ``out_dtype``, dequantized by the
-    float32 ``scale`` (N,) and ``bias`` (N,). A CUDA tensor goes through
-    the kernel (bfloat16 or float32 out; K is padded with zeros to a
-    multiple of 64), a CPU tensor through ``int8_matmul_reference``."""
+    float32 ``scale`` (N,) and ``bias`` (N,), through the
+    ``cldet::int8_matmul`` operator (``ops/library.py``). A CUDA tensor
+    goes through the kernel (bfloat16 or float32 out; K is padded with
+    zeros to a multiple of 64), a CPU tensor through
+    ``int8_matmul_reference``."""
     if x.dim() != 2:
         raise ValueError(f"int8_matmul expects (M,K) and (N,K), got {tuple(x.shape)}")
     _check_args(x, w_nk, scale, bias, x.shape[1])
-    if x.device.type == "cpu":
-        return int8_matmul_reference(x, w_nk, scale, bias, out_dtype)
+    if x.device.type == "cuda":
+        _check_card(x, w_nk, out_dtype, "int8_matmul")
+    elif x.device.type != "cpu":
+        raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    return library.int8_matmul(x, w_nk, scale, bias, out_dtype)
+
+
+def _check_card(x, w_nk, out_dtype, name: str) -> None:
+    """What the kernel takes beyond the plain version: both operands on
+    the card, and a bfloat16 or float32 output."""
     if x.device.type != "cuda" or w_nk.device != x.device:
-        raise ValueError(f"int8_matmul: unsupported devices {x.device} and {w_nk.device}")
+        raise ValueError(f"{name}: unsupported devices {x.device} and {w_nk.device}")
     if out_dtype not in OUT_DTYPES:
-        raise TypeError(f"int8_matmul kernel writes bfloat16 or float32, not {out_dtype}")
+        raise TypeError(f"{name} kernel writes bfloat16 or float32, not {out_dtype}")
+
+
+def _launch_gemm(x: torch.Tensor, w_nk: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:
+    """``cldet::int8_matmul`` on the card: one launch in GEMM mode."""
+    _check_args(x, w_nk, scale, bias, x.shape[1])
+    _check_card(x, w_nk, out_dtype, "int8_matmul")
     m, k = x.shape
     n = w_nk.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -184,35 +205,57 @@ def int8_matmul(x: torch.Tensor, w_nk: torch.Tensor, scale: torch.Tensor,
 int8_matmul.launches = 0
 
 
+def conv_out_hw(h: int, w: int, kernel: int, stride: int, padding: int) -> Tuple[int, int]:
+    """(Ho, Wo) of a square conv."""
+    return ((h + 2 * padding - kernel) // stride + 1,
+            (w + 2 * padding - kernel) // stride + 1)
+
+
+def _check_conv(x_q, w_nk, scale, bias, kernel: int, stride: int, padding: int) -> None:
+    if x_q.dim() != 4:
+        raise ValueError(f"int8_conv_nhwc expects (B,H,W,C), got {tuple(x_q.shape)}")
+    b, h, w, c = x_q.shape
+    if kernel < 1 or stride < 1 or padding < 0:
+        raise ValueError(f"bad conv: kernel {kernel}, stride {stride}, padding {padding}")
+    ho, wo = conv_out_hw(h, w, kernel, stride, padding)
+    if ho < 1 or wo < 1:
+        raise ValueError(f"int8_conv_nhwc: a {kernel}x{kernel} kernel does not fit "
+                         f"{h}x{w} with padding {padding}")
+    _check_args(x_q, w_nk, scale, bias, kernel * kernel * c)
+
+
 def int8_conv_nhwc(x_q: torch.Tensor, w_nk: torch.Tensor, scale: torch.Tensor,
                    bias: Optional[torch.Tensor] = None, *, kernel: int, stride: int,
                    padding: int, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Square ``kernel`` x ``kernel`` conv of the (B,H,W,C) int8 activation
     ``x_q`` with the (N, kernel*kernel*C) int8 weight ``w_nk`` ((kh, kw, c)
     order), zero padding ``padding``, -> (B,Ho,Wo,N) ``out_dtype``
-    dequantized by ``scale`` and ``bias``. A CUDA tensor goes through the
-    kernel in conv mode (C a multiple of 16), which gathers its patches
-    from ``x_q``; a CPU tensor through ``int8_conv_nhwc_reference``."""
-    if x_q.dim() != 4:
-        raise ValueError(f"int8_conv_nhwc expects (B,H,W,C), got {tuple(x_q.shape)}")
+    dequantized by ``scale`` and ``bias``, through the
+    ``cldet::int8_conv_nhwc`` operator (``ops/library.py``). A CUDA
+    tensor goes through the kernel in conv mode (C a multiple of 16),
+    which gathers its patches from ``x_q``; a CPU tensor through
+    ``int8_conv_nhwc_reference``."""
+    _check_conv(x_q, w_nk, scale, bias, kernel, stride, padding)
+    if x_q.device.type == "cuda":
+        _check_card(x_q, w_nk, out_dtype, "int8_conv_nhwc")
+        if x_q.shape[-1] % 16:
+            raise ValueError(f"int8_conv_nhwc kernel takes C a multiple of 16, "
+                             f"got {x_q.shape[-1]}")
+    elif x_q.device.type != "cpu":
+        raise ValueError(f"int8_conv_nhwc: unsupported device {x_q.device}")
+    return library.int8_conv_nhwc(x_q, w_nk, scale, bias, kernel, stride, padding, out_dtype)
+
+
+def _launch_conv(x_q: torch.Tensor, w_nk: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor], kernel: int, stride: int, padding: int,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """``cldet::int8_conv_nhwc`` on the card: one launch in conv mode."""
+    _check_conv(x_q, w_nk, scale, bias, kernel, stride, padding)
+    _check_card(x_q, w_nk, out_dtype, "int8_conv_nhwc")
     b, h, w, c = x_q.shape
-    if kernel < 1 or stride < 1 or padding < 0:
-        raise ValueError(f"bad conv: kernel {kernel}, stride {stride}, padding {padding}")
-    ho = (h + 2 * padding - kernel) // stride + 1
-    wo = (w + 2 * padding - kernel) // stride + 1
-    if ho < 1 or wo < 1:
-        raise ValueError(f"int8_conv_nhwc: a {kernel}x{kernel} kernel does not fit "
-                         f"{h}x{w} with padding {padding}")
-    _check_args(x_q, w_nk, scale, bias, kernel * kernel * c)
-    if x_q.device.type == "cpu":
-        return int8_conv_nhwc_reference(x_q, w_nk, scale, bias, kernel=kernel, stride=stride,
-                                        padding=padding, out_dtype=out_dtype)
-    if x_q.device.type != "cuda" or w_nk.device != x_q.device:
-        raise ValueError(f"int8_conv_nhwc: unsupported devices {x_q.device} and {w_nk.device}")
-    if out_dtype not in OUT_DTYPES:
-        raise TypeError(f"int8_conv_nhwc kernel writes bfloat16 or float32, not {out_dtype}")
     if c % 16:
         raise ValueError(f"int8_conv_nhwc kernel takes C a multiple of 16, got {c}")
+    ho, wo = conv_out_hw(h, w, kernel, stride, padding)
     n = w_nk.shape[0]
     out = torch.empty((b, ho, wo, n), dtype=out_dtype, device=x_q.device)
     if out.numel() == 0:

@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import library
+
 
 class Detections(NamedTuple):
     boxes: torch.Tensor    # (..., D, 4) xyxy
@@ -28,25 +30,30 @@ def _topk_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _select_topk(x: torch.Tensor, k: int, method: str):
+    """``"exact"``: ``lax.top_k`` in the input's dtype. ``"approx"``:
+    ``lax.approx_max_k`` on float32 values, which XLA lowers off the TPU
+    to an exact sort (``ApproxTopK`` with ``is_fallback``): the same
+    stable top-k of the float32 cast, ties to the lower index."""
+    return _topk_stable(x.float() if method == "approx" else x, k)
+
+
 def _select_candidates(cls_prob, score_thresh, pre_nms_topk, topk_method,
                        scores_are_logits):
     """Pre-NMS candidate select over (B, A, C):
     (cand_scores (B,k), cand_labels (B,k) int32, idx (B,k))."""
-    if topk_method != "exact":
-        raise ValueError(
-            f"topk_method={topk_method!r} is not ported (the JAX package's "
-            "'approx' uses lax.approx_max_k, which has no exact torch "
-            "counterpart); use 'exact'")
+    if topk_method not in ("exact", "approx"):
+        raise ValueError(f"unknown topk_method {topk_method!r}")
     raw, labels = torch.max(cls_prob, dim=-1)
     labels = labels.to(torch.int32)
     k = min(pre_nms_topk, raw.shape[-1])
     if scores_are_logits:
-        top_raw, idx = _topk_stable(raw, k)
+        top_raw, idx = _select_topk(raw, k, topk_method)
         cand = torch.sigmoid(top_raw.float())
         cand = torch.where(cand > score_thresh, cand, torch.zeros_like(cand))
         return cand, torch.gather(labels, -1, idx), idx
     scores = torch.where(raw > score_thresh, raw, torch.zeros_like(raw))
-    cand, idx = _topk_stable(scores, k)
+    cand, idx = _select_topk(scores, k, topk_method)
     return cand, torch.gather(labels, -1, idx), idx
 
 
@@ -119,7 +126,9 @@ def detect_batch(
 
         keep = nms_fp(off_boxes, cand_scores, iou_thresh)
     elif impl == "iterative":
-        keep = nms_iterative(off_boxes, cand_scores, iou_thresh)
+        # the opaque operator around nms_iterative, so torch.export can
+        # trace the path (ops/library.py)
+        keep = library.nms_iterative(off_boxes, cand_scores, float(iou_thresh))
     else:
         keep = nms_padded(off_boxes, cand_scores, iou_thresh)
     return _post_nms(keep, cand_boxes, cand_scores, cand_labels,

@@ -3,7 +3,8 @@
 The port of the JAX package's ``ops/nms_pallas.py``
 (``nms_pallas_batched``): per image, over k score-sorted class-offset
 boxes, the keep mask of greedy hard NMS, bit-identical to
-``ops.nms.nms_iterative`` (same IoU division form). ``nms_fp`` takes the
+``ops.nms.nms_iterative`` (same IoU division form). ``nms_fp`` checks
+its arguments and calls the ``cldet::nms_fp`` operator (``ops/library.py``), which takes the
 kernel for CUDA tensors and the plain version (``nms_fp_reference``) for
 CPU tensors; there is no other fallback.
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import library
 from .nms import nms_iterative
 
 
@@ -40,17 +42,27 @@ def nms_fp_reference(boxes: torch.Tensor, scores: torch.Tensor,
     return nms_iterative(boxes.float(), scores.float(), iou_thresh)
 
 
-def nms_fp(boxes: torch.Tensor, scores: torch.Tensor,
-           iou_thresh: float = 0.5) -> torch.Tensor:
-    """Batched greedy-NMS keep masks (B, k) bool for boxes (B, k, 4)
-    sorted by descending score per image and scores (B, k)."""
-    if boxes.device.type == "cpu":
-        return nms_fp_reference(boxes, scores, iou_thresh)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"nms_fp: unsupported device {boxes.device}")
+def _check_shapes(boxes: torch.Tensor, scores: torch.Tensor) -> None:
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or tuple(scores.shape) != tuple(boxes.shape[:2]):
         raise ValueError(f"nms_fp expects (B,k,4) and (B,k), got "
                          f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
+
+
+def nms_fp(boxes: torch.Tensor, scores: torch.Tensor,
+           iou_thresh: float = 0.5) -> torch.Tensor:
+    """Batched greedy-NMS keep masks (B, k) bool for boxes (B, k, 4)
+    sorted by descending score per image and scores (B, k), through the
+    ``cldet::nms_fp`` operator (``ops/library.py``): the kernels for CUDA
+    tensors, ``nms_fp_reference`` for CPU ones."""
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"nms_fp: unsupported device {boxes.device}")
+    _check_shapes(boxes, scores)
+    return library.nms_fp(boxes, scores, float(iou_thresh))
+
+
+def _launch(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """``cldet::nms_fp`` on the card: the mask and scan kernels."""
+    _check_shapes(boxes, scores)
     b, k = scores.shape
     boxes = boxes.to(torch.float32).contiguous()
     scores = scores.to(device=boxes.device, dtype=torch.float32).contiguous()

@@ -7,26 +7,30 @@ kernel (``pack_stem_kernel``): output channel (a*2+b)*64+o holds conv
 pixel (2I+a, 2J+b, o), and the 3x3/2 pool becomes a shift-only max over
 phase blocks (``ops.pool.phase_pool``).
 
-Which version runs: a CPU tensor runs ``stem_fused_reference``; a CUDA
-tensor launches the kernel of its dtype, or raises. bfloat16 takes the
-tensor-core kernel (``wgmma``, f32 sums rounded to bf16 as the reference
-rounds them); float32 takes the kernel's float32 form on the FMA units
-(``stem_fused_f32``), since the tensor cores have no float32 product
-(only TF32, which would not be float32). Any other dtype on the card
-raises ``TypeError``. There is no fallback on failure.
+Which version runs: the wrappers check their arguments and call the
+``cldet::stem_fused_bf16`` and ``cldet::stem_fused_f32`` operators
+(``ops/library.py``), whose CPU implementation is
+``stem_fused_reference`` and whose CUDA one launches the kernel of the
+dtype, or raises. bfloat16 takes the tensor-core kernel (``wgmma``, f32
+sums rounded to bf16 as the reference rounds them); float32 takes the
+kernel's float32 form on the FMA units (``stem_fused_f32``), since the
+tensor cores have no float32 product (only TF32, which would not be
+float32). Any other dtype on the card raises ``TypeError``. There is no
+fallback on failure.
 
 The float32 form computes the 7x7/2 conv itself, 147 products per
 output, not the packed 3x3 conv's 576, so it is exact only for a ``k3``
 of ``pack_stem_kernel``'s form. Its contract is a device-side check:
-``stem_fused`` on a float32 CUDA tensor recovers the 7x7 kernel
+``stem_fused`` on a float32 tensor recovers the 7x7 kernel
 (``unpack_stem_kernel``) and asserts, without a host sync, that ``k3``
 is ``pack_stem_kernel`` of it. A ``k3`` with a non-zero entry outside
 the 7x7 support (or phase blocks that disagree) trips
 ``torch._assert_async``, which fails the CUDA context at the next
-synchronize instead of returning a wrong result. The model passes the
-packed kernel in every dtype, so the dtype decides the kernel here
-alone; ``stem_fused_f32``, the float32 form's wrapper, takes the
-``(7,7,3,64)`` kernel (BN scale folded in).
+synchronize instead of returning a wrong result (on the CPU it raises
+at once); ``torch.export`` keeps the check in the exported program.
+The model passes the packed kernel in every dtype, so the dtype decides
+the kernel here alone; ``stem_fused_f32``, the float32 form's wrapper,
+takes the ``(7,7,3,64)`` kernel (BN scale folded in).
 
 Gradients: ``stem_fused`` is a ``torch.autograd.Function`` (JAX: a
 ``custom_vjp``). The forward is the dispatch above; the backward
@@ -40,68 +44,39 @@ there to the stem conv's weight and the stem BN's affines).
 from __future__ import annotations
 
 import ctypes
-import functools
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import _build
+from . import library
 from .pool import phase_pool
-
-
-@functools.lru_cache(maxsize=1)
-def _pack_tables():
-    """Gather indices into the (3,4)-zero-padded 14x14 kernel:
-    idx[T,U,al,be,a,b] -> (t+3, u+3) with t = 4(T-1)+al+3-2a (resp. u)."""
-    T, U, al, be, a, b = np.meshgrid(
-        np.arange(3), np.arange(3), np.arange(4), np.arange(4),
-        np.arange(2), np.arange(2), indexing="ij")
-    t_idx = 4 * (T - 1) + al + 3 - 2 * a + 3
-    u_idx = 4 * (U - 1) + be + 3 - 2 * b + 3
-    return t_idx, u_idx
-
-
-@functools.lru_cache(maxsize=8)
-def _pack_index(device: torch.device):
-    """The gather indices as tensors on ``device``, copied there once (a
-    host-to-device copy per forward would wait for the stream). Made
-    outside inference mode, so that a first call under
-    ``torch.inference_mode`` does not cache tensors a later training
-    backward cannot save."""
-    with torch.inference_mode(False):
-        return tuple(torch.from_numpy(t).to(device) for t in _pack_tables())
 
 
 def pack_stem_kernel(k7: torch.Tensor) -> torch.Tensor:
     """(7,7,3,64) HWIO -> (3,3,64,256) phase-packed HWIO kernel
-    (pad + gather + permute, differentiable)."""
+    (pad + slices + permute, differentiable): phase block (a, b) of tap
+    (T, U) at sub-pixel (al, be) holds k7[4T+al-1-2a, 4U+be-1-2b], zero
+    outside the 7x7 support. Pure data movement, so it needs no index
+    tensor on the device (nothing cached, nothing for a tracer to
+    lift)."""
     wp = F.pad(k7, (0, 0, 0, 0, 3, 4, 3, 4))            # (14,14,3,64)
-    t_idx, u_idx = _pack_index(k7.device)
-    g = wp[t_idx, u_idx]                               # (T,U,al,be,a,b,3,64)
-    g = g.permute(0, 1, 2, 3, 6, 4, 5, 7)             # (T,U,al,be,c,a,b,o)
-    k3 = g.reshape(3, 3, 48, 256)
+    # block (a, b) reads rows 4T+al+2-2a and cols 4U+be+2-2b of wp
+    g = torch.stack([wp[2 - 2 * a:14 - 2 * a, 2 - 2 * b:14 - 2 * b]
+                     for a in range(2) for b in range(2)], dim=-2)  # (12,12,3,4,64)
+    g = g.reshape(3, 4, 3, 4, 3, 4, 64)                # (T,al,U,be,c,ab,o)
+    k3 = g.permute(0, 2, 1, 3, 4, 5, 6).reshape(3, 3, 48, 256)
     return F.pad(k3, (0, 0, 0, 16))
-
-
-@functools.lru_cache(maxsize=8)
-def _unpack_index(device: torch.device):
-    """Indices into k3 of the 7x7 kernel, on ``device`` (copied there
-    once): k7[kh,kw,c] is k3[T, U, (al*4+be)*3 + c] of phase block
-    (0, 0), with T, al = divmod(kh + 1, 4) (resp. U, be from kw), the
-    inverse of ``_pack_tables`` at a = b = 0, which covers all 7 rows
-    and cols. They broadcast to (7,7,3)."""
-    t, al = np.divmod(np.arange(7) + 1, 4)
-    c = (al[:, None, None] * 4 + al[None, :, None]) * 3 + np.arange(3)
-    with torch.inference_mode(False):
-        return tuple(torch.from_numpy(i).to(device)
-                     for i in (t[:, None, None], t[None, :, None], c))
 
 
 def unpack_stem_kernel(k3: torch.Tensor) -> torch.Tensor:
     """(3,3,64,256) phase-packed kernel -> the (7,7,3,64) HWIO kernel it
-    was packed from (exact when ``k3`` is ``pack_stem_kernel``'s form)."""
-    return k3[_unpack_index(k3.device)][..., :64]
+    was packed from (exact when ``k3`` is ``pack_stem_kernel``'s form):
+    phase block (0, 0), whose rows 4T+al-1 and cols 4U+be-1 cover the
+    whole 7x7 support."""
+    g = k3[:, :, :48, :64].reshape(3, 3, 4, 4, 3, 64)    # (T,U,al,be,c,o)
+    g = g.permute(0, 2, 1, 3, 4, 5).reshape(12, 12, 3, 64)
+    return g[1:8, 1:8].contiguous()
 
 
 def stem_weight_f32(k7: torch.Tensor) -> torch.Tensor:
@@ -132,7 +107,7 @@ def stem_weight_kmajor(k3: torch.Tensor) -> torch.Tensor:
 
 
 def _check_frame(x4: torch.Tensor, bias4: torch.Tensor) -> None:
-    if x4.device.type != "cuda":
+    if x4.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stem_fused: unsupported device {x4.device}")
     if x4.dim() != 4 or x4.shape[-1] != 64:
         raise ValueError(f"stem_fused expects (B,H4,W4,64), got {tuple(x4.shape)}")
@@ -177,29 +152,39 @@ class _StemFused(torch.autograd.Function):
 def stem_fused(x4: torch.Tensor, k3: torch.Tensor,
                bias4: torch.Tensor) -> torch.Tensor:
     """Fused stem on a (B, H/4, W/4, 64) NHWC batch -> pooled
-    (B, H/4, W/4, 64). A CPU tensor runs ``stem_fused_reference``; a
-    bfloat16 CUDA tensor launches the tensor-core kernel (counted in
-    ``stem_fused.launches``); a float32 one checks ``k3`` on the device
-    and runs ``stem_fused_f32`` on its 7x7 kernel; another dtype on the
-    card raises ``TypeError`` (module docstring). Differentiable in all
-    three inputs through the plain version's backward."""
+    (B, H/4, W/4, 64). A float32 batch checks ``k3`` on its device and
+    runs the ``cldet::stem_fused_f32`` operator on its 7x7 kernel; any
+    other dtype runs ``cldet::stem_fused_bf16`` (``ops/library.py``),
+    which on the card launches the tensor-core kernel (counted in
+    ``stem_fused.launches``) and takes bfloat16 alone (another dtype
+    raises ``TypeError``). On the CPU both operators run
+    ``stem_fused_reference``. Differentiable in all three inputs through
+    the plain version's backward (module docstring)."""
     return _StemFused.apply(x4, k3, bias4)
 
 
 def _stem_forward(x4: torch.Tensor, k3: torch.Tensor,
                   bias4: torch.Tensor) -> torch.Tensor:
-    if x4.device.type == "cpu":
-        return stem_fused_reference(x4, k3, bias4)
     _check_frame(x4, bias4)
     if tuple(k3.shape) != (3, 3, 64, 256):
         raise ValueError(f"bad packed stem kernel {tuple(k3.shape)}")
     if x4.dtype == torch.float32:
         k3 = k3.to(device=x4.device, dtype=torch.float32)
         k7 = unpack_stem_kernel(k3)
+        # an aten op, so torch.export keeps it in the exported program
         torch._assert_async(torch.eq(pack_stem_kernel(k7), k3).all())
-        return stem_fused_f32(x4, k7, bias4)
-    if x4.dtype != torch.bfloat16:
+        return library.stem_fused_f32(x4, k7, bias4)
+    if x4.device.type == "cuda" and x4.dtype != torch.bfloat16:
         raise TypeError(f"stem_fused on the card takes bfloat16 or float32, got {x4.dtype}")
+    return library.stem_fused_bf16(x4, k3, bias4)
+
+
+def _launch_bf16(x4: torch.Tensor, k3: torch.Tensor, bias4: torch.Tensor) -> torch.Tensor:
+    """``cldet::stem_fused_bf16`` on the card: one launch of the
+    tensor-core kernel on the K-major weight."""
+    _check_frame(x4, bias4)
+    if x4.dtype != torch.bfloat16:
+        raise TypeError(f"the stem's tensor-core kernel takes bfloat16, got {x4.dtype}")
     w = stem_weight_kmajor(k3.to(device=x4.device, dtype=torch.bfloat16))
     out = _launch("stem_fused_bf16", x4, w, bias4)
     stem_fused.launches += 1
@@ -212,17 +197,25 @@ stem_fused.launches = 0
 def stem_fused_f32(x4: torch.Tensor, k7: torch.Tensor,
                    bias4: torch.Tensor) -> torch.Tensor:
     """The float32 form on the 7x7 kernel ``k7`` (7,7,3,64), BN scale
-    folded in: a float32 CUDA batch launches the kernel's FMA form
-    (counted in ``stem_fused_f32.launches``), a CPU one runs
-    ``stem_fused_reference`` on ``pack_stem_kernel(k7)``; another dtype
-    raises ``TypeError``."""
+    folded in, through ``cldet::stem_fused_f32``: a float32 CUDA batch
+    launches the kernel's FMA form (counted in
+    ``stem_fused_f32.launches``), a CPU one runs ``stem_fused_reference``
+    on ``pack_stem_kernel(k7)``; another dtype raises ``TypeError``."""
     if x4.dtype != torch.float32:
         raise TypeError(f"stem_fused_f32 takes float32, got {x4.dtype}")
     if tuple(k7.shape) != (7, 7, 3, 64):
         raise ValueError(f"stem_fused_f32 takes the (7,7,3,64) kernel, got {tuple(k7.shape)}")
-    if x4.device.type == "cpu":
-        return stem_fused_reference(x4, pack_stem_kernel(k7), bias4)
     _check_frame(x4, bias4)
+    return library.stem_fused_f32(x4, k7, bias4)
+
+
+def _launch_f32(x4: torch.Tensor, k7: torch.Tensor, bias4: torch.Tensor) -> torch.Tensor:
+    """``cldet::stem_fused_f32`` on the card: one launch of the FMA form
+    on the compact (147, 64) weight."""
+    _check_frame(x4, bias4)
+    if x4.dtype != torch.float32 or tuple(k7.shape) != (7, 7, 3, 64):
+        raise TypeError(f"the stem's float32 form takes a float32 frame and the (7,7,3,64) "
+                        f"kernel, got {x4.dtype} and {tuple(k7.shape)}")
     w = stem_weight_f32(k7.to(device=x4.device, dtype=torch.float32))
     out = _launch("stem_fused_f32", x4, w, bias4)
     stem_fused_f32.launches += 1

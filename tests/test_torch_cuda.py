@@ -1087,3 +1087,115 @@ def test_detections_to_coco_from_the_card_equals_the_cpu_copy(dev):
                               keep_slots=[True, True, True, False])
     assert len(got) > 400
     assert got == want
+
+
+# ---------------------------------------------------------------- export
+
+def _op_calls(dev):
+    """(name, operator call, direct launch, its counter) of each kernel
+    operator at a small shape on the card."""
+    from cl_object_detection_tpu_torch.ops import library
+
+    x, k3, b4 = _stem_inputs(dev, 2, 37, 53, seed=21)
+    xf, k3f, _ = _stem_inputs(dev, 2, 37, 53, seed=22, dtype=torch.float32)
+    k7 = sf.unpack_stem_kernel(k3f)
+    boxes, scores = (t.to(dev) for t in _nms_case(3, 1000, seed=23))
+    r = np.random.RandomState(24)
+    a = torch.from_numpy(r.randint(-127, 128, (300, 576)).astype(np.int8)).to(dev)
+    w = torch.from_numpy(r.randint(-127, 128, (96, 576)).astype(np.int8)).to(dev)
+    s = torch.from_numpy((r.rand(96) * 1e-3).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(r.randn(96).astype(np.float32)).to(dev)
+    xq = torch.from_numpy(r.randint(-127, 128, (2, 19, 26, 64)).astype(np.int8)).to(dev)
+    return [
+        ("stem_fused_bf16", lambda: library.stem_fused_bf16(x, k3, b4),
+         lambda: sf._launch_bf16(x, k3, b4), sf.stem_fused),
+        ("stem_fused_f32", lambda: library.stem_fused_f32(xf, k7, b4),
+         lambda: sf._launch_f32(xf, k7, b4), sf.stem_fused_f32),
+        ("nms_fp", lambda: library.nms_fp(boxes, scores, 0.5),
+         lambda: nf._launch(boxes, scores, 0.5), nf.nms_fp),
+        ("int8_matmul", lambda: library.int8_matmul(a, w, s, bias, torch.bfloat16),
+         lambda: im._launch_gemm(a, w, s, bias, torch.bfloat16), im.int8_matmul),
+        ("int8_conv_nhwc", lambda: library.int8_conv_nhwc(xq, w, s, bias, 3, 2, 1,
+                                                          torch.float32),
+         lambda: im._launch_conv(xq, w, s, bias, 3, 2, 1, torch.float32), im.int8_conv_nhwc),
+    ]
+
+
+def _nms_case(b, k, seed):
+    r = np.random.RandomState(seed)
+    boxes = r.rand(b, k, 4).astype(np.float32) * 600
+    boxes[..., 2:] = boxes[..., :2] + 10 + r.rand(b, k, 2).astype(np.float32) * 60
+    scores = np.sort(r.rand(b, k).astype(np.float32), axis=1)[:, ::-1].copy()
+    return torch.from_numpy(boxes), torch.from_numpy(scores)
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_operator_on_the_card_equals_the_direct_launch(dev, i):
+    """Each ``cldet`` operator's CUDA implementation launches the kernel
+    once (its counter rises by one) and gives the bytes of the direct
+    launch."""
+    name, op, direct, counter = _op_calls(dev)[i]
+    want = direct()
+    before = counter.launches
+    got = op()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1, name
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_exported_artifact_on_the_card_equals_live_predict(dev, tmp_path, monkeypatch, quantize):
+    """An R18 (bf16, fused uint8 frames) exported on the card and loaded
+    back: detections equal the live predict's bit for bit (deterministic
+    cuDNN in both), and every predict of the artifact launches the stem
+    kernel once (and, quantized, the int8 kernel 47 times, 41 in conv
+    mode). The float one also carries a CPU program, which loads."""
+    import json
+    import os
+
+    from cl_object_detection_tpu_torch.config import PredictConfig
+    from cl_object_detection_tpu_torch.data.transforms import space_to_depth
+    from cl_object_detection_tpu_torch.eval.deploy import (
+        export_predict,
+        load_artifact,
+        load_serving_bundle,
+        save_artifact,
+    )
+    from cl_object_detection_tpu_torch.eval.predictor import make_predict_fn
+    from cl_object_detection_tpu_torch.utils.checkpoint import CheckpointManager
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cpu_model, _ = _small_model("bfloat16")
+    ckpt = CheckpointManager(os.path.join(str(tmp_path), "checkpoint"), ["3"])
+    ckpt.save(0, 1, cpu_model, torch.optim.SGD(cpu_model.parameters(), lr=0.1), 0,
+              il_meta={"num_classes": 3})
+    with open(os.path.join(ckpt.state_dir(0), "params.json"), "w") as f:
+        json.dump({"model": {"depth": 18, "fpn_channels": 32, "head_layers": 2},
+                   "data": {"height": 64, "width": 96, "fused_stem": True}}, f)
+    bundle = load_serving_bundle(str(tmp_path), ["3"], 0)
+    assert next(bundle.model.parameters()).device.type == "cuda"
+    # the float artifact is exported for both device types, each traced
+    # on its own device
+    platforms = ["cuda"] if quantize else ["cuda", "cpu"]
+    blobs, meta = export_predict(bundle, batch=2, score_thresh=0.0, quantize=quantize,
+                                 platforms=platforms)
+    assert meta["platforms"] == platforms and sorted(blobs) == sorted(platforms)
+    save_artifact(str(tmp_path / "art"), blobs, meta)
+    fn, _ = load_artifact(str(tmp_path / "art"))
+    if not quantize:
+        load_artifact(str(tmp_path / "art"), device="cpu")
+    img = np.random.RandomState(25).randint(0, 256, (2, 64, 96, 3)).astype(np.uint8)
+    frames = space_to_depth(img, factor=4)
+    before = (sf.stem_fused.launches, im.int8_matmul.launches, im.int8_conv_nhwc.launches)
+    got = fn(frames)
+    torch.cuda.synchronize()
+    launches = (sf.stem_fused.launches - before[0], im.int8_matmul.launches - before[1],
+                im.int8_conv_nhwc.launches - before[2])
+    assert launches == ((1, 47, 41) if quantize else (1, 0, 0))
+    det = make_predict_fn(bundle.model, PredictConfig(score_thresh=0.0, quantize=quantize))(
+        torch.from_numpy(frames).to(dev))
+    assert got["valid"].sum() > 0
+    for k, v in zip(("boxes", "scores", "labels", "valid"), det):
+        assert np.array_equal(got[k], v.cpu().numpy()), k

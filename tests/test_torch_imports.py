@@ -34,7 +34,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(got["modules"]) >= 61, got["modules"]
+    assert len(got["modules"]) >= 66, got["modules"]
     assert {"cl_object_detection_tpu_torch.ops.quant",
             "cl_object_detection_tpu_torch.ops.int8_matmul",
             "cl_object_detection_tpu_torch.ops.focal_loss",
@@ -71,11 +71,59 @@ def test_port_imports_no_jax():
             "cl_object_detection_tpu_torch.eval.evaluator",
             "cl_object_detection_tpu_torch.eval.report",
             "cl_object_detection_tpu_torch.cli.validate",
-            "cl_object_detection_tpu_torch.cli.detect"} <= set(got["modules"])
+            "cl_object_detection_tpu_torch.cli.detect",
+            "cl_object_detection_tpu_torch.ops.library",
+            "cl_object_detection_tpu_torch.eval.deploy",
+            "cl_object_detection_tpu_torch.cli.export",
+            "cl_object_detection_tpu_torch.utils.notebook",
+            "cl_object_detection_tpu_torch.utils.diagnostics"} <= set(got["modules"])
     assert got["jax"] == [], got["jax"]
     assert got["jax_package"] == [], got["jax_package"]
     assert got["built"] == []
     assert got["native_loaded"] is False
+
+
+LIBRARY_PROBE = r"""
+import json, sys
+import torch
+from cl_object_detection_tpu_torch.ops import library
+from cl_object_detection_tpu_torch import _build
+x4 = torch.zeros(1, 4, 4, 64)
+k7 = torch.zeros(7, 7, 3, 64)
+library.stem_fused_f32(x4, k7, torch.zeros(256))
+library.stem_fused_bf16(x4.bfloat16(), torch.zeros(3, 3, 64, 256).bfloat16(), torch.zeros(256))
+boxes, scores = torch.rand(1, 8, 4), torch.rand(1, 8)
+library.nms_fp(boxes, scores, 0.5)
+library.nms_iterative(boxes, scores, 0.5)
+a, w = torch.ones(4, 16, dtype=torch.int8), torch.ones(2, 16, dtype=torch.int8)
+library.int8_matmul(a, w, torch.ones(2), None, torch.float32)
+library.int8_conv_nhwc(torch.ones(1, 3, 3, 16, dtype=torch.int8),
+                       torch.ones(2, 144, dtype=torch.int8), torch.ones(2), None, 3, 1, 1,
+                       torch.float32)
+print(json.dumps({"package": sorted(m for m in sys.modules
+                                   if m.startswith("cl_object_detection_tpu")),
+                  "built": sorted(_build._libs)}))
+"""
+
+
+def test_op_library_imports_nothing_of_models():
+    """The operator library, which a process that loads an exported
+    artifact imports, and every operator's CPU implementation load
+    nothing under ``models/`` (nor ``eval``, ``il``, ``train``) and build
+    nothing."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", LIBRARY_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["built"] == []
+    assert set(got["package"]) <= {
+        "cl_object_detection_tpu_torch", "cl_object_detection_tpu_torch._build",
+        "cl_object_detection_tpu_torch.ops", "cl_object_detection_tpu_torch.ops.library",
+        "cl_object_detection_tpu_torch.ops.stem_fused", "cl_object_detection_tpu_torch.ops.pool",
+        "cl_object_detection_tpu_torch.ops.nms", "cl_object_detection_tpu_torch.ops.nms_fp",
+        "cl_object_detection_tpu_torch.ops.int8_matmul",
+        "cl_object_detection_tpu_torch.ops.boxes"}, got["package"]
 
 
 def test_port_never_loads_the_jax_packages_native_library():

@@ -155,9 +155,50 @@ def test_detect_batch_tied_logits_match_jax():
     _assert_detections_equal(got, want, 1e-5)
 
 
-def test_approx_topk_is_refused():
+def _approx_case(kind):
+    """(cls, reg, scores_are_logits) of an ``approx`` case: random logits,
+    probabilities in bfloat16 (``approx`` selects on their float32 cast
+    and returns float32 scores), and logits that all tie (a fresh
+    model's zero output convs) with a second tied level."""
+    h, w = 64, 96
+    a = anchors_for_shape(h, w).shape[0]
+    r = np.random.RandomState(21)
+    reg = (r.rand(2, a, 4).astype(np.float32) - 0.5) * 0.4
+    if kind == "logits":
+        return (r.randn(2, a, 3).astype(np.float32) * 2 - 2), reg, True
+    if kind == "probs_bf16":
+        return r.rand(2, a, 3).astype(np.float32) * 0.5, reg, False
+    cls = np.full((2, a, 4), -1.0, np.float32)
+    cls[1, ::5, 1] = 0.25
+    return cls, reg, True
+
+
+@pytest.mark.parametrize("impl", ["iterative", "pallas_fp"])
+@pytest.mark.parametrize("kind", ["logits", "probs_bf16", "ties"])
+def test_approx_topk_matches_jax(kind, impl):
+    """``topk_method="approx"``: JAX's ``lax.approx_max_k`` lowers on the
+    CPU to an exact sort of the float32 scores; the port's exact stable
+    top-k of the float32 cast gives the same detections (labels and
+    valid exact, boxes and scores at rtol 1e-5), ties included."""
+    h, w = 64, 96
+    anchors = anchors_for_shape(h, w)
+    cls, reg, logits = _approx_case(kind)
+    kw = dict(height=h, width=w, pre_nms_topk=256, max_detections=50, nms_impl=impl,
+              scores_are_logits=logits, topk_method="approx")
+    j_cls, t_cls = jnp.asarray(cls), torch.from_numpy(cls)
+    if kind == "probs_bf16":
+        j_cls, t_cls = j_cls.astype(jnp.bfloat16), t_cls.to(torch.bfloat16)
+    want = jn.detect_batch(j_cls, jnp.asarray(reg), jnp.asarray(anchors), **kw)
+    got = tn.detect_batch(t_cls, torch.from_numpy(reg), torch.from_numpy(anchors.copy()), **kw)
+    assert np.asarray(want.valid).sum() > 0
+    assert got.scores.dtype == torch.float32
+    assert np.asarray(want.scores).dtype == np.float32
+    _assert_detections_equal(got, want, 1e-5)
+
+
+def test_unknown_topk_method_is_refused():
     anchors = torch.from_numpy(anchors_for_shape(64, 64).copy())
     a = anchors.shape[0]
-    with pytest.raises(ValueError, match="approx"):
+    with pytest.raises(ValueError, match="topk_method"):
         tn.detect_batch(torch.zeros(1, a, 2), torch.zeros(1, a, 4), anchors,
-                        height=64, width=64, topk_method="approx")
+                        height=64, width=64, topk_method="partial")

@@ -84,10 +84,30 @@ def test_use_pallas_nms_does_not_reroute_pallas_fp(models, monkeypatch):
     assert calls == [1]
 
 
-def test_unported_options_are_refused(models):
-    _, _, tmodel = models
-    with pytest.raises(ValueError, match="approx"):
-        make_predict_fn(tmodel, PredictConfig(topk_method="approx"))
+@pytest.mark.parametrize("weights", ["trained", "fresh"])
+def test_approx_topk_predict_matches_jax(models, weights):
+    """``topk_method="approx"`` through ``make_predict_fn`` against JAX's
+    (``lax.approx_max_k``, an exact sort of the float32 logits on the
+    CPU): random output convs, and a fresh model whose zero output convs
+    make every logit tie, where the tie order alone decides the
+    indices."""
+    jmodel, v, tmodel = models
+    if weights == "fresh":
+        v = jax.tree.map(np.array, jmodel.init(jax.random.PRNGKey(5), jnp.zeros((1, H, W, 3))))
+        tmodel = port_model(v)
+    kw = dict(pre_nms_topk=256, max_detections=40, score_thresh=0.0, topk_method="approx")
+    x = _frames(2, 35)
+    want = j_make_predict(jmodel, JPredictConfig(**kw))(jax.tree.map(jnp.asarray, v),
+                                                        jnp.asarray(x))
+    got = make_predict_fn(tmodel, PredictConfig(**kw))(torch.from_numpy(x))
+    if weights == "fresh":
+        cls = np.asarray(v["params"]["classification_head"]["output"]["kernel"])
+        assert not cls.any()
+    assert np.asarray(want.valid).sum() > 0
+    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes), rtol=1e-4, atol=1e-3)
 
 
 def test_serve_device_loop_answers_like_direct_predict(models):

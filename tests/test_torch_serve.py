@@ -1,7 +1,7 @@
 """The port's serve CLI end to end on the CPU: a tiny R18 run's weights
 as a flat npz plus its params.json, ``cli.serve --cpu`` (float and
 ``--quantize``) in a subprocess, ``GET /healthz`` and ``POST /detect``
-over HTTP; the unported option and a missing GPU are refused."""
+over HTTP; flags a route does not take and a missing GPU are refused."""
 import json
 import os
 import socket
@@ -104,13 +104,21 @@ def test_serve_quantize_answers_http_requests(run_dir):
     assert "int8 convs" in _serve_and_detect(run_dir, "--quantize")
 
 
-@pytest.mark.parametrize("flag", [["--from_export", "art"]])
-def test_serve_refuses_unported_options(run_dir, flag):
-    out = subprocess.run(_serve_cmd("--weights", str(run_dir / "w.npz"), *flag),
-                         cwd=REPO, env=_env(), capture_output=True, text=True,
-                         timeout=120)
+@pytest.mark.parametrize("flags,message", [
+    (["--weights", "w.npz", "--from_export", "art"], "excludes"),
+    (["--weights", "w.npz", "--root_dir", "run"], "excludes"),
+    (["--params_json", "params.json"], "applies to --weights only"),
+    (["--root_dir", "run", "--height", "64"], "applies to --weights only"),
+])
+def test_serve_refuses_unported_options(run_dir, flags, message):
+    """Options a route does not take are refused before anything loads:
+    ``--weights`` (the bridge route) excludes ``--root_dir`` and
+    ``--from_export``, and the bridge route's frame flags apply to it
+    alone."""
+    out = subprocess.run(_serve_cmd(*flags), cwd=run_dir, env=_env(), capture_output=True,
+                         text=True, timeout=120)
     assert out.returncode == 2
-    assert "not ported" in out.stderr
+    assert message in out.stderr
 
 
 def test_entry_points_need_cuda_unless_asked_for_the_cpu():

@@ -848,12 +848,10 @@ def test_stem_relu_tie_gradient_is_jax_half():
 
 
 def test_stem_trains_after_an_inference_mode_call():
-    """The stem kernel's packing indices are cached per device: a first
-    call under ``torch.inference_mode`` (a predict before training, in
-    one process) must not cache inference tensors, which a later
-    backward could not save."""
-    tsf._pack_index.cache_clear()
-    tsf._unpack_index.cache_clear()
+    """A first packing under ``torch.inference_mode`` (a predict before
+    training, in one process) must leave nothing behind that a later
+    backward could not save. The packing once cached index tensors per
+    device; it now slices, with no cache, and this holds it to that."""
     k7 = torch.from_numpy((np.random.RandomState(8).randn(7, 7, 3, 64) * 0.05).astype(np.float32))
     with torch.inference_mode():
         tsf.unpack_stem_kernel(tsf.pack_stem_kernel(k7))

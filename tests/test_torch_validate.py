@@ -226,15 +226,25 @@ def test_validate_quantize_runs(port_run):
     pytest.param(["--bic", "true"], None, id="flags0-item 4"),
     (["--mesh", "true"], "item 6"),
     (["--num_data", "2"], "item 6"),
-    (["--topk_method", "approx"], "item 8"),
+    pytest.param(["--topk_method", "approx"], "approx", id="flags3-item 8"),
 ])
 def test_validate_refuses_what_is_not_ported(small_models, data, weights, tmp_path, capsys,
                                              flags, item):
-    """The mesh flags and ``--topk_method approx`` are refused naming their
-    ROADMAP items. ``--bic true`` (item 4d, once refused here) runs: on a
-    ``--torch_ckpt`` (no meta) it warns that it ignores the flag and
-    writes the uncorrected rows without the ``_bic`` suffix, the decline
-    CSV with it."""
+    """The mesh flags are refused naming their ROADMAP item. ``--bic
+    true`` (item 4d, once refused here) runs: on a ``--torch_ckpt`` (no
+    meta) it warns that it ignores the flag and writes the uncorrected
+    rows without the ``_bic`` suffix, the decline CSV with it.
+    ``--topk_method approx`` (item 8, once refused here) runs and writes
+    the rows of ``exact`` (the float32 model's logits select the same
+    candidates in the same order)."""
+    if item == "approx":
+        rows = {}
+        for method in ("exact", "approx"):
+            root = str(tmp_path / method)
+            validate.main(_args(data, root, *flags[:1], method, "--torch_ckpt", weights[0]))
+            rows[method] = _read_json(_result_dir(root, "voc2007_results_epoch0.json"))
+        assert rows["approx"] and rows["approx"] == rows["exact"]
+        return
     if item is None:
         validate.main(_args(data, str(tmp_path), *flags, "--torch_ckpt", weights[0]))
         assert "warning: --bic ignored for --torch_ckpt" in capsys.readouterr().out
