@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving, training, evaluation, incremental (replay and the IL battery included) and export paths on one GPU and check them.
+"""Run the PyTorch/CUDA port's serving, training, evaluation, incremental (replay and the IL battery included), export and data-parallel paths on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -270,14 +270,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    process, the artifact's ms per B=8 predict beside the live predict's
    (numpy frames in, numpy detections out, host clock) and the
    ``{"export": ...}`` line.
-14. The ``{"trainer": ...}``, ``{"eval": ...}``, ``{"il_state1": ...}``,
-   ``{"il_replay": ...}``, ``{"il_battery": ...}`` and ``{"export": ...}``
-   lines, phase 4's and phase 5's B=32 throughput beside the figures of
+14. The mesh's data axis, in phase 8's temporary directory on its toy
+   data (R50 bf16, 640x1024 fused uint8, global batch 8, deterministic
+   cuDNN): two rank processes, each started with ``--coordinator_address
+   127.0.0.1:<free port> --num_processes 2 --process_id r``, on two cards
+   over NCCL when there are two, else both on ``cuda:0`` over gloo with
+   the collectives through the host (the line says which, and that the
+   throughput is then no scaling figure). In one process group each runs
+   (a) ``cli.train --mesh true`` state 0 of ``--scenario 15 5`` for one
+   epoch (``every_iter`` 2), (b) state 1 from (a)'s checkpoint with phase
+   12's battery flags (``--sample_batch_size 4``, which the two ranks
+   divide), and (c) ``cli.validate --mesh true --state 1 --bic true`` at
+   threshold 0.001 under ``nms_impl="pallas_fp"`` (as phase 12). Checks:
+   the ranks' parameters bit-identical at every epoch's end (the trainer
+   raises otherwise; the checksums compared again here), their global
+   losses, exemplar ids and BiC scalars equal; only rank 0 wrote into the
+   run root (checkpoint renames and array sidecars counted per rank), and
+   one process's ``cli.validate`` reads (a)'s checkpoint; per rank 1 stem
+   launch per micro-step in (a), 2 in (b), 1 per batch of each IL pass,
+   and in (c) one NMS and one stem launch per global batch; (a)'s first
+   apply's all-reduced gradient against one process's from the same
+   initial weights on the same two global batches, at phase 12's bar
+   (the larger of the gradient bar and twice the move that one-ulp
+   weight changes, four seeds, give one process's gradient); (c)'s rows
+   equal bit for bit one process's ``cli.validate`` in batches of 4 (the
+   ranks' batch: the same images in the same slots, so the same cuDNN
+   algorithms), and its per-class AP50 one process's in batches of 8
+   within 0.005 (bf16 convs of 8 images take other algorithms, which
+   move scores by up to two bf16 ulps of their logit). Printed: images/s
+   of (a) and (b), (a)'s beside one process's ``cli.train`` of the same
+   first epoch under the same cuDNN settings, ms per all-reduce of the R50's gradient (147 MB, five
+   timed), each IL pass's seconds on the two ranks, peak memory per rank,
+   the phase's seconds, and the ``{"data_axis": ...}`` line.
+15. The ``{"trainer": ...}``, ``{"eval": ...}``, ``{"il_state1": ...}``,
+   ``{"il_replay": ...}``, ``{"il_battery": ...}``, ``{"export": ...}`` and
+   ``{"data_axis": ...}`` lines, phase 4's and phase 5's B=32 throughput beside the figures of
    the port before its kernels became ``torch.library`` operators
    (464.67 and 225.81 images/s, H100 80GB HBM3 at 700 W), the kernels'
    JSON line, then the ``{"ok": true, ...}`` line.
 
-``--profile DIR`` adds a torch.profiler window over two B=32 predicts
+``--profile DIR`` adds a
+torch.profiler window over two B=32 predicts
 after phases 4 and 5 and over two micro-step pairs (two applies) in
 phase 7: device time by kernel group, the device's idle share, and the
 kernel tables in ``DIR/profile_{predict,predict_int8,train}.txt``; and
@@ -3107,6 +3140,526 @@ def serve_requests(proc, port: int, images: list) -> dict:
     return dict(answered=len(ok), detections=sum(len(a[1]["detections"]) for a in ok))
 
 
+# phase 14's training flags on the data axis, on phase 8's toy data; the root
+# directory, the data paths, --mesh and the process flags are added per run
+DATA_AXIS_RANKS = 2
+DATA_AXIS_A = ["--start_state", "0", "--end_epoch", "1", "--every_iter", "2", "--save_every",
+               "1", "--record", "false", "--print_il_info", "false"]
+DATA_AXIS_B = (["--start_state", "1", "--start_epoch", "1", "--end_epoch", "1",
+                "--new_state_epoch", "1", "--every_iter", "2", "--save_every", "1", "--record",
+                "false", "--print_il_info", "false", "--init_method", "mean",
+                "--sample_batch_size", "4"] + BATTERY_IL_FLAGS)
+DATA_AXIS_ULP_SEEDS = (1, 2, 3, 4)
+# |d AP50| of a class, (c) against one process in batches of 8: bf16 convs of 4
+# images take other cuDNN algorithms than of 8, which move a score by up to two
+# bf16 ulps of its logit (0.0017 measured), so rows near the 0.001 threshold and
+# NMS ties come and go
+DATA_AXIS_AP_TOL = 5e-3
+
+# One rank of phase 14: (a) cli.train state 0, (b) cli.train state 1 with the
+# battery, the gradient all-reduce timed, (c) cli.validate --bic under pallas_fp,
+# each through its entry point with the process flags, in one process group;
+# records per micro-step stem launches, each IL pass, the writes into the run
+# root, the first apply's all-reduced gradient with its inputs, and the peaks.
+DATA_AXIS_CHILD = r"""
+import functools, json, os, sys, time
+rank, world, address, spec_path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+with open(spec_path) as f:
+    spec = json.load(f)
+import numpy as np
+import torch
+
+from cl_object_detection_tpu_torch import config as config_mod
+from cl_object_detection_tpu_torch.cli import validate
+from cl_object_detection_tpu_torch.cli.train import main as train_main
+from cl_object_detection_tpu_torch.il import agem as agem_mod
+from cl_object_detection_tpu_torch.il import bic as bic_mod
+from cl_object_detection_tpu_torch.ops.nms_fp import nms_fp
+from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
+from cl_object_detection_tpu_torch.parallel import mesh as pm
+from cl_object_detection_tpu_torch.train import step as step_mod
+from cl_object_detection_tpu_torch.train import trainer as trainer_mod
+from cl_object_detection_tpu_torch.utils.checkpoint import host_copy
+
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+proc = ["--coordinator_address", address, "--num_processes", str(world),
+        "--process_id", str(rank)]
+out = os.path.join(spec["out"], f"rank{rank}")
+os.makedirs(out)
+rec = {"rank": rank, "steps": [], "passes": [], "writes": {"checkpoints": 0, "arrays": 0}}
+first = {"batches": 0}
+real = dict(run_batch=trainer_mod.ILTrainer.run_batch, reduce=step_mod.all_reduce_grads,
+            rename=os.rename, savez=np.savez, predict_cfg=config_mod.PredictConfig,
+            refresh=agem_mod.AGem.compute_replay_grad, bic=bic_mod.BicTrainer.train_epoch,
+            **{n: getattr(trainer_mod, n) for n in
+               ("compute_similarity", "compute_importance", "generate_pseudo_labels")})
+
+def run_batch(self, batch, is_replay=False, sync_metrics=True, correction=False):
+    if self.cur_state == 0 and first["batches"] < 2:
+        if not first["batches"]:
+            torch.save(host_copy(self.model.state_dict()), os.path.join(out, "init.pt"))
+        first["batches"] += 1
+        real["savez"](os.path.join(out, f"batch{first['batches']}.npz"), images=batch.images,
+                      boxes=batch.boxes, labels=batch.labels)
+    before, t = stem_fused.launches, time.perf_counter()
+    m = real["run_batch"](self, batch, is_replay=is_replay, sync_metrics=sync_metrics,
+                          correction=correction)
+    rec["steps"].append({"state": self.cur_state, "replay": is_replay,
+                         "launches": stem_fused.launches - before,
+                         "s": time.perf_counter() - t})
+    return m
+
+def all_reduce_grads(mesh, grads):
+    reduced = real["reduce"](mesh, grads)
+    if "grad" not in first:
+        first["grad"] = True
+        if rank == 0:
+            torch.save(host_copy(reduced), os.path.join(out, "grad.pt"))
+    return reduced
+
+def timed(name, fn, loader_of):
+    def wrapper(*args, **kw):
+        loader = loader_of(*args)
+        torch.cuda.synchronize()
+        before, t0 = stem_fused.launches, time.perf_counter()
+        result = fn(*args, **kw)
+        torch.cuda.synchronize()
+        rec["passes"].append({"name": name, "s": time.perf_counter() - t0,
+                              "batches": len(loader), "launches": stem_fused.launches - before})
+        return result
+    return wrapper
+
+def counted(kind, fn):
+    def wrapper(*args, **kw):
+        if str(args[1] if kind == "checkpoints" else args[0]).startswith(spec["root"]):
+            rec["writes"][kind] += 1
+        return fn(*args, **kw)
+    return wrapper
+
+def unaugmented(ds, cfg):
+    from cl_object_detection_tpu_torch.data.loader import BatchLoader
+    return BatchLoader(ds, cfg, shuffle=False, augment=False)
+
+trainer_mod.ILTrainer.run_batch = run_batch
+step_mod.all_reduce_grads = all_reduce_grads
+os.rename = counted("checkpoints", real["rename"])
+np.savez = counted("arrays", real["savez"])
+agem_mod.AGem.compute_replay_grad = timed("agem_refresh", real["refresh"],
+                                          lambda self, *a: self.replay_loader)
+bic_mod.BicTrainer.train_epoch = timed("bic_epoch", real["bic"], lambda self, *a: self.bic_loader)
+trainer_mod.compute_similarity = timed("similarity", real["compute_similarity"],
+                                       lambda m, anchors, loader, *a: loader)
+trainer_mod.compute_importance = timed("mas", real["compute_importance"],
+                                       lambda m, anchors, loader, *a: loader)
+trainer_mod.generate_pseudo_labels = timed("pseudo_labels", real["generate_pseudo_labels"],
+                                           lambda m, ds, cfg, *a: unaugmented(ds, cfg))
+
+def summary(tr, t0):
+    return {"s": time.perf_counter() - t0, "epoch_log": tr.epoch_log,
+            "checksums": pm.check_replicas(tr.mesh, tr.model), "loss_hist": list(tr.loss_hist),
+            "mesh": pm.describe(tr.mesh), "backend": tr.mesh.backend,
+            "device": str(tr.device), "world": tr.mesh.world}
+
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+tr = train_main(spec["a"] + proc)
+rec["a"] = summary(tr, t0)
+rec["a"]["micro_steps"] = len(rec["steps"])
+del tr
+t0 = time.perf_counter()
+tr = train_main(spec["b"] + proc)
+rec["b"] = summary(tr, t0)
+rec["b"].update(exemplars=list(tr.dataset_replay.image_ids),
+                bic=[tr.bic.params.alphas.tolist(), tr.bic.params.betas.tolist()])
+
+# the gradient all-reduce of the R50, timed on both ranks together
+grads = {n: torch.full_like(p, float(rank + 1)) for n, p in tr.model.named_parameters()}
+reduced = pm.all_reduce_grads(tr.mesh, grads)
+assert all(bool((v == 1.5).all()) for v in reduced.values()), "the all-reduce is not the mean"
+times = []
+for _ in range(5):
+    pm.barrier(tr.mesh)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pm.all_reduce_grads(tr.mesh, grads)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t) * 1e3)
+rec["allreduce"] = {"ms": times, "mb": sum(v.numel() for v in grads.values()) * 4 / 1e6}
+del tr, grads, reduced
+torch.cuda.empty_cache()
+
+config_mod.PredictConfig = functools.partial(real["predict_cfg"], nms_impl="pallas_fp")
+nms0, stem0, t0 = nms_fp.launches, stem_fused.launches, time.perf_counter()
+res = validate.main(spec["c"] + proc)
+rec["c"] = {"s": time.perf_counter() - t0, "nms": nms_fp.launches - nms0,
+            "stem": stem_fused.launches - stem0, "map50": res[1].mean_ap50,
+            "ap50": dict(res[1].ap50)}
+rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+with open(os.path.join(out, "record.json"), "w") as f:
+    json.dump(rec, f)
+mesh = pm.create_mesh(config_mod.MeshConfig(enabled=True),
+                      torch.device("cuda", torch.cuda.current_device()))
+pm.barrier(mesh)
+torch.distributed.destroy_process_group()
+print(f"rank {rank}: done", flush=True)
+"""
+
+
+def data_axis_path(tmp: str) -> dict:
+    """Phase 14: the mesh's data axis on two ranks through ``cli.train`` and
+    ``cli.validate`` with the process flags, (a) state 0, (b) state 1 with
+    the IL battery, (c) ``cli.validate --mesh --bic`` under ``pallas_fp``,
+    checked against one process (module docstring)."""
+    import os
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    ranks = DATA_AXIS_RANKS
+    data = os.path.join(tmp, "data")
+    root = os.path.join(tmp, "run_dp")
+    paths = ["--root_dir", root, "--train_json", os.path.join(data, "train.json"),
+             "--image_dir", os.path.join(data, "images")]
+    vflags = (["--root_dir", root, "--test_json", os.path.join(data, "test.json"),
+               "--image_dir", os.path.join(data, "images"), "--state", "1", "--epoch", "1",
+               "--threshold", "0.001", "--bic", "true"] + IL_MODEL_FLAGS)
+    mesh = ["--mesh", "true"]
+    spec = dict(root=root, out=os.path.join(tmp, "data_axis"),
+                a=paths + IL_MODEL_FLAGS + DATA_AXIS_A + mesh,
+                b=paths + IL_MODEL_FLAGS + DATA_AXIS_B + mesh, c=vflags + mesh)
+    os.makedirs(spec["out"])
+    spec_path = os.path.join(tmp, "data_axis_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    child = os.path.join(tmp, "data_axis_child.py")
+    with open(child, "w") as f:
+        f.write(DATA_AXIS_CHILD)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    shared = torch.cuda.device_count() < ranks
+    from cl_object_detection_tpu_torch.parallel.mesh import free_port
+
+    address = f"127.0.0.1:{free_port()}"
+    logs = [open(os.path.join(tmp, f"data_axis_rank{r}.log"), "w+") for r in range(ranks)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, child, str(r), str(ranks), address, spec_path],
+                              cwd=repo, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(ranks)]
+    try:
+        deadline = time.monotonic() + 420
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    run_s = time.perf_counter() - t0
+    tails = []
+    for r, (p, lg) in enumerate(zip(procs, logs)):
+        lg.seek(0)
+        text = lg.read()
+        lg.close()
+        tails.append(text)
+        for line in text.splitlines():
+            if line.startswith("mesh:"):
+                log(f"data axis rank {r}: {line}")
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"data axis: rank {r} exited {p.returncode}:\n"
+                                 f"{tails[r][-3000:]}")
+    recs = []
+    for r in range(ranks):
+        with open(os.path.join(spec["out"], f"rank{r}", "record.json")) as f:
+            recs.append(json.load(f))
+    record = check_data_axis_run(recs, shared, run_s)
+    torch.cuda.empty_cache()
+    ref_flags = ["--root_dir", root + "_ref"] + paths[2:] + IL_MODEL_FLAGS + DATA_AXIS_A
+    record["gradient"] = data_axis_gradient(spec["out"], ref_flags, recs)
+    torch.cuda.empty_cache()
+    one_ips = data_axis_one_process(["--root_dir", root + "_one"] + paths[2:] + IL_MODEL_FLAGS
+                                    + DATA_AXIS_A)
+    torch.cuda.empty_cache()
+    record["validate"] = data_axis_validate(root, data, vflags, recs)
+    phase_s = time.perf_counter() - t_phase
+    rec0 = recs[0]
+    ips = {k: rec0[k]["epoch_log"][-1]["images"] / rec0[k]["epoch_log"][-1]["train_s"]
+           for k in ("a", "b")}
+    ar = sorted(rec0["allreduce"]["ms"])
+    split_a = data_axis_split_a(recs)
+    how = ("both ranks share one card over gloo, collectives through the host: not a scaling "
+           "figure" if shared else "NCCL, one card per rank")
+    log(f"data axis (R50 bf16 640x1024, global B=8 on {ranks} ranks, {how}; deterministic "
+        f"cuDNN): (a) state 0 {ips['a']:.2f} images/s against {one_ips:.2f} for one process on "
+        f"the same first epoch with the same cuDNN settings, (b) state 1 with the battery "
+        f"{ips['b']:.2f} images/s (host clock, loader included); gradient all-reduce {np.median(ar):.1f} ms median "
+        f"(min {ar[0]:.1f}) for {rec0['allreduce']['mb']:.1f} MB; IL passes on {ranks} ranks "
+        + ", ".join(f"{p['name']} {p['s']:.2f} s" for p in rec0["passes"]
+                    if p["name"] != "agem_refresh")
+        + f", A-GEM refresh {record['agem_ms_per_refresh']:.1f} ms each; peak memory per rank "
+        + ", ".join(f"{r['peak_gib']:.2f} GiB" for r in recs)
+        + f"; the ranks' run {run_s:.1f} s; phase 14 took {phase_s:.1f} s")
+    record.update(images_per_s=ips, one_process_images_per_s_a=one_ips, split_a=split_a,
+                  allreduce_ms=rec0["allreduce"]["ms"],
+                  allreduce_mb=rec0["allreduce"]["mb"], route=how,
+                  peak_gib=[r["peak_gib"] for r in recs], run_s=run_s, phase_s=phase_s)
+    return record
+
+
+def data_axis_split_a(recs) -> list:
+    """(a)'s epoch on each rank, split on the host clock (no trace): the
+    epoch's training seconds, the loader waits among them, the micro-steps'
+    seconds (``run_batch``, no synchronise: an apply's collectives wait
+    for the card), and the checkpoint's blocking seconds."""
+    out = []
+    for r in recs:
+        ep = r["a"]["epoch_log"][-1]
+        steps = [s["s"] for s in r["steps"][:r["a"]["micro_steps"]]]
+        out.append(dict(rank=r["rank"], train_s=ep["train_s"], loader_wait_s=ep["loader_wait_s"],
+                        steps_s=steps, save_blocking_s=ep["save_blocking_s"]))
+        log(f"data axis (a) rank {r['rank']} (host clock, untraced): epoch {ep['train_s']:.2f} s "
+            f"of training, loader waits {ep['loader_wait_s']:.2f} s, {len(steps)} micro-steps "
+            f"{sum(steps):.2f} s (first {steps[0]:.2f}, then median "
+            f"{sorted(steps[1:])[len(steps[1:]) // 2]:.3f}, max {max(steps[1:]):.2f}), "
+            f"checkpoint blocking {ep['save_blocking_s']:.2f} s")
+    return out
+
+
+def data_axis_one_process(flags) -> float:
+    """(a) in one process on this card: ``cli.train`` of the same flags
+    without ``--mesh``, one first epoch at global B=8 under the ranks'
+    cuDNN settings (deterministic, no autotuning); its images/s (host
+    clock, loader included), the baseline of (a)'s."""
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.cli.train import main as train_main
+
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        tr = train_main(flags)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    ep = tr.epoch_log[-1]
+    if not np.isfinite(np.asarray(tr.loss_hist)).all():
+        raise AssertionError("(a) in one process: a loss is not finite")
+    return ep["images"] / ep["train_s"]
+
+
+def check_data_axis_run(recs, shared: bool, run_s: float) -> dict:
+    """Phase 14's checks on the ranks' records (module docstring); returns
+    the phase's record."""
+    import numpy as np
+
+    r0, r1 = recs[0], recs[1]
+    backends = {r["a"]["backend"] for r in recs}
+    want_backend = "gloo" if shared else "nccl"
+    devices = [r["a"]["device"] for r in recs]
+    log(f"data axis: backends {sorted(backends)} on {devices}; micro-steps (a) "
+        f"{r0['a']['micro_steps']}, (b) {len(r0['steps']) - r0['a']['micro_steps']}; writes "
+        f"into the run root by rank: {[r['writes'] for r in recs]}")
+    if backends != {want_backend} or len(set(devices)) != (1 if shared else len(recs)):
+        raise AssertionError(f"backends {backends} on {devices}, want {want_backend}")
+    for tag in ("a", "b"):
+        if r0[tag]["checksums"] != r1[tag]["checksums"]:
+            raise AssertionError(f"({tag}): the ranks' parameters differ")
+        if r0[tag]["loss_hist"] != r1[tag]["loss_hist"]:
+            raise AssertionError(f"({tag}): the ranks' global losses differ")
+        if not np.isfinite(np.asarray(r0[tag]["loss_hist"])).all():
+            raise AssertionError(f"({tag}): a loss is not finite")
+    if r1["writes"] != {"checkpoints": 0, "arrays": 0} or not r0["writes"]["checkpoints"]:
+        raise AssertionError(f"writes {[r['writes'] for r in recs]}: only rank 0 may write")
+    if r0["b"]["exemplars"] != r1["b"]["exemplars"] or r0["b"]["bic"] != r1["b"]["bic"]:
+        raise AssertionError("the ranks' exemplar ids or BiC scalars differ")
+    n_a = r0["a"]["micro_steps"]
+    for r in recs:
+        la = {s["launches"] for s in r["steps"][:n_a]}
+        lb = {s["launches"] for s in r["steps"][n_a:]}
+        if la != {1} or lb != {2} or any(s["replay"] for s in r["steps"]):
+            raise AssertionError(f"rank {r['rank']}: stem launches per micro-step {la} in "
+                                 f"(a), {lb} in (b), want 1 and 2 (no replay micro-step)")
+        if any(p["launches"] != p["batches"] or not p["batches"] for p in r["passes"]):
+            raise AssertionError(f"rank {r['rank']}: a pass launched the stem other than "
+                                 f"once per batch: {r['passes']}")
+    names = [p["name"] for p in r0["passes"]]
+    for name in ("similarity", "mas", "pseudo_labels", "bic_epoch", "agem_refresh"):
+        if name not in names:
+            raise AssertionError(f"the {name} pass did not run: {names}")
+    refresh = [p for p in r0["passes"] if p["name"] == "agem_refresh"]
+    log(f"data axis: ranks bit-identical after every epoch (checksums of "
+        f"{len(r0['b']['checksums'])} tensors); exemplars {r0['b']['exemplars']}; BiC "
+        f"{r0['b']['bic']}; stem launches per rank per micro-step 1 in (a), 2 in (b); "
+        f"(c) per rank: {[(r['c']['nms'], r['c']['stem']) for r in recs]} NMS and stem "
+        f"launches, mAP50 {r0['c']['map50']:.4f}")
+    return dict(micro_steps=[n_a, len(r0["steps"]) - n_a], backend=want_backend,
+                exemplars=r0["b"]["exemplars"], bic=r0["b"]["bic"],
+                passes={p["name"]: p["s"] for p in r0["passes"] if p["name"] != "agem_refresh"},
+                agem_ms_per_refresh=sum(p["s"] for p in refresh) / len(refresh) * 1e3,
+                launches_c=[(r["c"]["nms"], r["c"]["stem"]) for r in recs],
+                seconds={k: r0[k]["s"] for k in ("a", "b", "c")})
+
+
+def data_axis_gradient(out: str, flags, recs) -> dict:
+    """(a)'s first apply: rank 0's all-reduced gradient against one
+    process's of the same two global batches (the ranks' slices joined)
+    from the same initial weights, at phase 12's bar: the larger of the
+    gradient bar and twice the move that one-ulp weight changes (four
+    seeds) give the single-process gradient."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch.data.loader import Batch
+    from cl_object_detection_tpu_torch.train import step as step_mod
+
+    want_grad = torch.load(os.path.join(out, "rank0", "grad.pt"), weights_only=True)
+    init = torch.load(os.path.join(out, "rank0", "init.pt"), weights_only=True)
+    batches = []
+    for k in (1, 2):
+        parts = [np.load(os.path.join(out, f"rank{r}", f"batch{k}.npz")) for r in range(len(recs))]
+        arrays = {f: np.concatenate([p[f] for p in parts]) for f in ("images", "boxes", "labels")}
+        n = arrays["images"].shape[0]
+        batches.append(Batch(num_boxes=np.zeros(n, np.int32), num_pseudo=np.zeros(n, np.int32),
+                             scales=np.ones(n, np.float32), image_ids=np.arange(n), **arrays))
+    tr = trainer_from_flags(flags)
+    real_reduce = step_mod.all_reduce_grads
+    got = {}
+
+    def capture(mesh, grads):
+        got["g"] = {k: v.detach().clone() for k, v in grads.items()}
+        return real_reduce(mesh, grads)
+
+    def single(state):
+        tr.model.load_state_dict(state)
+        tr._new_train_state()
+        tr.warm_up(1)
+        for b in batches:
+            tr.run_batch(b, sync_metrics=False)
+        return {k: v.cpu() for k, v in got.pop("g").items()}
+
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    step_mod.all_reduce_grads = capture
+    try:
+        ref = single(init)
+        moves = [_grads_rel(single(_ulp_moved(init, s)), ref)[0] for s in DATA_AXIS_ULP_SEEDS]
+    finally:
+        step_mod.all_reduce_grads = real_reduce
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    worst, rel, leaves = _grads_rel(want_grad, ref)
+    bar = max(1.0, 2 * max(moves))
+    log(f"data axis: (a)'s first apply, the all-reduced gradient of {len(recs)} ranks against "
+        f"one process's of the same global batches: worst {worst:.3g} of the gradient bar "
+        f"(|d| <= 1e-3 |g| + 1e-4 max|g| per leaf; largest |d| / max|g| {rel:.3g}; worst "
+        f"leaves {leaves}); one-ulp weight moves give {[f'{m:.3g}' for m in moves]}; bar "
+        f"{bar:.3g}")
+    if not worst <= bar:
+        raise AssertionError("the all-reduced gradient differs from one process's")
+    return dict(worst=worst, rel=rel, ulp_moves=moves, bar=bar)
+
+
+def _rows_by_key(rows):
+    """{(image, category): [(score, bbox), ...] by descending score}."""
+    out = {}
+    for r in rows:
+        out.setdefault((r["image_id"], r["category_id"]), []).append((r["score"], r["bbox"]))
+    return {k: sorted(v, key=lambda t: -t[0]) for k, v in out.items()}
+
+
+def _global_batches(vflags) -> int:
+    """The number of global batches ``cli.validate`` of ``vflags`` runs."""
+    from cl_object_detection_tpu_torch.cli import validate
+    from cl_object_detection_tpu_torch.cli.common import args_to_config
+    from cl_object_detection_tpu_torch.config import PredictConfig
+    from cl_object_detection_tpu_torch.data.coco import CocoJson
+    from cl_object_detection_tpu_torch.eval.evaluator import Evaluator
+    from cl_object_detection_tpu_torch.states import ILStates
+
+    a = validate.get_parser().parse_args(vflags)
+    cfg = args_to_config(a)
+    coco = CocoJson(a.test_json)
+    states = ILStates(list(coco.classes.values()), coco.classes_inverse, list(cfg.il.scenario))
+    return len(Evaluator(coco, states, a.image_dir, cfg.data, PredictConfig(),
+                         state_index=a.state).loader)
+
+
+def data_axis_validate(root: str, data: str, vflags, recs) -> dict:
+    """(c) against one process: ``cli.validate`` of (a)'s checkpoint (phase
+    9's reader), and of (b)'s with ``--bic`` under ``pallas_fp`` in
+    batches of 4, the ranks' batch, whose rows (c)'s must equal bit for
+    bit, and of 8, whose per-class AP50 (c)'s must hold within
+    ``DATA_AXIS_AP_TOL`` (module docstring)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch import config as config_mod
+    from cl_object_detection_tpu_torch.cli import validate
+
+    def single(tag, flags):
+        return validate.main(flags + ["--new_folder", "true", "--specific_folder", tag])
+
+    res_a = single("single", ["--root_dir", root, "--test_json",
+                              os.path.join(data, "test.json"), "--image_dir",
+                              os.path.join(data, "images"), "--state", "0", "--epoch", "1"]
+                   + IL_MODEL_FLAGS)
+    if not np.isfinite(res_a[1].mean_ap50):
+        raise AssertionError("cli.validate of (a)'s checkpoint: mAP not finite")
+    # the ranks' cuDNN settings: deterministic, no autotuning (an earlier
+    # phase leaves autotuning on, which picks other algorithms)
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    real_pc = config_mod.PredictConfig
+    config_mod.PredictConfig = functools.partial(real_pc, nms_impl="pallas_fp")
+    try:
+        zero_counts()
+        res4 = single("single4", vflags + ["--batch_size", "4"])
+        counts = read_counts()
+        res8 = single("single8", vflags)
+    finally:
+        config_mod.PredictConfig = real_pc
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    out = os.path.join(root, "val_result", "15_5", "state1")
+    rows = {}
+    for tag in ("", "single4", "single8"):
+        with open(os.path.join(out, tag, "voc2007_results_epoch1_bic.json")) as f:
+            rows[tag] = json.load(f)
+    same = rows[""] == rows["single4"]
+    ap_ranks = recs[0]["c"]["ap50"]
+    d_ap4 = max(abs(ap_ranks[c] - res4[1].ap50[c]) for c in ap_ranks)
+    d_ap8 = max(abs(ap_ranks[c] - res8[1].ap50[c]) for c in ap_ranks)
+    # beside it, the rows of the batches of 8 paired by (image, class) and rank
+    by4, by8 = _rows_by_key(rows[""]), _rows_by_key(rows["single8"])
+    paired = sum(min(len(v), len(by8.get(k, ()))) for k, v in by4.items())
+    d_score = max((abs(a[0] - b[0]) for k, v in by4.items() for a, b in zip(v, by8.get(k, ()))),
+                  default=0.0)
+    log(f"data axis: (c) cli.validate --mesh --bic on {len(recs)} ranks (pallas_fp) against "
+        f"one process: in batches of 4 (launches {counts}) {len(rows['single4'])} rows, equal "
+        f"bit for bit: {same}, per-class AP50 largest |d| {d_ap4:.3g}; in batches of 8 "
+        f"{len(rows['single8'])} rows against the ranks' {len(rows[''])} ({paired} paired by "
+        f"(image, class) and rank, largest |d score| {d_score:.3g}), per-class AP50 largest |d| "
+        f"{d_ap8:.3g} (bar {DATA_AXIS_AP_TOL}); mAP50 {recs[0]['c']['map50']:.4f} against "
+        f"{res4[1].mean_ap50:.4f} and {res8[1].mean_ap50:.4f}; (a)'s checkpoint through phase "
+        f"9's single-process reader: mAP50 {res_a[1].mean_ap50:.4f}")
+    if not (same and rows[""] and d_ap4 == 0 and d_ap8 <= DATA_AXIS_AP_TOL):
+        raise AssertionError("(c)'s rows or AP differ from one process's")
+    batches = _global_batches(vflags)
+    for r in recs:
+        if not r["c"]["nms"] == r["c"]["stem"] == batches:
+            raise AssertionError(f"rank {r['rank']}: (c) launches {r['c']}, want one NMS and "
+                                 f"one stem launch per batch ({batches})")
+    return dict(rows=len(rows[""]), equal_to_batches_of_4=same, d_ap50_batches_of_8=d_ap8,
+                d_score_batches_of_8=d_score, map50=[recs[0]["c"]["map50"], res8[1].mean_ap50],
+                map50_a=res_a[1].mean_ap50)
+
+
 def trainer_from_flags(argv, override=None):
     """An ``ILTrainer`` on the card from ``cli.train``'s flags, built as
     ``cli.train.main`` builds it (no training); ``override`` maps the
@@ -3367,7 +3920,6 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-
     results: dict = {}
     check_stem(results)
     check_nms(results)
@@ -3394,6 +3946,8 @@ def main() -> int:
         il_battery = il_battery_path(tmp, il_state1["state1_step_ms"])
         torch.cuda.empty_cache()
         export = export_path(tmp)
+        torch.cuda.empty_cache()
+        data_axis = data_axis_path(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3410,6 +3964,7 @@ def main() -> int:
     log(json.dumps({"il_replay": il_replay}))
     log(json.dumps({"il_battery": il_battery}))
     log(json.dumps({"export": export, "operator_overhead_us": overhead}))
+    log(json.dumps({"data_axis": data_axis}))
     log(f"predict B=32 images/s: float {ips['float']:.2f}, int8 {ips['int8']:.2f} (before the "
         f"kernels became torch.library operators: 464.67 and 225.81 on an H100 80GB HBM3 at "
         f"700 W); the operators add {overhead['int8_matmul']['added_us']:.1f} us of host time "

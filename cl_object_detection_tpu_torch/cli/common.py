@@ -1,8 +1,13 @@
 """Shared CLI plumbing (the JAX package's ``cli/common.py``): the same
 flags -> TrainConfig for ``cli.train`` and ``cli.validate``. ``--cpu``
 selects the CPU device in place of the JAX backend switch; flags for
-what the port does not have yet parse, and ``refuse_unported`` (here and
-in ``cli/validate.py``) refuses them naming the ROADMAP item."""
+what the port does not have yet parse, and ``refuse_unported`` refuses
+them naming the ROADMAP item. ``start_ranks`` puts a ``--mesh`` run on
+the data axis (``parallel/mesh.py``): with the process flags
+(``--coordinator_address host:port --num_processes N --process_id r``)
+this process is one rank of N; under ``torchrun`` its environment says
+which; otherwise ``--mesh true`` starts one rank per visible device
+(``--num_data`` of them on the CPU with ``--cpu``) and waits for them."""
 from __future__ import annotations
 
 import argparse
@@ -187,13 +192,20 @@ def add_train_flags(parser: argparse.ArgumentParser) -> None:
     p.add_argument("--max_side", type=int, default=None,
                    help="resize max-side cap (default: image_width)")
     p.add_argument("--seed", type=int, default=0)
-    # parallelism: parsed, refused (ROADMAP §1 item 6)
+    # parallelism: the mesh's data axis (parallel/mesh.py); the model
+    # axis and ZeRO-1 are refused (ROADMAP §1 item 6b)
     p.add_argument("--mesh", type=str2bool, default=False,
-                   help="not ported: refused")
-    p.add_argument("--num_model", type=int, default=1, help="not ported: refused")
-    p.add_argument("--num_data", type=int, default=-1, help="not ported: refused")
+                   help="data-parallel over ranks, one per device (NCCL when each has "
+                        "a card, gloo on the CPU or on a shared card)")
+    p.add_argument("--num_model", type=int, default=1,
+                   help="model-axis size; only 1 is ported")
+    p.add_argument("--num_data", type=int, default=-1,
+                   help="data-axis size (-1: one rank per visible device; with --cpu "
+                        "the number of CPU ranks)")
     p.add_argument("--zero1", type=str2bool, default=False, help="not ported: refused")
-    p.add_argument("--coordinator_address", default=None, help="not ported: refused")
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of rank 0's rendezvous: this process is rank "
+                        "--process_id of --num_processes")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--just_train_classifier", type=str2bool, default=False,
@@ -205,19 +217,58 @@ def add_train_flags(parser: argparse.ArgumentParser) -> None:
 
 
 def uses_mesh(a: argparse.Namespace) -> bool:
-    """Whether any multi-device flag is set."""
-    return bool(a.mesh or a.zero1 or a.num_model != 1 or a.num_data != -1
-                or a.coordinator_address or (a.num_processes or 1) > 1
-                or a.process_id is not None)
+    """Whether the run is on the mesh's data axis: ``--mesh``, or the
+    process flags of several processes."""
+    return bool(a.mesh or a.coordinator_address or (a.num_processes or 1) > 1)
 
 
 def refuse_unported(parser: argparse.ArgumentParser, a: argparse.Namespace) -> None:
-    """``parser.error`` for a training flag whose feature the port lacks,
-    naming the ROADMAP item that ports it."""
-    if uses_mesh(a):
-        parser.error("multi-device training (--mesh, --num_model, --num_data, "
-                     "--zero1, --coordinator_address, --num_processes, "
-                     "--process_id) is not ported yet: ROADMAP §1 item 6")
+    """``parser.error`` for a flag whose feature the port lacks, naming
+    the ROADMAP item that ports it."""
+    if a.zero1 or a.num_model != 1:
+        parser.error("ZeRO-1 and the model axis (--zero1, --num_model != 1) are not "
+                     "ported yet: ROADMAP §1 item 6b")
+
+
+def _run_rank(rank: int, entry, argv: List[str], nprocs: int, address: str) -> None:
+    entry(list(argv) + ["--coordinator_address", address, "--num_processes", str(nprocs),
+                        "--process_id", str(rank)])
+
+
+def start_ranks(a: argparse.Namespace, entry, argv: Optional[List[str]]):
+    """This process's device, after joining the data axis's process
+    group when the run has several ranks; or None when this process
+    started the ranks itself (``--mesh true`` with no process flags,
+    outside ``torchrun``), ran ``entry(argv + process flags)`` in each
+    and waited for them (the first that raises ends the others, and the
+    error is raised here)."""
+    import sys
+
+    import torch
+
+    from ..parallel import mesh as pmesh
+
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if a.mesh and not a.coordinator_address and not torchrun:
+        if a.cpu:
+            n = a.num_data if a.num_data > 0 else 1
+        else:
+            from .. import resolve_device
+
+            resolve_device(None)                 # raises without CUDA
+            cards = torch.cuda.device_count()
+            n = a.num_data if a.num_data > 0 else cards
+            if n > cards:
+                raise RuntimeError(f"--num_data {n} ranks but {cards} CUDA device(s): a "
+                                   "rank would have no device of its own")
+        if n > 1:
+            argv = list(sys.argv[1:] if argv is None else argv)
+            address = f"127.0.0.1:{pmesh.free_port()}"
+            print(f"mesh: starting {n} ranks (rendezvous {address})", flush=True)
+            pmesh.spawn_ranks(_run_rank, n, (entry, argv, n, address))
+            return None
+    return pmesh.init_distributed(a.coordinator_address, a.num_processes, a.process_id,
+                                  cpu=a.cpu)
 
 
 def args_to_config(a: argparse.Namespace) -> TrainConfig:
@@ -315,7 +366,7 @@ def args_to_config(a: argparse.Namespace) -> TrainConfig:
             final_correction=a.final_correction,
         ),
         mesh=MeshConfig(
-            enabled=a.mesh, num_model=a.num_model, num_data=a.num_data,
+            enabled=uses_mesh(a), num_model=a.num_model, num_data=a.num_data,
             zero1=a.zero1,
         ),
         seed=a.seed,

@@ -16,8 +16,23 @@ at or below the epoch before it, and trains states ``--start_state`` to
 teacher; ``--start_state 1`` enters state 1 from the state-0
 checkpoint); ``--val true`` then validates the last epoch
 (``cli.validate.run_validation``, with the checkpoint's BiC correction
-under ``--bic true``). The multi-device flags are refused naming the
-ROADMAP item. ``main`` returns the trainer.
+under ``--bic true``). ``main`` returns the trainer.
+
+The mesh's data axis (``cli/common.start_ranks``, ``parallel/mesh.py``):
+
+    # one rank per visible card (or --num_data N CPU ranks with --cpu)
+    python -m cl_object_detection_tpu_torch.cli.train ... --mesh true
+    # or each rank started by hand (two on one card share it over gloo)
+    python -m cl_object_detection_tpu_torch.cli.train ... --mesh true \
+        --coordinator_address 127.0.0.1:29500 --num_processes 2 --process_id 0
+    # or under torchrun
+    torchrun --nproc_per_node 2 -m cl_object_detection_tpu_torch.cli.train ... --mesh true
+
+Every rank trains its slice of each global batch (``--batch_size`` is the
+global size); rank 0 writes the checkpoints, ``params.json`` and the
+records. When ``main`` started the ranks itself it returns None.
+``--zero1`` and ``--num_model`` other than 1 are refused naming ROADMAP
+§1 item 6b.
 """
 from __future__ import annotations
 
@@ -29,7 +44,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     from .common import (add_train_flags, args_to_config, print_il_info,
-                         refuse_unported, resolve_dataset_paths)
+                         refuse_unported, resolve_dataset_paths, start_ranks)
 
     add_train_flags(parser)
     a = parser.parse_args(argv)
@@ -38,32 +53,34 @@ def main(argv=None):
 
     import torch
 
-    from .. import resolve_device
     from ..train.loop import train_process
     from ..train.trainer import ILTrainer
     from ..utils.profiling import stop_trace_guarded
     from ..utils.recorder import Recorder
 
-    device = resolve_device("cpu" if a.cpu else None)
+    device = start_ranks(a, main, argv)
+    if device is None:
+        return None
     if cfg.debug:
         # fail at the operation whose backward produced a NaN
         torch.autograd.set_detect_anomaly(True)
 
     train_json, image_dir = resolve_dataset_paths(a, "train")
     trainer = ILTrainer(cfg, train_json, image_dir, workdir=a.root_dir, device=device)
-    if a.print_il_info:
+    if a.print_il_info and trainer.primary:
         print_il_info(cfg, trainer.states)
 
     # the config beside the checkpoints
-    cfg_path = os.path.join(trainer.ckpt.state_dir(cfg.il.start_state), "params.json")
-    with open(cfg_path, "w") as f:
-        f.write(cfg.to_json())
+    if trainer.primary:
+        cfg_path = os.path.join(trainer.ckpt.state_dir(cfg.il.start_state), "params.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
 
     recorder = Recorder(
         log_root=os.path.join(a.root_dir, "runs"),
         scenario_tag="_".join(str(s) for s in cfg.il.scenario),
         description=cfg.description,
-        enabled=cfg.record,
+        enabled=cfg.record and trainer.primary,
     )
     try:
         # resume: start_epoch > 1 restores that state's checkpoint; with
@@ -76,8 +93,9 @@ def main(argv=None):
                     f"--start_epoch {a.start_epoch}: no checkpoint at or below "
                     f"epoch {a.start_epoch - 1} for state {cfg.il.start_state}")
             if actual != a.start_epoch - 1:
-                print(f"--start_epoch {a.start_epoch}: epoch {a.start_epoch - 1} "
-                      f"not saved; resuming from epoch {actual}")
+                if trainer.primary:
+                    print(f"--start_epoch {a.start_epoch}: epoch {a.start_epoch - 1} "
+                          f"not saved; resuming from epoch {actual}")
                 cfg = cfg.replace(start_epoch=actual + 1)
                 trainer.cfg = cfg
             trainer.resume(cfg.il.start_state, actual)
@@ -101,7 +119,7 @@ def main(argv=None):
             print(f"warning: no checkpoint for state {end_state}; "
                   "skipping chained validation")
         else:
-            run_validation(a, state=end_state, epochs=[last])
+            run_validation(a, state=end_state, epochs=[last], device=device)
     return trainer
 
 

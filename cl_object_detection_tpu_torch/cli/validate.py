@@ -17,8 +17,15 @@ state dict (``.pt`` or ``.npz``) instead, loaded once for every epoch.
 ``il_meta["bic"]`` scalars, ``il/bic.bic_correct_from_meta``) and adds
 ``_bic`` to the result JSONs and the decline CSV; an epoch without BiC
 state is predicted uncorrected and written without the suffix, and
-``--torch_ckpt`` (no meta) ignores the flag with a warning. The mesh
-flags are refused naming the ROADMAP item that ports them.
+``--torch_ckpt`` (no meta) ignores the flag with a warning.
+
+``--mesh true`` (and the process flags, or ``torchrun``, as for
+``cli.train``) predicts on the mesh's data axis: each rank predicts its
+slice of every batch (``Evaluator`` with ``mesh=``, ``--bic`` and
+``--quantize`` included), the rows are gathered, and rank 0 scores them
+and writes every output; every rank returns rank 0's results. The batch
+size must divide by the rank count. ``--zero1`` and ``--num_model``
+other than 1 are refused naming ROADMAP §1 item 6b.
 """
 from __future__ import annotations
 
@@ -65,29 +72,32 @@ def get_parser():
     return parser
 
 
-def refuse_unported(parser: argparse.ArgumentParser, a: argparse.Namespace) -> None:
-    """``parser.error`` for a validate flag whose feature the port lacks,
-    naming the ROADMAP item that ports it."""
-    from .common import uses_mesh
-
-    if uses_mesh(a):
-        parser.error("multi-device evaluation (--mesh and its flags) is not ported "
-                     "yet: ROADMAP §1 item 6")
-
-
-def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] = None):
+def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] = None,
+                   device=None):
+    """The validation of ``a``'s flags on ``device`` (default: the one
+    ``resolve_device`` gives), on the data axis's ranks under ``--mesh``
+    (the process group already joined)."""
     from .. import resolve_device
     from ..config import PredictConfig
     from ..data.coco import CocoJson
     from ..eval.evaluator import Evaluator
     from ..eval.report import decline_csv, load_upper_bound, save_upper_bound
     from ..models.retinanet import create_retinanet
+    from ..parallel import mesh as pmesh
     from ..states import ILStates
     from ..utils.checkpoint import CheckpointManager
     from .common import args_to_config, resolve_dataset_paths
 
-    device = resolve_device("cpu" if getattr(a, "cpu", False) else None)
+    if device is None:
+        device = resolve_device("cpu" if getattr(a, "cpu", False) else None)
     cfg = args_to_config(a)
+    mesh = pmesh.create_mesh(cfg.mesh, device) if cfg.mesh.enabled else None
+    if mesh is not None:
+        if cfg.data.batch_size % mesh.world:
+            raise SystemExit(f"--mesh: batch_size {cfg.data.batch_size} not divisible by "
+                             f"the data axis ({mesh.world})")
+        print(pmesh.describe(mesh))
+    primary = pmesh.is_primary(mesh)
     state = state if state is not None else getattr(a, "state", 0)
     epochs = epochs if epochs is not None else getattr(a, "epoch", [-1])
     threshold = getattr(a, "threshold", 0.05)
@@ -105,7 +115,7 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
     )
     # where the port's trainer keeps them (cli.train: workdir = root_dir)
     ckpt = CheckpointManager(os.path.join(a.root_dir, cfg.checkpoint_dir),
-                             cfg.il.scenario, cfg.keep_every)
+                             cfg.il.scenario, cfg.keep_every, mesh=mesh)
     num_classes = states[state].num_knowing_class
 
     predict_cfg = PredictConfig(
@@ -130,10 +140,13 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
             from datetime import datetime
 
             folder = datetime.now().strftime("%Y-%m-%d-%H-%M")
+        folder = pmesh.broadcast_object(mesh, folder)     # rank 0's timestamp
         result_dir = os.path.join(result_dir, folder)
-        print(f"results folder: {result_dir}")
-    os.makedirs(result_dir, exist_ok=True)
-    _copy_run_artifacts(ckpt.state_dir(state), result_dir)
+        if primary:
+            print(f"results folder: {result_dir}")
+    if primary:
+        os.makedirs(result_dir, exist_ok=True)
+        _copy_run_artifacts(ckpt.state_dir(state), result_dir)
 
     use_bic = bool(getattr(a, "bic", False))
     suffix = "_bic" if use_bic else ""
@@ -203,13 +216,19 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
 
     if to_predict:
         # all requested epochs share ONE decode pass over the split
-        predicted = evaluator.predict_dataset_multi(to_predict, progress=True,
+        predicted = evaluator.predict_dataset_multi(to_predict, progress=True, mesh=mesh,
                                                     bic_correct_by_key=bic_by_epoch)
         for epoch, rows in predicted.items():
-            with open(result_json_path(epoch, use_bic and epoch in bic_by_epoch), "w") as f:
-                json.dump(rows, f)
+            if primary:
+                with open(result_json_path(epoch, use_bic and epoch in bic_by_epoch),
+                          "w") as f:
+                    json.dump(rows, f)
             rows_by_epoch[epoch] = rows
 
+    if not primary:
+        # rank 0 scores the rows and writes the rest; every rank returns
+        # its results
+        return pmesh.broadcast_object(mesh, None)
     results = {}
     for epoch in sorted(rows_by_epoch):
         res = evaluator.evaluate(rows_by_epoch[epoch],
@@ -236,7 +255,7 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
         )
         print(f"wrote {os.path.join(result_dir, csv_name)}")
     _write_hparams_summary(a, cfg, state, results)
-    return results
+    return pmesh.broadcast_object(mesh, results)
 
 
 def _copy_run_artifacts(state_dir: str, result_dir: str) -> None:
@@ -299,10 +318,15 @@ def _write_hparams_summary(a, cfg, state: int, results) -> None:
 
 
 def main(argv=None):
+    from .common import refuse_unported, start_ranks
+
     parser = get_parser()
     a = parser.parse_args(argv)
     refuse_unported(parser, a)
-    return run_validation(a)
+    device = start_ranks(a, main, argv)
+    if device is None:
+        return None
+    return run_validation(a, device=device)
 
 
 if __name__ == "__main__":

@@ -233,8 +233,14 @@ class ILConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout of multi-device training (ROADMAP §1 item 6:
-    not ported; the trainer raises when ``enabled``)."""
+    """Device-mesh layout of multi-device training. The port has the data
+    axis (``parallel/mesh.py``): one process per device on
+    ``torch.distributed``, every batch split over the ranks, the global
+    batch's gradient all-reduced. ``enabled=True`` makes the trainer, the
+    IL tools and the evaluator run on the ranks of the process group
+    (one rank when there is none); batch sizes (train and replay) must be
+    multiples of the rank count. ``num_model > 1`` and ``zero1`` raise
+    (ROADMAP §1 item 6b)."""
     enabled: bool = False
     data_axis: str = "data"
     model_axis: str = "model"

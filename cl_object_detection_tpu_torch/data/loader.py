@@ -13,7 +13,11 @@ package's ``data/loader.py``).
     concurrently (zlib, numpy and the torch resize release the GIL);
   * augmentation randomness is a pure function of (seed, epoch, image
     index, batch slot), so batches are identical whatever the worker
-    count or thread scheduling, and a resumed run sees the same data.
+    count or thread scheduling, and a resumed run sees the same data;
+  * on the mesh's data axis (``process_index``, ``process_count``) every
+    rank draws the same global schedule and decodes only its contiguous
+    slot slice of each global batch; the augmentation stays keyed by the
+    global slot, so the slices tile the single-process batch bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..config import DataConfig
 from .dataset import ILDataset
@@ -54,6 +59,21 @@ class Batch:
         return self.images.shape[0]
 
 
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: a pinned host copy, then a non-blocking
+    copy to the card."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def put_step_batch(device: torch.device, batch: Batch):
+    """(images, boxes, labels) of one step's batch on ``device``: the
+    single transfer of the train step, BiC and A-GEM."""
+    return tuple(to_device(a, device) for a in (batch.images, batch.boxes, batch.labels))
+
+
 class BatchLoader:
     """Iterates an ILDataset in frame-bucketed, static-shape batches."""
 
@@ -69,6 +89,8 @@ class BatchLoader:
         is_replay: bool = False,
         prefetch: int = 2,
         num_workers: Optional[int] = None,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.dataset = dataset
         self.cfg = cfg
@@ -81,6 +103,11 @@ class BatchLoader:
         self.prefetch = prefetch
         self.num_workers = (num_workers if num_workers is not None
                             else getattr(cfg, "num_workers", 0))
+        if process_count > 1 and self.batch_size % process_count:
+            raise ValueError(f"batch_size {self.batch_size} not divisible by "
+                             f"process_count {process_count}")
+        self.process_index = process_index
+        self.process_count = process_count
         self._pool: Optional[ThreadPoolExecutor] = None
         self._epoch = 0
         # seconds each batch of the current (or last) epoch took to
@@ -169,7 +196,11 @@ class BatchLoader:
         # COCO-json height/width metadata
         t0 = time.perf_counter()
         frame = self._canonical_of(group[0])
-        local = list(enumerate(group))
+        # this rank's contiguous slice of the global batch; the slot keys
+        # stay global
+        per = len(group) // self.process_count
+        lo = self.process_index * per
+        local = list(enumerate(group))[lo:lo + per]
 
         def make(slot_idx):
             slot, i = slot_idx

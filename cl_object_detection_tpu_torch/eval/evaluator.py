@@ -6,52 +6,38 @@ The test split's ``ILDataset`` feeds a ``BatchLoader`` (no shuffle, no
 augmentation, short groups wrap-filled); each batch goes to the model's
 device and through ``make_predict_fn``. Where the JAX package takes
 ``(model, variables)``, the port takes a model (its weights live in it).
+
+One loop serves one process and the mesh's data axis (``mesh=``, the
+model on this rank's device): each rank decodes and predicts its slice of
+every batch (the counterpart of the JAX package's
+``make_sharded_predict_fn``: detection is per image, so the predict needs
+no collective); the rows, tagged by (batch, global slot), are gathered on
+every rank with ``all_gather_object`` (the identity for one process) and
+deduplicated in batch and slot order, so the rows equal one process's.
+The COCO protocol (``evaluate``) needs no collective; ``cli.validate``
+runs it on rank 0.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
-import numpy as np
 import torch
 
 from ..config import DataConfig, PredictConfig
 from ..data.coco import CocoJson
 from ..data.dataset import ILDataset
-from ..data.loader import BatchLoader
+from ..data.loader import BatchLoader, to_device
 from ..states import ILStates
+from ..parallel.mesh import active, all_gather_object, is_primary, proc_shard
 from .coco_eval import CocoProtocolEval, EvalResult
 from .predictor import detections_to_coco, make_predict_fn
-
-MESH_NOT_PORTED = ("multi-device evaluation (mesh=) is not ported yet: "
-                   "ROADMAP §1 item 6")
-
-
-def _first_occurrence_slots(batch, seen):
-    """(keep_slots, batch_new_ids): one True slot per image — the static
-    loader wrap-fills short canonical-frame groups by REPEATING images
-    WITHIN a batch, so both cross-batch and in-batch repeats must emit
-    rows from exactly one slot (else duplicate COCO rows corrupt AP)."""
-    keep = []
-    batch_seen = set()
-    for i in batch.image_ids.tolist():
-        keep.append(i >= 0 and i not in seen and i not in batch_seen)
-        batch_seen.add(i)
-    batch_seen.discard(-1)
-    return keep, batch_seen
 
 
 def _device_of(model) -> torch.device:
     return next(model.parameters()).device
-
-
-def _to_device(images: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(images))
-    if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 def _progress(loader, enabled: bool) -> Iterable:
@@ -105,28 +91,50 @@ class Evaluator:
         self.label_to_cat = states.inverse_label_map()
 
     # ------------------------------------------------------------------
+    def _predict(self, fns: Dict, device: torch.device, mesh,
+                 progress: bool) -> Dict[Any, List[dict]]:
+        """Every key's COCO rows of the split: ``fns[key](images)`` on each
+        batch's images on ``device`` (on the mesh, this rank's slice of
+        every batch). The rows of every (batch, global slot) are gathered
+        from the ranks, then kept from the first slot of each image in
+        batch and slot order: the static loader wrap-fills short groups by
+        REPEATING images, across and within batches, so each image's rows
+        must come from exactly one slot (else duplicate COCO rows corrupt
+        AP)."""
+        loader = (BatchLoader(self.dataset, self.data_cfg, shuffle=False, augment=False,
+                              drop_last=False, **proc_shard(mesh))
+                  if active(mesh) else self.loader)
+        lo = loader.process_index * (loader.batch_size // loader.process_count)
+        mine = []                               # (batch, slot, image id, {key: rows})
+        for b, batch in enumerate(_progress(loader, progress and is_primary(mesh))):
+            images = to_device(batch.images, device)
+            per_key = {key: detections_to_coco(fn(images), batch, self.label_to_cat,
+                                               self.predict_cfg.score_thresh, by_slot=True)
+                       for key, fn in fns.items()}
+            for j, img_id in enumerate(batch.image_ids.tolist()):
+                mine.append((b, lo + j, img_id, {k: v[j] for k, v in per_key.items()}))
+        entries = sorted((e for rank_rows in all_gather_object(mesh, mine) for e in rank_rows),
+                         key=lambda e: e[:2])
+        seen: set = set()
+        results: Dict[Any, List[dict]] = {k: [] for k in fns}
+        for _, _, img_id, rows in entries:
+            if img_id < 0 or img_id in seen:
+                continue
+            seen.add(img_id)
+            for k in fns:
+                results[k].extend(rows[k])
+        return results
+
     def predict_dataset(self, model, progress: bool = False, mesh=None,
                         bic_correct=None) -> List[dict]:
         """Run batched inference over the whole split; returns COCO result
         rows (deduped — the static loader wraps short batches).
 
         ``bic_correct``: optional logits->logits callable (the BiC bias
-        correction) applied before the sigmoid."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        correction) applied before the sigmoid. ``mesh``: the data axis
+        (module docstring); every rank gets all the rows."""
         predict = make_predict_fn(model, self.predict_cfg, bic_correct=bic_correct)
-        device = _device_of(model)
-        seen: set = set()
-        results: List[dict] = []
-        for batch in _progress(self.loader, progress):
-            det = predict(_to_device(batch.images, device))
-            keep, batch_seen = _first_occurrence_slots(batch, seen)
-            results.extend(detections_to_coco(
-                det, batch, self.label_to_cat, self.predict_cfg.score_thresh,
-                keep_slots=keep,
-            ))
-            seen |= batch_seen
-        return results
+        return self._predict({0: predict}, _device_of(model), mesh, progress)[0]
 
     def predict_dataset_multi(
         self,
@@ -134,7 +142,7 @@ class Evaluator:
         progress: bool = False,
         mesh=None,
         bic_correct_by_key: Optional[Dict] = None,
-    ) -> Dict[int, List[dict]]:
+    ) -> Dict[Any, List[dict]]:
         """Evaluate SEVERAL checkpoints in one pass over the data: each
         decoded batch goes through every key's model before the next
         batch, so the split is decoded once. As in the JAX package, every
@@ -143,9 +151,8 @@ class Evaluator:
         package's ``bic_correct_from_meta`` gives) rides in as runtime
         vectors on the logits, the identity for keys without one.
 
-        ``models_by_key``: {key: model}, all on one device."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        ``models_by_key``: {key: model}, all on one device (this rank's on
+        the mesh's data axis, ``mesh=``)."""
         bic_correct_by_key = bic_correct_by_key or {}
         devices = {_device_of(m) for m in models_by_key.values()}
         if len(devices) != 1:
@@ -162,19 +169,7 @@ class Evaluator:
                               torch.as_tensor(bc.offset, device=device))
                              if bc is not None else identity)
             fns[key] = (lambda im, f=predict, s=scale, o=offset: f(im, s, o))
-        seen: set = set()
-        results: Dict[int, List[dict]] = {k: [] for k in models_by_key}
-        for batch in _progress(self.loader, progress):
-            keep, batch_seen = _first_occurrence_slots(batch, seen)
-            images = _to_device(batch.images, device)
-            for key in models_by_key:
-                det = fns[key](images)
-                results[key].extend(detections_to_coco(
-                    det, batch, self.label_to_cat,
-                    self.predict_cfg.score_thresh, keep_slots=keep,
-                ))
-            seen |= batch_seen
-        return results
+        return self._predict(fns, device, mesh, progress)
 
     def evaluate(self, results: List[dict], ignore_other_img: bool = False,
                  use_native: bool = True) -> EvalResult:

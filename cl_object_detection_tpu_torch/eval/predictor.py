@@ -78,7 +78,8 @@ def detections_to_coco(
     label_to_cat: Dict[int, int],
     score_thresh: float = 0.05,
     keep_slots: Optional[Sequence[bool]] = None,
-) -> List[dict]:
+    by_slot: bool = False,
+) -> List:
     """Detections (tensors on any device) -> COCO result dicts: un-scale
     boxes to original pixels, xyxy -> xywh, drop pad slots.
 
@@ -87,7 +88,9 @@ def detections_to_coco(
     bytes. ``batch`` is a ``data.loader.Batch`` (host numpy ids and
     scales). ``keep_slots``: per-slot filter — the static loader
     wrap-fills short groups by REPEATING images inside one batch, so
-    callers must emit each image's rows from exactly one slot."""
+    callers must emit each image's rows from exactly one slot.
+    ``by_slot``: one list of rows per slot (empty for dropped slots)
+    instead of one flat list."""
     b, d = det.scores.shape
     # one device -> host copy: float32 holds the labels (< 2**24) and the
     # valid bits exactly, and the boxes and scores bit for bit
@@ -98,8 +101,10 @@ def detections_to_coco(
     scores = packed[..., 4]
     labels = packed[..., 5].astype(np.int64)
     valid = packed[..., 6] > 0
-    out: List[dict] = []
+    slots: List[List[dict]] = []
     for i in range(b):
+        out: List[dict] = []
+        slots.append(out)
         if keep_slots is not None and not keep_slots[i]:
             continue
         img_id = int(batch.image_ids[i])
@@ -116,4 +121,4 @@ def detections_to_coco(
                     "score": float(scores[i, j]),
                 }
             )
-    return out
+    return slots if by_slot else [r for rows in slots for r in rows]

@@ -12,6 +12,12 @@ The gradients come from ``torch.autograd.grad`` into fresh tensors, so
 the pass leaves the train step's accumulator (the parameters' ``.grad``)
 untouched. ``AGEMConfig.refresh_every`` (in ``train/loop.py``) sets how
 often the pass runs: at 1, every micro-step, as the reference does.
+
+On the mesh's data axis (``mesh=``) the replay loader gives each rank its
+slice of every replay batch; the losses are the global batch's shares
+(``il.losses``) and each batch's gradient is all-reduced BEFORE its clip,
+so that the clip sees the global batch's gradient, as under JAX's mesh,
+and every rank holds the same replay gradient.
 """
 from __future__ import annotations
 
@@ -21,9 +27,9 @@ import numpy as np
 import torch
 
 from ..config import FocalConfig, ILConfig
+from ..data.loader import put_step_batch
+from ..parallel.mesh import all_reduce_grads
 from .losses import LossStatics, compute_losses
-
-MESH_NOT_PORTED = "A-GEM over a device mesh is not ported yet: ROADMAP §1 item 6"
 
 Grads = Dict[str, torch.Tensor]
 
@@ -45,9 +51,8 @@ class AGem:
     def __init__(self, model: torch.nn.Module, anchors: Union[np.ndarray, Callable],
                  il_cfg: ILConfig, focal_cfg: FocalConfig, loss_statics: LossStatics,
                  replay_loader, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.model = model
+        self.mesh = mesh
         self.replay_loader = replay_loader
         self.replay_grad: Optional[Grads] = None
         self.il_cfg, self.focal_cfg, self.statics = il_cfg, focal_cfg, loss_statics
@@ -58,9 +63,10 @@ class AGem:
         names, params = zip(*model.named_parameters())
         with torch.enable_grad():
             total, _ = compute_losses(model, images, boxes, labels, anchors, self.il_cfg,
-                                      self.focal_cfg, self.statics)
+                                      self.focal_cfg, self.statics, mesh=self.mesh)
             grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = list(all_reduce_grads(self.mesh, dict(zip(names, grads))).values())
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         scale = torch.clamp(0.1 / torch.clamp(norm, min=1e-6), max=1.0)
         return dict(zip(names, torch._foreach_mul(grads, scale)))
@@ -75,10 +81,8 @@ class AGem:
         n = max(len(self.replay_loader), 1)
         acc: Optional[Grads] = None
         for batch in self.replay_loader:
-            anchors, images, boxes, labels = [
-                torch.tensor(a, device=device)
-                for a in (self._anchors_provider(batch.images), batch.images, batch.boxes,
-                          batch.labels)]
+            anchors = torch.tensor(self._anchors_provider(batch.images), device=device)
+            images, boxes, labels = put_step_batch(device, batch)
             g = self._grad_step(model, anchors, images, boxes, labels)
             g = {k: v * mask[k] / n for k, v in g.items()}
             acc = g if acc is None else {k: acc[k] + v for k, v in g.items()}

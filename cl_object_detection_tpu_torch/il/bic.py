@@ -13,6 +13,12 @@ state's (alpha, beta) trains, with optax's Adam at ``BiCConfig.lr``
 loss (``is_replay=True, is_bic=True``). The held-out set carves
 ``max(sample_num * ratio, 1)`` images per class out of the replay and the
 training streams (``carve_bic_val_set``).
+
+On the mesh's data axis (``mesh=``) the held-out loader gives each rank
+its slice of every batch, the loss is the global batch's share
+(``il.losses``), and the two scalars' gradient is all-reduced before
+their Adam, so every rank takes the same step; the epoch's loss is the
+global one.
 """
 from __future__ import annotations
 
@@ -22,10 +28,10 @@ import numpy as np
 import torch
 
 from ..config import BiCConfig, FocalConfig, ILConfig
+from ..data.loader import put_step_batch
+from ..parallel.mesh import all_reduce_grads, all_reduce_metrics
 from ..train.optim import Adam
 from .losses import LossStatics, compute_losses
-
-MESH_NOT_PORTED = "BiC training over a device mesh is not ported yet: ROADMAP §1 item 6"
 
 
 class BicParams:
@@ -109,9 +115,8 @@ class BicTrainer:
                  il_cfg: ILConfig, focal_cfg: FocalConfig, bic_cfg: BiCConfig,
                  new_class_counts: Sequence[int], cur_state: int, num_past_class: int,
                  bic_loader, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.model = model
+        self.mesh = mesh
         self.cur_state = cur_state
         self.bic_loader = bic_loader
         self.params = BicParams(len(new_class_counts))
@@ -142,12 +147,14 @@ class BicTrainer:
         with torch.enable_grad():
             total, metrics = compute_losses(
                 _Frozen(model), images, boxes, labels, anchors, self.il_cfg, self.focal_cfg,
-                self.statics, bic_correct=lambda logits: self.correct(logits, alphas, betas))
+                self.statics, bic_correct=lambda logits: self.correct(logits, alphas, betas),
+                mesh=self.mesh)
             ga, gb = torch.autograd.grad(total, [alphas, betas])
-        alphas.grad, betas.grad = ga * self._mask, gb * self._mask
+        g = all_reduce_grads(self.mesh, {"alphas": ga, "betas": gb})
+        alphas.grad, betas.grad = g["alphas"] * self._mask, g["betas"] * self._mask
         self.opt.step()
         alphas.grad = betas.grad = None
-        return {k: v.detach() for k, v in metrics.items()}
+        return all_reduce_metrics(self.mesh, {k: v.detach() for k, v in metrics.items()})
 
     def train_epoch(self, model: torch.nn.Module = None) -> float:
         """One pass over the held-out loader with ``model`` frozen (default:
@@ -159,10 +166,8 @@ class BicTrainer:
                 leaf.copy_(value)
         total, n = 0.0, 0
         for batch in self.bic_loader:
-            args = [torch.tensor(a, device=device)
-                    for a in (self._anchors_provider(batch.images), batch.images, batch.boxes,
-                              batch.labels)]
-            metrics = self._train_step(model, *args)
+            anchors = torch.tensor(self._anchors_provider(batch.images), device=device)
+            metrics = self._train_step(model, anchors, *put_step_batch(device, batch))
             total += float(metrics["total_loss"])
             n += 1
         self.params.load({"alphas": self._leaves[0].detach().cpu().numpy(),

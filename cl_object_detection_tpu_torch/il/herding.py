@@ -120,9 +120,14 @@ class HerdSampler:
         data_cfg,
         per_num: int,
         future_img_ids: Sequence[int] = (),
+        mesh=None,
     ) -> Dict[int, List[int]]:
         """Pick up to ``per_num`` new exemplars per class; returns {class:
-        ids} of this call and extends the book-keeping."""
+        ids} of this call and extends the book-keeping. On the mesh's data
+        axis (``mesh=``) the passes run whole on every rank and the picks
+        follow rank 0's distances."""
+        from ..parallel.mesh import broadcast_object
+
         from ..data.loader import BatchLoader
 
         future = set(future_img_ids)
@@ -182,6 +187,7 @@ class HerdSampler:
                     if cls in means:
                         scores[cls][img_id] = float(np.linalg.norm(means[cls] - f[b]))
 
+        scores = broadcast_object(mesh, scores)
         # 4. closest first per class, no image reused
         new_dict: Dict[int, List[int]] = defaultdict(list)
         for cls, img_score in scores.items():

@@ -39,6 +39,23 @@ JAX package's (``cls_bg_loss``, ``cls_fg_loss``, ``reg_loss``,
     on the plain path the logits are taken without the activation and
     the scores are ``sigmoid(bic_correct(logits))``; on the incremental
     path the logits are corrected before the sigmoid.
+
+On the mesh's data axis (``mesh=``, W > 1 ranks, each holding its slice
+of the global batch) every term is this rank's share of the GLOBAL
+batch's, so that the mean over the ranks of the terms, and of their
+gradients, is the global batch's, as under JAX's mesh:
+  * per-image means (``fg``, ``bg``, ``reg``, the cosine feature loss, a
+    mean over B*H*W) average correctly over equal slices as they stand;
+  * terms normalised by a count over the batch (``_masked_mean``:
+    ``enhance_error``, ``dist_cls_loss``; ``_clip_fg_mean``;
+    ``dist_reg_loss``) are W * (local sum) / (global count), the count
+    all-reduced without a gradient;
+  * the focal loss's ``enhance_on_new`` term, a sum over the batch, is W *
+    (local sum);
+  * the prototype term takes the global class sums and counts and keeps
+    the gradient of this rank's share (``parallel.mesh.batch_global``);
+  * terms of the parameters alone (``mas_loss``, ``sim_loss``) stay as
+    they are.
 """
 from __future__ import annotations
 
@@ -49,6 +66,7 @@ import torch
 
 from ..config import FocalConfig, ILConfig
 from ..ops.focal_loss import focal_loss
+from ..parallel.mesh import DataMesh, active, all_reduce_sum
 from .prototype import prototype_loss_from_batch
 
 
@@ -74,25 +92,37 @@ class LossStatics:
                                        # the enhance_error term
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    cnt = mask.float().sum()
-    return torch.where(mask, values, 0.0).sum() / torch.clamp(cnt, min=1.0)
+def _global_ratio(total: torch.Tensor, cnt: torch.Tensor, mesh: Optional[DataMesh]):
+    """(numerator, count) of a batch-normalised term: on the mesh, W *
+    the local sum and the global count (no gradient through it)."""
+    if not active(mesh):
+        return total, cnt
+    return total * mesh.world, all_reduce_sum(mesh, cnt)
 
 
-def _enhance_error(cls: torch.Tensor, s: LossStatics) -> torch.Tensor:
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                 mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    total, cnt = _global_ratio(torch.where(mask, values, 0.0).sum(), mask.float().sum(), mesh)
+    return total / torch.clamp(cnt, min=1.0)
+
+
+def _enhance_error(cls: torch.Tensor, s: LossStatics,
+                   mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """New-class score penalty on replay images: sum(|p|^k over entries
     > 0.05) / max(count, 1), k per L1/L2/L3."""
     pn = cls[:, :, s.num_past_class:]
     mask = pn > 0.05
     k = {"L1": 1, "L2": 2, "L3": 3}[s.enhance_error_method.upper()]
-    return _masked_mean(torch.abs(pn) ** k, mask)
+    return _masked_mean(torch.abs(pn) ** k, mask, mesh)
 
 
-def _clip_fg_mean(fg_per_image: torch.Tensor, threshold: float) -> torch.Tensor:
+def _clip_fg_mean(fg_per_image: torch.Tensor, threshold: float,
+                  mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """Mean of the per-image fg losses >= threshold; 0 if none survive."""
     mask = fg_per_image >= threshold
-    cnt = mask.float().sum()
-    mean = torch.where(mask, fg_per_image, 0.0).sum() / torch.clamp(cnt, min=1.0)
+    total, cnt = _global_ratio(torch.where(mask, fg_per_image, 0.0).sum(),
+                               mask.float().sum(), mesh)
+    mean = total / torch.clamp(cnt, min=1.0)
     return torch.where(cnt > 0, mean, 0.0)
 
 
@@ -183,16 +213,17 @@ def compute_losses(
     bic_correct: Optional[Callable] = None,             # logits -> corrected logits
     mas_prev_params: Optional[Mapping[str, torch.Tensor]] = None,
     mas_importance: Optional[Mapping[str, torch.Tensor]] = None,
+    mesh: Optional[DataMesh] = None,   # the data axis: this rank's share
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, metrics); see the module docstring."""
     s = statics
     if s.incremental:
         result = _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg,
                                      focal_cfg, s, teacher, classifier_vectors,
-                                     pseudo_progress, prototype_features, bic_correct)
+                                     pseudo_progress, prototype_features, bic_correct, mesh)
     else:
         result = _plain_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg,
-                               focal_cfg, s, bic_correct)
+                               focal_cfg, s, bic_correct, mesh)
         if s.enhance_only:
             total = result["enhance_loss"]
             return total, {**result, "total_loss": total}
@@ -205,7 +236,7 @@ def compute_losses(
 
 def _plain_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILConfig,
                   focal_cfg: FocalConfig, s: LossStatics,
-                  bic_correct) -> Dict[str, torch.Tensor]:
+                  bic_correct, mesh) -> Dict[str, torch.Tensor]:
     """The loss terms of the plain path, in the JAX package's order."""
     result: Dict[str, torch.Tensor] = {}
     if bic_correct is not None:
@@ -214,7 +245,7 @@ def _plain_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILConfig,
     else:
         cls, regression = model(images, enable_act=True)
     if s.enhance_only:
-        result["enhance_loss"] = _enhance_error(cls, s)
+        result["enhance_loss"] = _enhance_error(cls, s, mesh)
         return result
 
     out = focal_loss(
@@ -224,20 +255,20 @@ def _plain_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILConfig,
         bbox_std=tuple(focal_cfg.bbox_std),
     )
     if il_cfg.clip_loss and s.is_replay:
-        result["cls_fg_loss"] = _clip_fg_mean(out.fg_loss, il_cfg.clip_replay_cls_loss)
+        result["cls_fg_loss"] = _clip_fg_mean(out.fg_loss, il_cfg.clip_replay_cls_loss, mesh)
     else:
         result["cls_fg_loss"] = out.fg_loss.mean()
     result["cls_bg_loss"] = out.bg_loss.mean()
     result["reg_loss"] = out.reg_loss.mean()
     if s.use_enhance_error and s.is_replay and not s.is_bic:
-        result["enhance_loss"] = _enhance_error(cls, s)
+        result["enhance_loss"] = _enhance_error(cls, s, mesh)
     return result
 
 
 def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILConfig,
                         focal_cfg: FocalConfig, s: LossStatics, teacher,
                         class_vectors, pseudo_progress,
-                        prototype_features, bic_correct) -> Dict[str, torch.Tensor]:
+                        prototype_features, bic_correct, mesh) -> Dict[str, torch.Tensor]:
     """The loss terms of the incremental path, in the JAX package's order."""
     result: Dict[str, torch.Tensor] = {}
     use_prototype = s.use_prototype and prototype_features is not None
@@ -262,18 +293,19 @@ def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILC
         bbox_std=tuple(focal_cfg.bbox_std),
     )
     if il_cfg.clip_loss:
-        result["cls_fg_loss"] = _clip_fg_mean(out.fg_loss, il_cfg.clip_cls_loss)
+        result["cls_fg_loss"] = _clip_fg_mean(out.fg_loss, il_cfg.clip_cls_loss, mesh)
     else:
         result["cls_fg_loss"] = out.fg_loss.mean()
     result["cls_bg_loss"] = out.bg_loss.mean()
     result["reg_loss"] = out.reg_loss.mean()
     if s.use_enhance_on_new:
-        result["enhance_on_new_loss"] = out.enhance_on_new_loss
+        e = out.enhance_on_new_loss        # a sum over the batch
+        result["enhance_on_new_loss"] = e * mesh.world if active(mesh) else e
     if use_prototype:
         result["prototype_loss"] = prototype_loss_from_batch(
             unfolded, ~out.bg_mask, out.pos_label, prototype_features,
             num_past_class=s.num_past_class, num_new_class=s.num_classes - s.num_past_class,
-            margin=il_cfg.prototype.margin, weight=il_cfg.prototype.weight)
+            margin=il_cfg.prototype.margin, weight=il_cfg.prototype.weight, mesh=mesh)
     if not s.use_distill:
         return result
     if teacher is None:
@@ -292,12 +324,13 @@ def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILC
     t_fg = t_prob > 0.05                                    # (B, A, C_old)
     reg_mask = out.bg_mask & t_fg.any(dim=2)                # (B, A)
     reg_diff = _smooth_l1(t_reg - regression, beta=1.0)
-    result["dist_reg_loss"] = torch.where(reg_mask[..., None], reg_diff, 0.0).sum() / (
-        torch.clamp(reg_mask.float().sum() * 4.0, min=1.0))
+    reg_sum, reg_cnt = _global_ratio(torch.where(reg_mask[..., None], reg_diff, 0.0).sum(),
+                                     reg_mask.float().sum(), mesh)
+    result["dist_reg_loss"] = reg_sum / torch.clamp(reg_cnt * 4.0, min=1.0)
     # ignore_gd: every old-class column of the reg_mask anchors;
     # otherwise the teacher's foreground entries only
     cls_mask = reg_mask[..., None].expand(t_fg.shape) if s.ignore_gd else t_fg
-    result["dist_cls_loss"] = _masked_mean((t_cmp - s_cmp) ** 2, cls_mask)
+    result["dist_cls_loss"] = _masked_mean((t_cmp - s_cmp) ** 2, cls_mask, mesh)
 
     if s.use_classifier_loss and class_vectors is not None:
         # the student's new-class filters against the teacher's (C_old, D)

@@ -16,7 +16,9 @@ Each batch is one forward and one ``torch.autograd.grad`` under grad
 under inference mode would break its backward), on the model's device;
 the gradients land in fresh tensors, not in the parameters' ``.grad``
 (the train step's accumulator). The importance is a dict keyed by the
-port's parameter names.
+port's parameter names. On the mesh's data axis (``mesh=``) the pass runs
+whole on every rank and every rank keeps rank 0's importance
+(``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -26,9 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.boxes import positive_assignment
-
-MESH_NOT_PORTED = ("compute_importance over a device mesh is not ported yet: "
-                   "ROADMAP §1 item 6")
+from ..parallel.mesh import broadcast_tensors
 
 
 def _excluded(name: str) -> bool:
@@ -86,8 +86,6 @@ def compute_importance(model: torch.nn.Module, anchors: Union[np.ndarray, Callab
     zeroed on the excluded leaves: {name: float32 tensor on the model's
     device}. ``anchors`` is one ``(A, 4)`` array or a callable
     ``images -> anchors``."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     provider = anchors if callable(anchors) else (lambda images: anchors)
     device = next(model.parameters()).device
     step = make_importance_step(model)
@@ -103,4 +101,6 @@ def compute_importance(model: torch.nn.Module, anchors: Union[np.ndarray, Callab
     if n:
         torch._foreach_div_(list(acc.values()), float(n))
     mask = importance_mask(params)
-    return {k: v * mask[k] for k, v in acc.items()}
+    importance = {k: v * mask[k] for k, v in acc.items()}
+    broadcast_tensors(mesh, list(importance.values()))
+    return importance

@@ -24,6 +24,9 @@ prototype sums of a batch come back as float32 and add up across batches
 in float64 on the host; the per-image features come back as float32 and
 the distances are ``np.linalg.norm`` on the host, as in JAX, so the
 picks equal JAX's.
+
+On the mesh's data axis (``mesh=``) each dataset pass runs whole on every
+rank and every rank keeps rank 0's result (``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import positive_assignment
+from ..parallel.mesh import active, all_reduce_sum, batch_global, broadcast_object
 
 
 def _provider(anchors: Union[np.ndarray, Callable]) -> Callable:
@@ -78,7 +82,8 @@ def make_batch_prototype_fn(model, num_classes: int, num_anchors: int = 9):
     return step
 
 
-def compute_prototype_features(model, anchors, loader, num_classes: int) -> np.ndarray:
+def compute_prototype_features(model, anchors, loader, num_classes: int,
+                               mesh=None) -> np.ndarray:
     """Dataset pass -> ``(C, 9, D)`` float32 prototype features.
     ``anchors`` is one ``(A, 4)`` array or a callable ``images ->
     anchors``."""
@@ -93,7 +98,8 @@ def compute_prototype_features(model, anchors, loader, num_classes: int) -> np.n
         counts = c if counts is None else counts + c
     if total is None:
         raise ValueError("empty loader for prototype computation")
-    return (total / np.clip(counts[..., None], 1.0, None)).astype(np.float32)
+    return broadcast_object(
+        mesh, (total / np.clip(counts[..., None], 1.0, None)).astype(np.float32))
 
 
 def prototype_loss_from_batch(
@@ -106,8 +112,12 @@ def prototype_loss_from_batch(
     num_anchors: int = 9,
     margin: float = 600.0,
     weight: float = 0.1,
+    mesh=None,
 ) -> torch.Tensor:
-    """The batch prototype term, for any number of new classes."""
+    """The batch prototype term, for any number of new classes. On the
+    mesh's data axis (``mesh=``) the class sums and counts are the global
+    batch's (all-reduced), the value the global term's, and the gradient
+    reaches through this rank's sums (``parallel.mesh.batch_global``)."""
     b, cells, d = unfolded.shape
     pos = pos_mask.reshape(b, cells, num_anchors)
     lab = assigned_label.reshape(b, cells, num_anchors).long() - num_past_class
@@ -117,13 +127,16 @@ def prototype_loss_from_batch(
     sums = (onehot.reshape(b * cells, -1).T @ unfolded.reshape(b * cells, d)) \
         .reshape(num_anchors, num_new_class, d).transpose(0, 1)    # (K, 9, D)
     counts = onehot.sum(dim=(0, 1)).T                              # (K, 9)
+    if active(mesh):
+        sums = sums + (all_reduce_sum(mesh, sums) - sums.detach())
+        counts = all_reduce_sum(mesh, counts)
     cur = (sums / torch.clamp(counts[..., None], min=1.0)).mean(dim=1)   # (K, D)
     diff = cur[:, None, :] - old_prototypes[None].float()
     # the eps inside the sqrt: a zero distance (an all-zero prototype of
     # a class without positives) would give a NaN gradient
     dist = torch.sqrt(torch.sum(diff * diff, dim=2) + 1e-8)
     excess = margin - dist
-    return torch.mean(torch.maximum(excess, excess.new_zeros(()))) * weight
+    return batch_global(mesh, torch.mean(torch.maximum(excess, excess.new_zeros(()))) * weight)
 
 
 def make_image_feature_fn(model, num_classes: int, num_anchors: int = 9):
@@ -154,7 +167,8 @@ def make_image_slot_feature_fn(model, num_classes: int, num_anchors: int = 9):
     return step
 
 
-def prototype_herd_slot_scores(model, anchors, dataset, data_cfg, prototypes: np.ndarray):
+def prototype_herd_slot_scores(model, anchors, dataset, data_cfg, prototypes: np.ndarray,
+                               mesh=None):
     """Per-(class, anchor slot) ranking data of the ``slots`` mode:
     ``(scores, counts)`` with ``scores[cls][slot] = {img_id: L2
     distance}`` for the images with at least one positive anchor of
@@ -181,7 +195,7 @@ def prototype_herd_slot_scores(model, anchors, dataset, data_cfg, prototypes: np
             for c, s in zip(*np.nonzero(cnt[b])):
                 scores[int(c)][int(s)][img_id] = float(
                     np.linalg.norm(feat[b, c, s] - prototypes[c, s]))
-    return scores, counts
+    return broadcast_object(mesh, (scores, counts))
 
 
 def sample_by_slot_scores(
@@ -224,8 +238,8 @@ def sample_by_slot_scores(
     return out
 
 
-def prototype_herd_scores(model, anchors, dataset, data_cfg,
-                          prototypes: np.ndarray) -> Dict[int, Dict[int, float]]:
+def prototype_herd_scores(model, anchors, dataset, data_cfg, prototypes: np.ndarray,
+                          mesh=None) -> Dict[int, Dict[int, float]]:
     """Per (class, image) distances of the ``classmean`` mode: an image's
     class feature against the slot-averaged class prototype."""
     from ..data.loader import BatchLoader
@@ -248,7 +262,7 @@ def prototype_herd_scores(model, anchors, dataset, data_cfg,
             for cls in np.where(cnt[b] > 0)[0]:
                 scores[int(cls)][img_id] = float(
                     np.linalg.norm(feat[b, cls] - proto_mean[cls]))
-    return scores
+    return broadcast_object(mesh, scores)
 
 
 def sample_by_scores(scores: Dict[int, Dict[int, float]], per_num: int,

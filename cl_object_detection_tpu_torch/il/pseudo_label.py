@@ -41,8 +41,13 @@ def generate_pseudo_labels(
     data_cfg,
     cfg: PseudoLabelConfig,
     label_to_cat: Dict[int, int],
+    mesh=None,
 ) -> Dict[int, List[dict]]:
-    """``{image_id: [COCO annotation dicts]}``, one entry per image."""
+    """``{image_id: [COCO annotation dicts]}``, one entry per image. On
+    the mesh's data axis (``mesh=``) the pass runs whole on every rank and
+    every rank keeps rank 0's labels."""
+    from ..parallel.mesh import broadcast_object
+
     predict = make_predict_fn(model, PredictConfig(
         score_thresh=0.05, nms_iou=0.5, max_detections=cfg.max_labels_per_image * 4))
     device = next(model.parameters()).device
@@ -82,4 +87,4 @@ def generate_pseudo_labels(
                     "score": float(scores[b, d]),
                 })
             out[img_id] = anns
-    return out
+    return broadcast_object(mesh, out)

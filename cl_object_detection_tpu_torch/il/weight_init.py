@@ -13,7 +13,9 @@ global sum. The ``(n_new, n_old)`` result feeds
 The forward is one batched call per batch under ``torch.no_grad`` (not
 ``inference_mode``: the model trains next, and tensors cached under
 inference mode would break its backward), on the model's device; the
-per-image sums come back to the host and add up in float64.
+per-image sums come back to the host and add up in float64. On the
+mesh's data axis (``mesh=``) the pass runs whole on every rank and every
+rank keeps rank 0's matrix (``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -23,9 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.boxes import positive_assignment
-
-MESH_NOT_PORTED = ("compute_similarity over a device mesh is not ported yet: "
-                   "ROADMAP §1 item 6")
+from ..parallel.mesh import broadcast_object
 
 
 def make_similarity_step(model, num_new: int, num_old: int, threshold: float = 0.5):
@@ -67,8 +67,6 @@ def compute_similarity(model, anchors: Union[np.ndarray, Callable], loader,
     ``loader`` (built with ``augment=False, shuffle=False``). ``anchors``
     is one ``(A, 4)`` array or a callable ``images -> anchors`` (landscape
     and portrait frames have different grids). Runs where ``model`` lives."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     provider = anchors if callable(anchors) else (lambda images: anchors)
     device = next(model.parameters()).device
     step = make_similarity_step(model, num_new, num_old)
@@ -85,4 +83,4 @@ def compute_similarity(model, anchors: Union[np.ndarray, Callable], loader,
     denom = sim.sum()
     if denom > 0:
         sim = sim / denom
-    return sim.astype(np.float32)
+    return broadcast_object(mesh, sim.astype(np.float32))

@@ -26,6 +26,12 @@ last metric read, which waits for the device), the seconds the loop
 waited for the loader, the loader's own mean seconds per batch (in its
 thread), the BiC epoch's seconds, and the checkpoint save's blocking
 seconds.
+
+On the mesh's data axis every rank runs this loop over its slices of the
+same batches; the metrics are the global batch's, so ``loss_hist`` (and a
+resume) is the same whatever the rank count. Rank 0 prints and records;
+after every epoch ``parallel.mesh.check_replicas`` raises if the ranks'
+parameters parted.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..parallel.mesh import check_replicas
 from ..utils.recorder import Recorder
 from .trainer import ILTrainer
 
@@ -63,15 +70,16 @@ def train_process(trainer: ILTrainer, recorder: Optional[Recorder] = None,
         end_state = start_state
     start_epoch = cfg.start_epoch or 1
     end_epoch = cfg.end_epoch or cfg.schedule.new_state_epoch
-    if recorder is None:
+    if recorder is None or not trainer.primary:
         recorder = Recorder(enabled=False)
+    log = print if trainer.primary else (lambda *a, **k: None)
 
     for cur_state in range(start_state, end_state + 1):
         if cur_state != start_state:
             start_epoch = 1
             end_epoch = cfg.schedule.new_state_epoch
         trainer.end_epoch = end_epoch
-        print(f"State {cur_state}: epochs {start_epoch}..{end_epoch}, "
+        log(f"State {cur_state}: epochs {start_epoch}..{end_epoch}, "
               f"{len(trainer.dataset_train)} train images")
 
         for cur_epoch in range(start_epoch, end_epoch + 1):
@@ -81,13 +89,13 @@ def train_process(trainer: ILTrainer, recorder: Optional[Recorder] = None,
             # exception
             profile_epoch = (start_epoch + 1 if end_epoch > start_epoch
                              else start_epoch)
-            profiling = (cfg.profile_dir and cur_state == start_state
+            profiling = (cfg.profile_dir and trainer.primary and cur_state == start_state
                          and cur_epoch == profile_epoch)
             if profiling:
                 from ..utils.profiling import start_trace_guarded
 
                 start_trace_guarded(cfg.profile_dir)
-                print(f"profiler: tracing epoch {cur_epoch} -> {cfg.profile_dir}")
+                log(f"profiler: tracing epoch {cur_epoch} -> {cfg.profile_dir}")
             trainer.cur_epoch = cur_epoch
             trainer.train_loader.set_epoch(cur_epoch)
             if trainer.replay_loader is not None:
@@ -147,7 +155,7 @@ def train_process(trainer: ILTrainer, recorder: Optional[Recorder] = None,
                     keys = " | ".join(
                         f"{k}: {v:.4f}" for k, v in sorted(metrics.items())
                     )
-                    print(f"Epoch {cur_epoch:2d} | Iter {it:3d} | {keys} "
+                    log(f"Epoch {cur_epoch:2d} | Iter {it:3d} | {keys} "
                           f"| Running loss: {np.mean(trainer.loss_hist):.5f} "
                           f"| {time.time() - t0:.2f}s")
                 pending = None
@@ -206,7 +214,7 @@ def train_process(trainer: ILTrainer, recorder: Optional[Recorder] = None,
                 t_bic = time.perf_counter()
                 bic_loss = trainer.bic.train_epoch(trainer.model)
                 bic_s = time.perf_counter() - t_bic
-                print(f"BiC epoch loss: {bic_loss:.4f}")
+                log(f"BiC epoch loss: {bic_loss:.4f}")
 
             trainer.step_scheduler(cur_epoch)
             save_s = None
@@ -224,8 +232,9 @@ def train_process(trainer: ILTrainer, recorder: Optional[Recorder] = None,
                 "loader_batch_s": float(np.mean(batch_s)) if batch_s else None,
                 "bic_s": bic_s, "save_blocking_s": save_s,
             }
+            check_replicas(trainer.mesh, trainer.model)
             trainer.epoch_log.append(record)
-            print(f"Epoch {cur_epoch} done: mean loss "
+            log(f"Epoch {cur_epoch} done: mean loss "
                   f"{np.mean(epoch_loss) if epoch_loss else float('nan'):.4f} "
                   f"({time.perf_counter() - t_epoch:.1f}s; {micro_steps} micro-steps in "
                   f"{train_s:.2f}s, {record['images'] / train_s:.2f} images/s, loader wait "
@@ -236,11 +245,11 @@ def train_process(trainer: ILTrainer, recorder: Optional[Recorder] = None,
                 from ..utils.profiling import stop_trace_guarded
 
                 stop_trace_guarded()
-                print(f"profiler: trace written to {cfg.profile_dir}")
+                log(f"profiler: trace written to {cfg.profile_dir}")
 
         if (not cfg.il.agem.enabled and trainer.replay_loader is not None
                 and cfg.il.final_correction and cfg.il.replay.enhance_error):
-            print("Start final correction")
+            log("Start final correction")
             _final_correction(trainer)
             trainer.save(end_epoch)
 

@@ -12,6 +12,14 @@ mode, ``requires_grad_(False)``) runs its forward inside
 ``compute_losses`` under ``torch.no_grad``, never ``inference_mode``:
 tensors cached under inference mode would break the student's next
 backward.
+
+On the mesh's data axis (``mesh=``) each rank's loss is its share of the
+global batch's (``il.losses``), the accumulated gradient is all-reduced
+once per apply (``parallel.mesh.all_reduce_grads``) before the mask, the
+clip, the warm zeroing and the A-GEM projection, which then see the global
+gradient, so every rank's Adam takes the same step; the metrics are the
+global batch's loss terms, and the final correction's skip is decided on
+the global loss, so the ranks never part.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 
 from ..config import FocalConfig, ILConfig
 from ..il.losses import LossStatics, compute_losses
+from ..parallel.mesh import DataMesh, all_reduce_grads, all_reduce_metrics
 from .state import TrainState
 
 Grads = Dict[str, torch.Tensor]
@@ -81,6 +90,7 @@ def make_train_step(
     focal_cfg: FocalConfig,
     loss_statics: LossStatics,
     step_statics: StepStatics,
+    mesh: Optional[DataMesh] = None,
 ):
     """Build the step for ``model`` (the model of the states it is given).
 
@@ -104,7 +114,8 @@ def make_train_step(
     With ``every_iter <= 1`` and ``enhance_only`` (the final correction),
     a batch whose loss is not > 0 skips the optimizer, moments included,
     as JAX does. The port decides that on the host: it reads the loss,
-    one host sync per micro-step in that phase only.
+    one host sync per micro-step in that phase only. ``mesh``: the data
+    axis (module docstring).
     """
     if teacher_model is not None:
         teacher_model.eval().requires_grad_(False)
@@ -114,6 +125,7 @@ def make_train_step(
     params = dict(model.named_parameters())
 
     def apply(state: TrainState, g: Grads, trainable_mask, replay_grad) -> None:
+        g = all_reduce_grads(mesh, g)
         if trainable_mask is not None:
             g = {k: v * trainable_mask[k] for k, v in g.items()}
         if ss.use_clip and ss.grad_clip > 0:
@@ -140,12 +152,12 @@ def make_train_step(
                 loss_statics, teacher=teacher_model,
                 classifier_vectors=classifier_vectors, pseudo_progress=pseudo_progress,
                 prototype_features=prototype_features, mas_prev_params=mas_prev_params,
-                mas_importance=mas_importance)
+                mas_importance=mas_importance, mesh=mesh)
             total.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = all_reduce_metrics(mesh, {k: v.detach() for k, v in metrics.items()})
         state.step += 1
         if ss.every_iter <= 1:
-            if not loss_statics.enhance_only or bool(total > 0):
+            if not loss_statics.enhance_only or bool(metrics["total_loss"] > 0):
                 apply(state, state.grad_acc, trainable_mask, replay_grad)
         else:
             state.acc_count += 1

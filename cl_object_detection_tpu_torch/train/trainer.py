@@ -41,7 +41,17 @@ stages, the LR schedule, the checkpoints and the resume:
     cross-state entry, finding no sidecar, computes it with the expanded
     model on the new state's data, as JAX does.
 
-``MeshConfig.enabled`` raises naming ROADMAP §1 item 6.
+The mesh's data axis (``MeshConfig.enabled``, ``parallel/mesh.py``): the
+trainer is one rank of the process group (one rank when there is none) on
+its device. The train, replay and BiC loaders give each rank its slice of
+every global batch (JAX's ``_proc_shard``), the batch sizes must divide by
+the rank count, the step all-reduces the gradient once per apply, rank 0's
+parameters are broadcast after construction and after each expansion, the
+IL tools run whole on every rank and keep rank 0's results, only rank 0
+writes checkpoints and sidecars, and the loop's
+``parallel.mesh.check_replicas`` after every epoch raises if the ranks'
+parameters part.
+``--zero1`` and the model axis raise (ROADMAP §1 item 6b).
 """
 from __future__ import annotations
 
@@ -57,7 +67,7 @@ from .. import resolve_device
 from ..config import TrainConfig
 from ..data.coco import CocoJson
 from ..data.dataset import BicDataset, ILDataset, ReplayDataset
-from ..data.loader import BatchLoader
+from ..data.loader import BatchLoader, put_step_batch
 from ..data.transforms import logical_image_hw
 from ..il.agem import AGem
 from ..il.bic import BicTrainer, carve_bic_val_set
@@ -73,14 +83,12 @@ from ..il.weight_init import compute_similarity
 from ..models.expand import classifier_class_vectors, expand_classifier
 from ..models.retinanet import create_retinanet
 from ..ops.anchors import anchors_for_shape
+from ..parallel import mesh as pmesh
 from ..states import ILStates
 from ..utils.checkpoint import CheckpointManager
 from .optim import lr_at_epoch, make_optimizer, set_beta1, set_learning_rate
 from .state import TrainState
 from .step import StepStatics, make_train_step
-
-MESH_NOT_PORTED = ("multi-device training (MeshConfig.enabled, the mesh and "
-                   "multi-process flags) is not ported yet: ROADMAP §1 item 6")
 
 WARM_WHITE_LIST = {
     # which parameter-name prefixes TRAIN in each warm stage
@@ -106,11 +114,22 @@ def trainable_mask(model: torch.nn.Module,
 class ILTrainer:
     def __init__(self, cfg: TrainConfig, train_json: str, image_dir: str,
                  workdir: str = ".", device=None):
-        if cfg.mesh.enabled:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.cfg = cfg
         self.workdir = workdir
         self.device = resolve_device(device)
+        self.mesh: Optional[pmesh.DataMesh] = None
+        if cfg.mesh.enabled:
+            self.mesh = pmesh.create_mesh(cfg.mesh, self.device)
+            ndata = self.mesh.world
+            if cfg.data.batch_size % ndata:
+                raise ValueError(f"batch_size {cfg.data.batch_size} not divisible by the "
+                                 f"data-axis size {ndata}")
+            if cfg.il.replay.sample_num > 0 and cfg.il.replay.sample_batch_size % ndata:
+                raise ValueError(
+                    f"replay sample_batch_size {cfg.il.replay.sample_batch_size} not "
+                    f"divisible by the data-axis size {ndata} (set --sample_batch_size)")
+            print(pmesh.describe(self.mesh))
+        self.primary = pmesh.is_primary(self.mesh)
         self.coco = CocoJson(train_json)
         self.image_dir = image_dir
         self.states = ILStates(
@@ -137,7 +156,7 @@ class ILTrainer:
 
         self.ckpt = CheckpointManager(
             os.path.join(workdir, cfg.checkpoint_dir), cfg.il.scenario,
-            cfg.keep_every,
+            cfg.keep_every, mesh=self.mesh,
         )
 
         # datasets ------------------------------------------------------
@@ -188,6 +207,7 @@ class ILTrainer:
             from ..models.convert import load_pretrained_backbone
 
             load_pretrained_backbone(self.model, cfg.model.pretrained)
+        pmesh.broadcast_module(self.mesh, self.model)
         self._new_train_state()
         if ref_ckpt and start_epoch > 1:
             # a mid-state resume continues the reference run's optimizer
@@ -238,19 +258,17 @@ class ILTrainer:
         self._steps.clear()
 
     def _put_batch(self, batch):
-        """(images, boxes, labels) on the trainer's device: pinned host
-        copies, then non-blocking copies to the card."""
-        out = []
-        for arr in (batch.images, batch.boxes, batch.labels):
-            t = torch.from_numpy(np.ascontiguousarray(arr))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out.append(t)
-        return out
+        """(images, boxes, labels) of this rank's batch on the trainer's
+        device: pinned host copies, then non-blocking copies to the card."""
+        return put_step_batch(self.device, batch)
 
-    def _make_train_loader(self) -> BatchLoader:
+    def _make_train_loader(self, sharded: bool = True) -> BatchLoader:
+        """The training loader; ``sharded``: this rank's slice of each
+        global batch, as every loader that feeds a step (train, replay,
+        BiC) gives it; the tool passes read whole batches on every rank."""
         return BatchLoader(self.dataset_train, self.cfg.data, shuffle=True,
-                           augment=True, seed=self.cfg.seed)
+                           augment=True, seed=self.cfg.seed,
+                           **(pmesh.proc_shard(self.mesh) if sharded else {}))
 
     def _anchors_at(self, h: int, w: int) -> np.ndarray:
         key = (h, w)
@@ -304,7 +322,7 @@ class ILTrainer:
         num_anchors = self.cfg.model.num_anchors
         similarity = None
         if cfg.init_method in ("mean", "large", "onlyNegative") and st.num_past_class > 0:
-            cached = self.ckpt.load_array_sidecar(self.cur_state - 1, "similarity")
+            cached = self._agreed_sidecar(self.cur_state - 1, "similarity")
             if cached is not None:
                 similarity = np.asarray(list(cached.values())[0])
             else:
@@ -313,7 +331,7 @@ class ILTrainer:
                                      augment=False)
                 similarity = compute_similarity(self.model, self.anchors_for, loader,
                                                 num_new=st.num_new_class,
-                                                num_old=st.num_past_class)
+                                                num_old=st.num_past_class, mesh=self.mesh)
                 # the key JAX's sidecar of a one-element list has
                 self.ckpt.save_array_sidecar(self.cur_state - 1, "similarity",
                                              {"[0]": similarity})
@@ -329,7 +347,18 @@ class ILTrainer:
             self.cfg.model, self.num_classes, device=self.device,
             generator=torch.Generator().manual_seed(self.cfg.seed))
         self.model.load_state_dict(new_state)
+        pmesh.broadcast_module(self.mesh, self.model)
         self._new_train_state()
+
+    def _agreed_sidecar(self, state: int, name: str) -> Optional[Dict[str, np.ndarray]]:
+        """An array sidecar when rank 0 finds one: every rank follows rank
+        0's finding, so that all compute the pass or none does."""
+        cached = self.ckpt.load_array_sidecar(state, name)
+        found = pmesh.broadcast_object(self.mesh, cached is not None)
+        if found and cached is None:
+            raise FileNotFoundError(f"rank {self.mesh.rank} cannot read the {name} sidecar "
+                                    f"of state {state} that rank 0 read")
+        return cached if found else None
 
     def _update_prev_model(self, force: bool = False) -> None:
         """The frozen teacher of distillation and MAS (and, with ``force``,
@@ -375,14 +404,15 @@ class ILTrainer:
         if not (cfg.prototype.loss or cfg.replay.sample_method == "prototype_herd"):
             return
         prev = self.cur_state - 1
-        cached = self.ckpt.load_array_sidecar(prev, "prototype_features")
+        cached = self._agreed_sidecar(prev, "prototype_features")
         if cached is not None:
             self.prototype_features = np.asarray(list(cached.values())[0])
         else:
             loader = BatchLoader(self._prev_state_dataset(prev), self.cfg.data,
                                  shuffle=False, augment=False)
             self.prototype_features = compute_prototype_features(
-                self.model, self.anchors_for, loader, self.states[prev].num_knowing_class)
+                self.model, self.anchors_for, loader, self.states[prev].num_knowing_class,
+                mesh=self.mesh)
             self.ckpt.save_array_sidecar(prev, "prototype_features",
                                          {"[0]": self.prototype_features})
         # slot-averaged, as the loss reads them at every step
@@ -404,7 +434,8 @@ class ILTrainer:
             if self.herd_sampler is None:
                 self.herd_sampler = HerdSampler(cfg.herd_ratio_threshold)
             self.herd_sampler.sample(self.model, self._prev_state_dataset(prev), self.cfg.data,
-                                     cfg.sample_num, future_img_ids=self._future_img_ids())
+                                     cfg.sample_num, future_img_ids=self._future_img_ids(),
+                                     mesh=self.mesh)
             self.dataset_replay.reset_explicit(cfg.sample_num, self.herd_sampler.examplar_list,
                                                self.cur_state)
         elif cfg.sample_method == "prototype_herd":
@@ -417,7 +448,7 @@ class ILTrainer:
             if cfg.prototype_herd_mode == "slots":
                 slot_scores, counts = prototype_herd_slot_scores(
                     self.model, self.anchors_for, prev_ds, self.cfg.data,
-                    self.prototype_features)
+                    self.prototype_features, mesh=self.mesh)
                 st = self.states[prev]
                 picked = sample_by_slot_scores(
                     slot_scores, counts, cfg.sample_num,
@@ -426,7 +457,8 @@ class ILTrainer:
                     num_anchors=self.prototype_features.shape[1])
             else:
                 scores = prototype_herd_scores(self.model, self.anchors_for, prev_ds,
-                                               self.cfg.data, self.prototype_features)
+                                               self.cfg.data, self.prototype_features,
+                                               mesh=self.mesh)
                 scores = {c: {i: v for i, v in d.items() if i not in future}
                           for c, d in scores.items()}
                 picked = sample_by_scores(scores, cfg.sample_num,
@@ -436,6 +468,9 @@ class ILTrainer:
                                                self.cur_state)
         else:  # random
             self.dataset_replay.reset_by_state(self.cur_state)
+        if pmesh.broadcast_object(self.mesh, list(self.dataset_replay.image_ids)) != list(
+                self.dataset_replay.image_ids):
+            raise RuntimeError("the ranks picked different exemplars")
         self.ckpt.save_sidecar(self.cur_state, "examplar", list(self.dataset_replay.image_ids))
         self._write_examplar_outputs()
 
@@ -444,6 +479,8 @@ class ILTrainer:
         ``output_examplar`` and OpenCV present, the ``examplar.png``
         montage: ``sample_num`` thumbnails per old class, the class name
         captioned."""
+        if not self.primary:
+            return
         state_dir = self.ckpt.state_dir(self.cur_state)
         img_ids = list(self.dataset_replay.image_ids)
         with open(os.path.join(state_dir, "examplar.txt"), "w") as f:
@@ -482,7 +519,8 @@ class ILTrainer:
         self.replay_loader = BatchLoader(
             self.dataset_replay, self.cfg.data,
             batch_size=self.cfg.il.replay.sample_batch_size,
-            shuffle=True, augment=True, seed=self.cfg.seed, is_replay=True)
+            shuffle=True, augment=True, seed=self.cfg.seed, is_replay=True,
+            **pmesh.proc_shard(self.mesh))
 
     # ------------------------------------------------------------------
     # BiC, A-GEM, MAS
@@ -507,10 +545,11 @@ class ILTrainer:
         self.dataset_replay.image_ids = replay_ids
         bic_ds = BicDataset(self.coco, self.states, self.image_dir, bic_ids, seen_lists)
         bic_loader = BatchLoader(bic_ds, self.cfg.data, shuffle=True, augment=True,
-                                 seed=self.cfg.seed)
+                                 seed=self.cfg.seed, **pmesh.proc_shard(self.mesh))
         counts = [s.num_new_class for s in self.states.states]
         self.bic = BicTrainer(self.model, self.anchors_for, cfg, self.cfg.focal, cfg.bic,
-                              counts, self.cur_state, st.num_past_class, bic_loader)
+                              counts, self.cur_state, st.num_past_class, bic_loader,
+                              mesh=self.mesh)
         if carry is not None:
             self.bic.params = carry
 
@@ -525,7 +564,7 @@ class ILTrainer:
         statics = LossStatics(num_classes=self.num_classes, num_past_class=st.num_past_class,
                               incremental=False, is_replay=True)
         self.agem = AGem(self.model, self.anchors_for, self.cfg.il, self.cfg.focal, statics,
-                         self.replay_loader)
+                         self.replay_loader, mesh=self.mesh)
 
     def _update_mas(self) -> None:
         """The MAS importance at a state entry: read back from the previous
@@ -535,7 +574,7 @@ class ILTrainer:
         if not self.cfg.il.mas.enabled:
             return
         prev = self.cur_state - 1
-        cached = self.ckpt.load_array_sidecar(prev, "mas_importance")
+        cached = self._agreed_sidecar(prev, "mas_importance")
         if cached is not None:
             self.mas_importance = {}
             for name, p in self.model.named_parameters():
@@ -546,14 +585,16 @@ class ILTrainer:
                     else torch.zeros_like(p, dtype=torch.float32))
         else:
             self.mas_importance = compute_importance(self.model, self.anchors_for,
-                                                     self._make_train_loader())
+                                                     self._make_train_loader(sharded=False),
+                                                     mesh=self.mesh)
             self.ckpt.save_array_sidecar(prev, "mas_importance", self.mas_importance)
 
     def _update_mas_for_next(self) -> None:
         """The finished state's importance (its model, its training loader),
         written as its ``mas_importance`` sidecar."""
         self.mas_importance = compute_importance(self.model, self.anchors_for,
-                                                 self._make_train_loader())
+                                                 self._make_train_loader(sharded=False),
+                                                 mesh=self.mesh)
         self.ckpt.save_array_sidecar(self.cur_state, "mas_importance", self.mas_importance)
 
     def _add_pseudo_labels(self) -> None:
@@ -566,7 +607,7 @@ class ILTrainer:
             self._update_prev_model(force=True)
         self.dataset_train.pseudo_labels = generate_pseudo_labels(
             self.teacher_model, self.dataset_train, self.cfg.data, cfg.pseudo,
-            self.states.inverse_label_map())
+            self.states.inverse_label_map(), mesh=self.mesh)
         self.train_loader = self._make_train_loader()
 
     # ------------------------------------------------------------------
@@ -633,7 +674,8 @@ class ILTrainer:
         if key not in self._steps:
             self._steps[key] = make_train_step(
                 self.model, self.teacher_model, self._anchors_at(*frame),
-                self.cfg.il, self.cfg.focal, statics, self._step_statics(correction))
+                self.cfg.il, self.cfg.focal, statics, self._step_statics(correction),
+                mesh=self.mesh)
         return self._steps[key]
 
     # ------------------------------------------------------------------

@@ -18,6 +18,13 @@ is complete, so a reader never sees a partial checkpoint. With
 thread (the next step cannot change what is written), and the write runs
 in a thread; ``wait()`` joins it and re-raises its error. At most one
 save is in flight.
+
+On the mesh's data axis (``mesh=``, more than one rank) only rank 0
+writes (checkpoints, sidecars, directories) and deletes; a save is
+synchronous, so that no collective runs in a writer thread, and every
+save, sidecar save and ``wait()`` ends in a barrier, so that no rank reads
+before rank 0's write is complete. Every rank reads (``restore``,
+``epochs``, the sidecars); reading calls no collective.
 """
 from __future__ import annotations
 
@@ -51,27 +58,39 @@ def host_copy(tree):
 
 
 class CheckpointManager:
-    def __init__(self, root: str, scenario, keep_every: int = 5):
+    def __init__(self, root: str, scenario, keep_every: int = 5, mesh=None):
+        from ..parallel.mesh import active, is_primary
+
         self.root = os.path.abspath(root)
         self.scenario_dir = os.path.join(self.root, scenario_tag(scenario))
         self.keep_every = keep_every
+        self.mesh = mesh if active(mesh) else None
+        self.primary = is_primary(mesh)
         self._pending: Optional[threading.Thread] = None
         self._pending_error: Optional[BaseException] = None
-        os.makedirs(self.scenario_dir, exist_ok=True)
+        if self.primary:
+            os.makedirs(self.scenario_dir, exist_ok=True)
+
+    def _barrier(self) -> None:
+        from ..parallel.mesh import barrier
+
+        barrier(self.mesh)
 
     # ------------------------------------------------------------------
     def state_dir(self, state: int) -> str:
         d = os.path.join(self.scenario_dir, f"state{state}")
-        os.makedirs(d, exist_ok=True)
+        if self.primary:
+            os.makedirs(d, exist_ok=True)
         return d
 
     def epoch_dir(self, state: int, epoch: int) -> str:
         return os.path.join(self.state_dir(state), f"epoch{epoch}")
 
     def epochs(self, state: int) -> List[int]:
-        self.wait()
+        self._join()
+        d = self.state_dir(state)
         out = []
-        for name in os.listdir(self.state_dir(state)):
+        for name in (os.listdir(d) if os.path.isdir(d) else ()):
             m = re.fullmatch(r"epoch(\d+)", name)
             if m:
                 out.append(int(m.group(1)))
@@ -90,7 +109,11 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def wait(self) -> None:
         """Block until an in-flight async save has finished, and re-raise
-        its error if it failed."""
+        its error if it failed; on the mesh, then a barrier."""
+        self._join()
+        self._barrier()
+
+    def _join(self) -> None:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
@@ -109,8 +132,11 @@ class CheckpointManager:
         async_save: bool = False,
     ) -> str:
         """Persist one (state, epoch) checkpoint; returns its directory."""
-        self.wait()
+        self._join()
         path = self.epoch_dir(state, epoch)
+        if not self.primary:
+            self._barrier()
+            return path
         tree = host_copy({"model": model.state_dict(),
                           "optimizer": optimizer.state_dict(), "step": int(step)})
         tmp = os.path.join(self.state_dir(state), f".tmp_epoch{epoch}")
@@ -129,8 +155,11 @@ class CheckpointManager:
                 shutil.rmtree(path)
             os.rename(tmp, path)
 
-        if not async_save:
-            write()
+        if not async_save or self.mesh is not None:
+            try:
+                write()
+            finally:
+                self._barrier()
             return path
 
         def work():
@@ -147,7 +176,7 @@ class CheckpointManager:
     def restore(self, state: int, epoch: int = -1):
         """epoch=-1 locates the newest. Returns (tree, il_meta): ``tree``
         is ``{"model", "optimizer", "step"}`` with CPU tensors."""
-        self.wait()
+        self._join()
         if epoch == -1:
             epoch = self.latest_epoch(state)
             if epoch is None:
@@ -164,7 +193,10 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def auto_delete(self, state: int, current_epoch: int) -> None:
-        """Keep epoch % keep_every == 0 and the current epoch."""
+        """Keep epoch % keep_every == 0 and the current epoch (rank 0
+        deletes)."""
+        if not self.primary:
+            return
         for e in self.epochs(state):
             if e == current_epoch or e % self.keep_every == 0:
                 continue
@@ -174,8 +206,12 @@ class CheckpointManager:
     def save_sidecar(self, state: int, name: str, obj: Any) -> str:
         """JSON sidecar in the state directory."""
         path = os.path.join(self.state_dir(state), name + ".json")
-        with open(path, "w") as f:
-            json.dump(obj, f, default=_jsonable)
+        try:
+            if self.primary:
+                with open(path, "w") as f:
+                    json.dump(obj, f, default=_jsonable)
+        finally:
+            self._barrier()
         return path
 
     def load_sidecar(self, state: int, name: str) -> Optional[Any]:
@@ -190,8 +226,12 @@ class CheckpointManager:
         """npz sidecar of named arrays or tensors (MAS importance,
         prototype features)."""
         path = os.path.join(self.state_dir(state), name + ".npz")
-        np.savez(path, **{k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                          else np.asarray(v) for k, v in arrays.items()})
+        try:
+            if self.primary:
+                np.savez(path, **{k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                                  else np.asarray(v) for k, v in arrays.items()})
+        finally:
+            self._barrier()
         return path
 
     def load_array_sidecar(self, state: int, name: str) -> Optional[Dict[str, np.ndarray]]:

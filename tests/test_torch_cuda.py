@@ -16,7 +16,10 @@ and one A-GEM replay gradient against the CPU in float32. Then
 evaluation: the ``Evaluator``
 with the NMS kernel and with the iterative NMS gives the same rows, and
 ``detections_to_coco`` gives the same rows from card tensors as from
-their CPU copies.
+their CPU copies. Then the mesh's data axis: two gloo ranks on one card
+all-reduce a gradient dict to the exact mean, a one-rank NCCL group runs
+its collectives on the card, and two processes build every kernel at
+once into an empty build directory.
 
 Marked ``cuda``. Without a CUDA device every test skips: a kernel has no
 CPU mode, and the CPU tests hold the plain versions to the JAX package.
@@ -1199,3 +1202,118 @@ def test_exported_artifact_on_the_card_equals_live_predict(dev, tmp_path, monkey
     assert got["valid"].sum() > 0
     for k, v in zip(("boxes", "scores", "labels", "valid"), det):
         assert np.array_equal(got[k], v.cpu().numpy()), k
+
+
+# ------------------------------------------------ the mesh's data axis
+
+_REPO = __import__("os").path.dirname(__import__("os").path.dirname(
+    __import__("os").path.abspath(__file__)))
+
+_SHARED_CARD_RANK = r"""
+import os, sys
+import torch
+from cl_object_detection_tpu_torch.config import MeshConfig
+from cl_object_detection_tpu_torch.parallel import mesh as pm
+rank, store = int(sys.argv[1]), sys.argv[2]
+dev = pm.init_distributed(num_processes=2, process_id=rank, init_method="file://" + store)
+mesh = pm.create_mesh(MeshConfig(enabled=True), dev)
+assert (mesh.backend, dev) == ("gloo", torch.device("cuda", 0)), (mesh.backend, dev)
+gen = torch.Generator().manual_seed(rank)
+grads = {k: torch.randn(shape, generator=gen).to(dev)
+         for k, shape in (("w", (64, 3, 7, 7)), ("b", (64,)), ("s", ()))}
+out = pm.all_reduce_grads(mesh, grads)
+assert all(v.device == dev for v in out.values())
+torch.save({"in": {k: v.cpu() for k, v in grads.items()},
+            "out": {k: v.cpu() for k, v in out.items()}}, f"{store}.{rank}.pt")
+pm.barrier(mesh)
+"""
+
+
+def _run_children(script, args_per_child, timeout=240, **env_extra):
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=_REPO, **env_extra)
+    procs = [subprocess.Popen([sys.executable, "-c", script, *args], env=env, cwd=_REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for args in args_per_child]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return outs
+
+
+def test_two_gloo_ranks_on_one_card_all_reduce_to_the_exact_mean(dev, tmp_path):
+    """The process flags place two ranks on cuda:0 on purpose: gloo, the
+    collectives through the host; the all-reduced gradient dict is the
+    exact mean of the two ranks' on both, back on the card. (One card is
+    made visible: on a host of two, the rule gives each rank its own.)"""
+    store = str(tmp_path / "store")
+    _run_children(_SHARED_CARD_RANK, [(str(r), store) for r in range(2)],
+                  CUDA_VISIBLE_DEVICES="0")
+    res = [torch.load(f"{store}.{r}.pt", weights_only=True) for r in range(2)]
+    for k in res[0]["in"]:
+        want = (res[0]["in"][k] + res[1]["in"][k]) / 2
+        assert torch.equal(res[0]["out"][k], want) and torch.equal(res[1]["out"][k], want), k
+
+
+_NCCL_WORLD_ONE = r"""
+import sys
+import torch
+import torch.distributed as dist
+from cl_object_detection_tpu_torch.parallel import mesh as pm
+store = sys.argv[1]
+assert pm.backend_for(torch.device("cuda", 0), 1) == "nccl"
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="file://" + store, world_size=1, rank=0)
+mesh = pm.DataMesh(rank=0, world=1, device=torch.device("cuda", 0), backend="nccl")
+assert mesh.comm_device == torch.device("cuda", 0)
+x = torch.arange(5, dtype=torch.float32, device="cuda")
+dist.all_reduce(x)
+box = [{"rank": 0}]
+dist.broadcast_object_list(box, src=0, device=mesh.comm_device)
+dist.barrier(device_ids=[0])
+assert torch.equal(x.cpu(), torch.arange(5.0)) and box == [{"rank": 0}]
+dist.destroy_process_group()
+print("nccl ok")
+"""
+
+
+def test_nccl_world_one_group_on_the_card(dev, tmp_path):
+    """A one-rank NCCL group on the card: the backend the rule picks for a
+    rank with a card of its own; its all-reduce, object broadcast and
+    barrier run."""
+    out = _run_children(_NCCL_WORLD_ONE, [(str(tmp_path / "store"),)])
+    assert "nccl ok" in out[0]
+
+
+_BUILD_INTO = r"""
+import sys
+from pathlib import Path
+from cl_object_detection_tpu_torch import _build
+_build.BUILD_DIR = Path(sys.argv[1])
+_build.build_all()
+for name in _build.EXTRA_FLAGS:
+    _build.load(name)
+print("built", sorted(_build.build_seconds))
+"""
+
+
+def test_two_processes_build_the_kernels_at_once(dev, tmp_path):
+    """Two ranks start on an empty build directory together: both build
+    every kernel (per-process temporary files, renamed into place), both
+    load them, and the directory ends with one library per source and no
+    temporary file."""
+    from cl_object_detection_tpu_torch import _build
+
+    build = tmp_path / "kernels"
+    _run_children(_BUILD_INTO, [(str(build),), (str(build),)], timeout=600)
+    names = sorted(p.name for p in build.iterdir())
+    assert len(names) == len(_build.EXTRA_FLAGS), names
+    assert all(n.endswith(".so") for n in names), names

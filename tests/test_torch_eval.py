@@ -256,13 +256,35 @@ def test_predict_dataset_dedups_wrap_slots(tmp_path):
     assert multi[0] == rows
 
 
-def test_evaluator_refuses_a_mesh(split):
+def test_evaluator_refuses_a_mesh(split, monkeypatch):
+    """The mesh (ROADMAP §1 item 6a, once refused here): two ranks, run
+    one after the other in this process with the gather between them
+    stubbed, each predict their slice of every batch; the gathered rows
+    equal one process's, in its order, for ``predict_dataset`` and
+    ``predict_dataset_multi``. (Real ranks: tests/test_torch_mesh_train.py.)"""
+    from cl_object_detection_tpu_torch.eval import evaluator as evaluator_mod
+    from cl_object_detection_tpu_torch.parallel.mesh import DataMesh
+
     _, ev = evaluators(split)
-    model = create_retinanet(ModelConfig(**CFG), NUM_CLASSES, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ev.predict_dataset(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ev.predict_dataset_multi({0: model}, mesh=object())
+    model = create_retinanet(ModelConfig(**CFG), NUM_CLASSES, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    want = ev.predict_dataset(model)
+    assert want
+    gathered = {}
+
+    def all_gather_object(mesh, obj):
+        gathered[mesh.rank] = obj
+        return [gathered.get(r, []) for r in range(mesh.world)]
+
+    monkeypatch.setattr(evaluator_mod, "all_gather_object", all_gather_object)
+    meshes = [DataMesh(rank=r, world=2, device=torch.device("cpu"), backend="gloo")
+              for r in (1, 0)]
+    for call in (lambda m: ev.predict_dataset(model, mesh=m),
+                 lambda m: ev.predict_dataset_multi({0: model}, mesh=m)[0]):
+        gathered.clear()
+        got = [call(m) for m in meshes][-1]               # rank 0's, after rank 1's
+        assert got == want
+        assert len(gathered[1]) == len(gathered[0]) == len(ev.loader) * DATA["batch_size"] // 2
 
 
 def test_progress_prints_without_tqdm(split, monkeypatch, capsys):

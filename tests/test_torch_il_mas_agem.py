@@ -215,11 +215,23 @@ def test_compute_importance_matches_jax():
         assert (arr.any() == (not mas._excluded(name))), name
 
 
-def test_compute_importance_mesh_raises():
+def test_compute_importance_mesh_raises(monkeypatch):
+    """The mesh (ROADMAP §1 item 6a, once refused here): on a one-rank
+    mesh the importance is one process's; on rank 1 of two the pass runs
+    whole and the rank keeps rank 0's importance, which the broadcast
+    (stubbed here: rank 0's values are all 0.5) writes into it."""
+    from cl_object_detection_tpu_torch.parallel import mesh as pm
+
     _, v = jax_model(C)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mas.compute_importance(port_model(v, C), ANCHORS, ListLoader([make_batch(1)]),
-                               mesh=object())
+    loader = ListLoader([make_batch(1)])
+    want = mas.compute_importance(port_model(v, C), ANCHORS, loader)
+    one = pm.DataMesh(rank=0, world=1, device=torch.device("cpu"))
+    got = mas.compute_importance(port_model(v, C), ANCHORS, loader, mesh=one)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    monkeypatch.setattr(pm.dist, "broadcast", lambda t, src: t.fill_(0.5))
+    rank1 = pm.DataMesh(rank=1, world=2, device=torch.device("cpu"), backend="gloo")
+    got = mas.compute_importance(port_model(v, C), ANCHORS, loader, mesh=rank1)
+    assert set(got) == set(want) and all(bool((t == 0.5).all()) for t in got.values())
 
 
 def test_mas_penalty_and_mask_mirror_jax():

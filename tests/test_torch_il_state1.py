@@ -65,6 +65,7 @@ from cl_object_detection_tpu_torch.models.expand import (
     expand_classifier,
 )
 from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+from cl_object_detection_tpu_torch.parallel.mesh import DataMesh
 from cl_object_detection_tpu_torch.train import trainer as ttrainer
 from cl_object_detection_tpu_torch.train.loop import train_process
 from cl_object_detection_tpu_torch.train.optim import make_optimizer
@@ -251,8 +252,11 @@ def test_compute_similarity_matches_jax():
     assert got.dtype == np.float32 and got.shape == (C_NEW, C_OLD)
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
     assert (got.sum(axis=1) > 0).all() and abs(got.sum() - 1) < 1e-5
-    with pytest.raises(NotImplementedError, match="item 6"):
-        compute_similarity(port_model(v, C_OLD), ANCHORS, batches, C_NEW, C_OLD, mesh=object())
+    # the mesh (ROADMAP §1 item 6a, once refused here): a one-rank mesh
+    # gives one process's matrix
+    one = DataMesh(rank=0, world=1, device=torch.device("cpu"))
+    np.testing.assert_array_equal(
+        compute_similarity(port_model(v, C_OLD), ANCHORS, batches, C_NEW, C_OLD, mesh=one), got)
 
 
 # ------------------------------------------------ distillation, fake models

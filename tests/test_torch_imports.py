@@ -76,7 +76,9 @@ def test_port_imports_no_jax():
             "cl_object_detection_tpu_torch.eval.deploy",
             "cl_object_detection_tpu_torch.cli.export",
             "cl_object_detection_tpu_torch.utils.notebook",
-            "cl_object_detection_tpu_torch.utils.diagnostics"} <= set(got["modules"])
+            "cl_object_detection_tpu_torch.utils.diagnostics",
+            "cl_object_detection_tpu_torch.parallel",
+            "cl_object_detection_tpu_torch.parallel.mesh"} <= set(got["modules"])
     assert got["jax"] == [], got["jax"]
     assert got["jax_package"] == [], got["jax_package"]
     assert got["built"] == []

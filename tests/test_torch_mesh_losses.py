@@ -1,0 +1,295 @@
+"""The global-batch loss on the port's data axis against JAX, on the CPU.
+
+Two gloo ranks (``tests/torch_mesh_worker.py``, one spawn for every
+case) each take half of a B=4 batch and compute ``compute_losses`` with
+``mesh=``; their gradients are all-reduced (``all_reduce_grads``) and
+their metrics averaged (``all_reduce_metrics``). Under JAX's mesh the
+batch is one array and the loss is the whole batch's, so both must equal
+JAX's ``value_and_grad`` of ``compute_losses`` on the whole batch:
+metrics at rtol 1e-4, every parameter's gradient at the train step's bar
+(|d| <= 1e-3 |g_jax| + 1e-4 max|g_jax| of the leaf).
+
+R18 (FPN 32, 2 head layers) in float32 at 128 x 128 frames: at 128 x 192
+the port's own single-process gradient of the stem's conv parts differs
+from JAX's by up to 3.8e-4 of the leaf's largest, past the bar (float32
+sums over 24,576 positions in another order), so at 128 x 192 the same
+spawn holds the ranks' all-reduced gradient against the port's own
+single-process gradient of the whole batch, at the same bar: that
+isolates the reduction over the ranks from the frameworks' gap. The student
+has 5 classes (3 old + 2 new, its classifier the teacher's ``mean``
+expansion), the teacher 3. The cases cover every reduction of
+``il/losses.py``: per-image means (plain), ``_clip_fg_mean`` and
+``enhance_error``'s masked mean (replay), ``dist_reg_loss``,
+``dist_cls_loss`` with ``ignore_gd`` off and on, the focal loss's
+``enhance_on_new`` sum, the classifier-similarity and MAS terms of the
+parameters alone, and the prototype term.
+"""
+import dataclasses
+import functools
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cl_object_detection_tpu import config as jcfg
+from cl_object_detection_tpu.il import losses as jlosses
+from cl_object_detection_tpu.models import create_retinanet as j_create
+from cl_object_detection_tpu.models.expand import classifier_class_vectors as j_class_vectors
+from cl_object_detection_tpu.models.expand import expand_classifier as j_expand
+from cl_object_detection_tpu.ops.anchors import anchors_for_shape
+from cl_object_detection_tpu_torch import config as tcfg
+from cl_object_detection_tpu_torch.il import losses as tlosses
+from cl_object_detection_tpu_torch.models.bridge import load_jax_variables, port_name
+from cl_object_detection_tpu_torch.models.expand import classifier_class_vectors
+from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_mesh_worker import loss_grads, run_ranks  # noqa: E402
+
+torch.set_num_threads(1)
+
+CFG = dict(depth=18, fpn_channels=32, head_layers=2, compute_dtype="float32")
+C_OLD, C_NEW = 3, 2
+C = C_OLD + C_NEW
+H, W = 128, 128
+WIDE_W = 192                     # the ranks against one process of the port only
+B = 4
+ANCHORS = anchors_for_shape(H, W)
+SIM = np.array([[0.6, 0.3, 0.1], [0.2, 0.5, 0.3]], np.float32)
+PROTO_MARGIN = 1e4               # every (new, old) prototype pair inside it: the term is live
+
+
+def _leaves(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def to_port(params) -> dict:
+    out = {}
+    for path, val in _leaves(jax.tree.map(np.asarray, params)):
+        arr = np.asarray(val, np.float32)
+        out[port_name(("params",) + path)] = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
+    return out
+
+
+def np_tree(tree):
+    return jax.tree.map(lambda x: np.array(x, np.float32), tree)
+
+
+def randomize(variables, seed, cls_bias):
+    r = np.random.RandomState(seed)
+
+    def leaf(path, x):
+        keys = tuple(p.key for p in path)
+        x = np.asarray(x)
+        if keys[-2:-1] == ("bn",):
+            if keys[-1] == "mean":
+                return (r.randn(*x.shape) * 0.1).astype(np.float32)
+            if keys[-1] == "var":
+                return (np.abs(r.randn(*x.shape)) * 0.2 + 0.8).astype(np.float32)
+            if keys[-1] == "scale":
+                return (1 + r.randn(*x.shape) * 0.1).astype(np.float32)
+            return (r.randn(*x.shape) * 0.05).astype(np.float32)
+        if "output" in keys:
+            if keys[-1] == "kernel":
+                return (r.randn(*x.shape) * 0.01).astype(np.float32)
+            base = cls_bias if "classification_head" in keys else 0.0
+            return (base + r.randn(*x.shape) * 0.3).astype(np.float32)
+        return x
+
+    return jax.tree_util.tree_map_with_path(leaf, variables)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_model(num_classes, seed, cls_bias=-1.5):
+    model = j_create(jcfg.ModelConfig(**CFG), num_classes)
+    v = jax.jit(model.init)(jax.random.PRNGKey(seed), jnp.zeros((1, H, W, 3)))
+    return model, np_tree(randomize(v, 100 + seed, cls_bias))
+
+
+def port_state(variables, num_classes) -> dict:
+    model = create_retinanet(tcfg.ModelConfig(**CFG), num_classes, device="cpu")
+    load_jax_variables(model, variables)
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def make_batch(seed, w=W):
+    """B RGB frames (H x w) with GT of new and old classes (odd images
+    without an old one)."""
+    r = np.random.RandomState(seed)
+    img = r.randint(0, 256, (B, H, w, 3)).astype(np.uint8)
+    x = ((img.astype(np.float32) / 255.0 - 0.45) / 0.225).astype(np.float32)
+    boxes = np.full((B, 5, 4), -1, np.float32)
+    labels = np.full((B, 5), -1, np.int32)
+    for b in range(B):
+        for j, lab in enumerate((C_OLD, C_OLD + 1, 0)[: 3 - b % 2]):
+            x1, y1 = r.uniform(0, 60), r.uniform(0, 60)
+            boxes[b, j] = [x1, y1, x1 + r.uniform(30, 64), y1 + r.uniform(30, 64)]
+            labels[b, j] = lab
+    return x, boxes, labels
+
+
+def student_variables():
+    _, sv = jax_model(C, 1)
+    _, tv = jax_model(C_OLD, 0)
+    head = j_expand(tv["params"], C_NEW, similarity=SIM)["classification_head"]["output"]
+    sv = jax.tree.map(lambda x: x, sv)
+    sv["params"]["classification_head"]["output"] = np_tree(head)
+    return sv
+
+
+def mas_trees(params, seed):
+    """The previous parameters (the student's, moved) and a positive
+    importance, as JAX trees."""
+    r = np.random.RandomState(seed)
+    prev = jax.tree.map(lambda p: (p + r.randn(*p.shape) * 0.01).astype(np.float32), params)
+    imp = jax.tree.map(lambda p: np.abs(r.randn(*p.shape)).astype(np.float32), params)
+    return prev, imp
+
+
+def per_image_fg(sv, batch, anchors):
+    """The port's per-image replay fg losses of the whole batch (the clip
+    threshold is set between them, so that some images drop)."""
+    from cl_object_detection_tpu_torch.ops.focal_loss import focal_loss
+
+    model = create_retinanet(tcfg.ModelConfig(**CFG), C, device="cpu")
+    load_jax_variables(model, sv)
+    with torch.no_grad():
+        cls, reg = model(torch.from_numpy(batch[0]), enable_act=True)
+        out = focal_loss(cls, reg, torch.from_numpy(anchors), torch.from_numpy(batch[1]),
+                         torch.from_numpy(batch[2]))
+    return out.fg_loss.numpy()
+
+
+def cases(fg):
+    """(name, (JAX, port) ILConfig overrides, LossStatics kwargs)."""
+    clip = float(np.median(fg))
+    return [
+        ("plain", {}, dict(num_classes=C)),
+        ("replay_clip_enhance", dict(clip_loss=True, clip_replay_cls_loss=clip),
+         dict(num_classes=C, num_past_class=C_OLD, is_replay=True, use_enhance_error=True)),
+        ("distill_sim_mas_enhance_on_new", dict(clip_loss=True, clip_cls_loss=0.05),
+         dict(num_classes=C, num_past_class=C_OLD, incremental=True, use_distill=True,
+              use_classifier_loss=True, use_enhance_on_new=True, use_mas=True)),
+        ("distill_ignore_gd_logits_prototype", dict(ignore_gd=True, new_ignore_past_class=True),
+         dict(num_classes=C, num_past_class=C_OLD, incremental=True, use_distill=True,
+              distill_logits=True, ignore_gd=True, use_prototype=True)),
+    ]
+
+
+def _il(mod, overrides, prototype):
+    il = dataclasses.replace(mod.ILConfig(), **overrides)
+    if prototype:
+        il = dataclasses.replace(il, prototype=mod.PrototypeConfig(loss=True, margin=PROTO_MARGIN))
+    return il
+
+
+def jax_value_and_grad(overrides, statics, sv, tv, batch, protos, mas):
+    model, _ = jax_model(C, 1)
+    teacher, _ = jax_model(C_OLD, 0)
+    il = _il(jcfg, overrides, statics.get("use_prototype", False))
+    st = jlosses.LossStatics(**statics)
+    cvec = jnp.asarray(j_class_vectors(tv["params"]))
+
+    def loss_fn(params, images, boxes, labels):
+        kw = {}
+        if st.incremental:
+            kw.update(teacher_apply_with_feats=lambda vv, x, act: teacher.apply(
+                vv, x, enable_act=act, method="forward_all"),
+                teacher_variables=tv, classifier_vectors=cvec,
+                prototype_extras={"apply": lambda vv, xx: model.apply(
+                    vv, xx, enable_act=False, method="classification_features"),
+                    "old_prototypes": jnp.asarray(protos), "margin": PROTO_MARGIN,
+                    "weight": 0.1})
+        if st.use_mas:
+            kw.update(mas_prev_params=mas[0], mas_importance=mas[1])
+        total, m = jlosses.compute_losses(
+            lambda vv, x, act: model.apply(vv, x, enable_act=act),
+            lambda vv, x, act: model.apply(vv, x, enable_act=act, method="forward_all"),
+            {"params": params, "batch_stats": sv["batch_stats"]},
+            images, boxes, labels, jnp.asarray(ANCHORS), il, jcfg.FocalConfig(), st, **kw)
+        return total, m
+
+    (_, m), g = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        sv["params"], *(jnp.asarray(a) for a in batch))
+    return {k: float(v) for k, v in m.items()}, to_port(g)
+
+
+def _port_cases(the_cases):
+    return [(name, _il(tcfg, ov, st.get("use_prototype", False)), tlosses.LossStatics(**st))
+            for name, ov, st in the_cases]
+
+
+@pytest.fixture(scope="module")
+def mesh_losses(tmp_path_factory):
+    sv, (_, tv) = student_variables(), jax_model(C_OLD, 0)
+    batch = make_batch(7)
+    wide = make_batch(17, WIDE_W)
+    wide_anchors = anchors_for_shape(H, WIDE_W)
+    protos = (np.random.RandomState(8).randn(C_OLD, 32 * 9) * 0.5).astype(np.float32)
+    mas = mas_trees(sv["params"], 9)
+    the_cases = cases(per_image_fg(sv, batch, ANCHORS))
+    student = port_state(sv, C)
+    teacher = port_state(tv, C_OLD)
+    frames = {
+        "jax": dict(images=batch[0], boxes=batch[1], labels=batch[2], anchors=ANCHORS,
+                    cases=_port_cases(the_cases)),
+        "wide": dict(images=wide[0], boxes=wide[1], labels=wide[2], anchors=wide_anchors,
+                     cases=_port_cases(cases(per_image_fg(sv, wide, wide_anchors))))}
+    args = dict(
+        model_cfg=tcfg.ModelConfig(**CFG), c_old=C_OLD, student=student, teacher=teacher,
+        class_vectors=torch.from_numpy(classifier_class_vectors(teacher)),
+        prototypes=torch.from_numpy(protos),
+        mas_prev={k: torch.from_numpy(v) for k, v in to_port(mas[0]).items()},
+        mas_importance={k: torch.from_numpy(v) for k, v in to_port(mas[1]).items()},
+        frames=frames)
+    ranks = run_ranks(str(tmp_path_factory.mktemp("mesh_losses")), "losses", args)
+    want = {name: jax_value_and_grad(ov, st, sv, tv, batch, protos, mas)
+            for name, ov, st in the_cases}
+    one_process = {name: (m, g) for name, (g, m) in loss_grads(args, "wide").items()}
+    return ranks, want, one_process
+
+
+def test_two_rank_gradient_matches_jax_global_batch(mesh_losses):
+    """In every case both ranks hold the same all-reduced gradient and
+    metrics, and they equal JAX's of the whole batch; at 128 x 192 frames
+    they equal the port's own single-process ones of the whole batch
+    (module docstring). (One test for all the cases and both frame
+    sizes: they share one spawn, which a test per case would repeat on
+    every test worker that runs one.)"""
+    ranks, want, one_process = mesh_losses
+    names = {c[0] for c in cases(np.ones(B))}
+    for frames, ref in (("jax", want), ("wide", one_process)):
+        got = [r[frames] for r in ranks]
+        assert set(got[0]) == set(ref) == names, frames
+        for name in ref:
+            _check_case(got, ref, name)
+
+
+def _check_case(ranks, want, name):
+    (g0, m0), (g1, m1) = ranks[0][name], ranks[1][name]
+    assert m0 == m1 and all(np.array_equal(g0[k], g1[k]) for k in g0)
+    jm, jg = want[name]
+    assert set(m0) == set(jm), (sorted(m0), sorted(jm))
+    for k in jm:
+        np.testing.assert_allclose(m0[k], jm[k], rtol=1e-4, err_msg=k)
+    assert set(g0) == set(jg)
+    for k, w in jg.items():
+        bad = np.abs(g0[k] - w) > 1e-3 * np.abs(w) + 1e-4 * np.abs(w).max()
+        assert not bad.any(), (f"{name} {k}: {int(bad.sum())} of {w.size} beyond the bar, "
+                               f"max |d| {np.abs(g0[k] - w).max():.3g}, "
+                               f"max |g| {np.abs(w).max():.3g}")
+    terms = {"replay_clip_enhance": ("enhance_loss",),
+             "distill_sim_mas_enhance_on_new": ("dist_reg_loss", "dist_cls_loss", "sim_loss",
+                                                "mas_loss", "enhance_on_new_loss"),
+             "distill_ignore_gd_logits_prototype": ("dist_reg_loss", "dist_cls_loss",
+                                                    "prototype_loss")}.get(name, ())
+    for k in terms:
+        assert m0[k] > 0, (name, k)

@@ -489,15 +489,34 @@ _STATE1 = ["--scenario", "3", "2", "--end_state", "1", "--end_epoch", "1",
     pytest.param(_STATE1 + ["--agem", "true", "--sample_num", "1", "--sample_method",
                             "random"], None, id="flags0-item 4c"),
     pytest.param(_STATE1 + ["--mas", "true"], None, id="flags1-item 4c"),
-    (["--mesh", "true"], "item 6"),
-    (["--zero1", "true"], "item 6"),
-    (["--num_data", "2"], "item 6"),
-    (["--coordinator_address", "localhost:1234"], "item 6"),
+    pytest.param(["--mesh", "true"], "one rank", id="flags2-item 6"),
+    pytest.param(["--zero1", "true"], "item 6b", id="flags3-item 6"),
+    pytest.param(["--mesh", "true", "--num_data", "2"], "two ranks", id="flags4-item 6"),
+    pytest.param(["--coordinator_address", "localhost:1234", "--num_processes", "1",
+                  "--process_id", "0"], "one rank", id="flags5-item 6"),
+    pytest.param(["--num_model", "2"], "item 6b", id="flags6-item 6b"),
 ])
 def test_train_cli_refuses_what_is_not_ported(toy, tmp_path, capsys, flags, item):
-    """The mesh flags are refused naming ROADMAP §1 item 6; A-GEM and MAS
-    (item 4c, once refused here) train state 0 and then state 1, whose
-    checkpoint is written."""
+    """ZeRO-1 and the model axis are refused naming ROADMAP §1 item 6b.
+    The data axis (item 6a, once refused here) trains: ``--mesh true`` on
+    the CPU, and the process flags of one process, on a one-rank mesh;
+    ``--mesh true --num_data 2`` starts two CPU ranks, which write one
+    checkpoint per epoch (``main`` returns None in the process that started
+    them). A-GEM and MAS (item 4c, once refused here) train state 0 and
+    then state 1, whose checkpoint is written."""
+    if item == "one rank":
+        trainer = train_main(_cli(toy, str(tmp_path), "--cpu", *flags))
+        assert trainer.mesh.shape == {"data": 1, "model": 1} and trainer.mesh.backend is None
+        assert trainer.ckpt.epochs(0) == [1, 2] and len(trainer.loss_hist) == 8
+        return
+    if item == "two ranks":
+        assert train_main(_cli(toy, str(tmp_path), "--cpu", *flags)) is None
+        state_dir = os.path.join(str(tmp_path), "checkpoint", "5", "state0")
+        assert sorted(os.listdir(state_dir)) == ["epoch1", "epoch2", "params.json"]
+        tree = torch.load(os.path.join(state_dir, "epoch2", "state.pt"), weights_only=True)
+        assert tree["step"] == 8                      # 4 global batches of 2 a epoch
+        assert all(torch.isfinite(v).all() for v in tree["model"].values())
+        return
     if item is None:
         try:
             trainer = train_main(_cli(toy, str(tmp_path), "--cpu", *flags))
@@ -512,7 +531,9 @@ def test_train_cli_refuses_what_is_not_ported(toy, tmp_path, capsys, flags, item
 
 
 def test_trainer_refuses_states_and_mesh(toy, tmp_path):
-    """The mesh is refused naming ROADMAP §1 item 6. BiC and A-GEM (items
+    """The mesh (item 6a, once refused here) builds a one-rank data axis
+    without a process group; ZeRO-1 is refused naming ROADMAP §1 item 6b.
+    BiC and A-GEM (items
     4d and 4c, once refused here) build their tools at a state-1 start
     with replay: BiC's held-out loader and scalars, A-GEM over the replay
     loader; without replay each raises as JAX's trainer does."""
@@ -531,9 +552,13 @@ def test_trainer_refuses_states_and_mesh(toy, tmp_path):
         no_replay = cfg.replace(il=dataclasses.replace(cfg.il, replay=tcfg.ReplayConfig()))
         with pytest.raises(ValueError, match="requires"):
             ILTrainer(no_replay, json_path, images, workdir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ILTrainer(base.replace(mesh=tcfg.MeshConfig(enabled=True)), json_path, images,
-                  workdir=str(tmp_path), device="cpu")
+    tr = ILTrainer(base.replace(mesh=tcfg.MeshConfig(enabled=True)), json_path, images,
+                   workdir=str(tmp_path), device="cpu")
+    assert (tr.mesh.rank, tr.mesh.world, tr.primary) == (0, 1, True)
+    assert tr.train_loader.process_count == 1
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        ILTrainer(base.replace(mesh=tcfg.MeshConfig(enabled=True, zero1=True)), json_path,
+                  images, workdir=str(tmp_path), device="cpu")
 
 
 def test_train_cli_as_a_module(toy, tmp_path):

@@ -224,19 +224,33 @@ def test_validate_quantize_runs(port_run):
 
 @pytest.mark.parametrize("flags,item", [
     pytest.param(["--bic", "true"], None, id="flags0-item 4"),
-    (["--mesh", "true"], "item 6"),
-    (["--num_data", "2"], "item 6"),
+    pytest.param(["--mesh", "true"], "mesh", id="flags1-item 6"),
+    pytest.param(["--num_data", "2"], "mesh", id="flags2-item 6"),
     pytest.param(["--topk_method", "approx"], "approx", id="flags3-item 8"),
+    pytest.param(["--zero1", "true"], "item 6b", id="flags4-item 6b"),
 ])
 def test_validate_refuses_what_is_not_ported(small_models, data, weights, tmp_path, capsys,
                                              flags, item):
-    """The mesh flags are refused naming their ROADMAP item. ``--bic
+    """ZeRO-1 is refused naming ROADMAP §1 item 6b. The data axis (item
+    6a, once refused here) runs: ``--mesh true`` on the CPU predicts on a
+    one-rank mesh, and ``--num_data`` alone, a size of the mesh's data
+    axis, leaves a run without ``--mesh`` in one process, as JAX's does;
+    each writes the rows of the plain run (two ranks:
+    tests/test_torch_mesh_train.py). ``--bic
     true`` (item 4d, once refused here) runs: on a ``--torch_ckpt`` (no
     meta) it warns that it ignores the flag and writes the uncorrected
     rows without the ``_bic`` suffix, the decline CSV with it.
     ``--topk_method approx`` (item 8, once refused here) runs and writes
     the rows of ``exact`` (the float32 model's logits select the same
     candidates in the same order)."""
+    if item == "mesh":
+        rows = {}
+        for tag, extra in (("plain", ()), ("flag", flags)):
+            root = str(tmp_path / tag)
+            validate.main(_args(data, root, *extra, "--torch_ckpt", weights[0]))
+            rows[tag] = _read_json(_result_dir(root, "voc2007_results_epoch0.json"))
+        assert rows["flag"] and rows["flag"] == rows["plain"]
+        return
     if item == "approx":
         rows = {}
         for method in ("exact", "approx"):

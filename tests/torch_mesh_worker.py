@@ -1,0 +1,297 @@
+"""One rank of the port's data axis, for the tests/test_torch_mesh*.py files.
+
+    python tests/torch_mesh_worker.py RANK WORLD WORKDIR
+
+Joins a gloo group of WORLD CPU ranks through a ``file://`` store in
+WORKDIR, runs the case that ``WORKDIR/job.pt`` names with its arguments,
+and writes what the case returns to ``WORKDIR/out<RANK>.pt``. It imports
+torch and the port only (no JAX), so a rank starts in a few seconds.
+``run_ranks`` starts the ranks and joins each with a timeout.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_ranks(workdir: str, case: str, args: dict, world: int = 2, timeout: float = 240.0):
+    """Run ``case`` on ``world`` ranks in fresh processes, each with the
+    caller's number of torch threads (the CPU kernels' results may depend
+    on it, and the tests compare the ranks with the caller); returns each
+    rank's result. A rank that fails, or any rank still running after
+    ``timeout`` seconds, fails the caller (every rank is killed)."""
+    import torch
+
+    os.makedirs(workdir, exist_ok=True)
+    threads = torch.get_num_threads()
+    torch.save({"case": case, "args": args, "threads": threads},
+               os.path.join(workdir, "job.pt"))
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS=str(threads))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(world),
+                               workdir], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            logs.append(out)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{case}: a rank was still running after {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"{case}: rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    return [torch.load(os.path.join(workdir, f"out{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+# ----------------------------------------------------------------------
+# cases: fn(mesh, args, workdir) -> a picklable result
+# ----------------------------------------------------------------------
+
+def _model(cfg, num_classes, state_dict):
+    from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+
+    model = create_retinanet(cfg, num_classes, device="cpu")
+    model.load_state_dict(state_dict)
+    return model
+
+
+def loss_grads(a, frames, mesh=None):
+    """Each loss configuration of ``a["frames"][frames]`` (images, boxes,
+    labels, anchors, cases) on this rank's slice of the batch (the whole
+    batch without ``mesh``): {case: (all-reduced gradient of the total,
+    global metrics)}."""
+    import torch
+
+    from cl_object_detection_tpu_torch.config import FocalConfig
+    from cl_object_detection_tpu_torch.il.losses import compute_losses
+    from cl_object_detection_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_metrics
+
+    f = a["frames"][frames]
+    world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+    per = f["images"].shape[0] // world
+    sl = slice(rank * per, (rank + 1) * per)
+    batch = [torch.from_numpy(f[k][sl]) for k in ("images", "boxes", "labels")]
+    teacher = _model(a["model_cfg"], a["c_old"], a["teacher"]).requires_grad_(False)
+    out = {}
+    for name, il_cfg, statics in f["cases"]:
+        model = _model(a["model_cfg"], statics.num_classes, a["student"])
+        kw = {}
+        if statics.incremental:
+            kw.update(teacher=teacher, classifier_vectors=a["class_vectors"],
+                      prototype_features=a["prototypes"])
+        if statics.use_mas:
+            kw.update(mas_prev_params=a["mas_prev"], mas_importance=a["mas_importance"])
+        total, metrics = compute_losses(model, *batch, torch.from_numpy(f["anchors"]), il_cfg,
+                                        FocalConfig(), statics, mesh=mesh, **kw)
+        total.backward()
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in model.named_parameters()}
+        grads = all_reduce_grads(mesh, grads)
+        metrics = all_reduce_metrics(mesh, metrics)
+        out[name] = ({k: v.numpy() for k, v in grads.items()},
+                     {k: float(v.detach()) for k, v in metrics.items()})
+    return out
+
+
+def case_losses(mesh, a, workdir):
+    """``loss_grads`` at every frame size of ``a["frames"]``."""
+    return {frames: loss_grads(a, frames, mesh) for frames in a["frames"]}
+
+
+def _trainer_record(tr):
+    from cl_object_detection_tpu_torch.parallel.mesh import module_checksums
+
+    return dict(
+        params={k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+        checksums=module_checksums(tr.model),
+        loss_hist=list(tr.loss_hist),
+        epochs=[(r["state"], r["epoch"]) for r in tr.epoch_log],
+        exemplars=list(tr.dataset_replay.image_ids) if tr.dataset_replay is not None else None,
+        bic=None if tr.bic is None else (tr.bic.params.alphas.tolist(),
+                                         tr.bic.params.betas.tolist()),
+        mas_keys=None if tr.mas_importance is None else sorted(tr.mas_importance),
+        replay_grad=None if tr.agem is None or tr.agem.replay_grad is None else
+        {k: v.clone() for k, v in tr.agem.replay_grad.items()},
+        cur_state=tr.cur_state,
+        files=sorted(os.path.relpath(os.path.join(d, f), tr.ckpt.root)
+                     for d, _, fs in os.walk(tr.ckpt.root) for f in fs),
+    )
+
+
+def case_train(mesh, a, workdir):
+    """``train_process`` of ``a["cfg"]`` on this rank; with ``a["expect"]``
+    the trainer's construction must raise that error instead."""
+    from cl_object_detection_tpu_torch.train.loop import train_process
+    from cl_object_detection_tpu_torch.train.trainer import ILTrainer
+
+    try:
+        tr = ILTrainer(a["cfg"], a["json"], a["images"], workdir=a["workdir"], device="cpu")
+    except ValueError as e:
+        if a.get("expect"):
+            return {"error": str(e)}
+        raise
+    assert not a.get("expect"), "the trainer did not raise"
+    train_process(tr)
+    return _trainer_record(tr)
+
+
+def case_distill_step(mesh, a, workdir):
+    """JAX's test_mesh_incremental_distill_step on the ranks: state 0 in
+    the classifier warm stage with accumulation, two micro-steps and a
+    save, then state 1 from that checkpoint with distillation, two
+    micro-steps; the metrics of each and the parameters after."""
+    from cl_object_detection_tpu_torch.parallel.mesh import check_replicas
+    from cl_object_detection_tpu_torch.train.trainer import ILTrainer
+
+    tr0 = ILTrainer(a["cfg0"], a["json"], a["images"], workdir=a["workdir"], device="cpu")
+    tr0.cur_epoch = tr0.end_epoch = 1
+    tr0.warm_up(1)
+    batch = next(iter(tr0.train_loader))
+    m0 = [tr0.run_batch(batch), tr0.run_batch(batch)]
+    tr0.save(1)
+    tr0.ckpt.wait()
+    tr1 = ILTrainer(a["cfg1"], a["json"], a["images"], workdir=a["workdir"], device="cpu")
+    tr1.cur_epoch = tr1.end_epoch = 1
+    batch = next(iter(tr1.train_loader))
+    m1 = [tr1.run_batch(batch), tr1.run_batch(batch)]
+    return dict(warm=tr0._warm_kind, m0=m0, m1=m1, teacher=tr1.teacher_model is not None,
+                sums=check_replicas(mesh, tr1.model),
+                params={k: v.detach().clone() for k, v in tr1.model.state_dict().items()})
+
+
+def anchors_for(images):
+    from cl_object_detection_tpu_torch.data.transforms import logical_image_hw
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+
+    return anchors_for_shape(*logical_image_hw(images))
+
+
+def case_tools(mesh, a, workdir):
+    """Each IL tool pass with ``mesh=`` (None: one process) on the old
+    model of scenario 3+2: the similarity and the pseudo-labels over the
+    state-1 images, the MAS importance, herding, the prototypes and
+    prototype-herd over the state-0 images."""
+    from cl_object_detection_tpu_torch.data.coco import CocoJson
+    from cl_object_detection_tpu_torch.data.dataset import ILDataset
+    from cl_object_detection_tpu_torch.data.loader import BatchLoader
+    from cl_object_detection_tpu_torch.il.herding import HerdSampler
+    from cl_object_detection_tpu_torch.il.mas import compute_importance
+    from cl_object_detection_tpu_torch.il.prototype import (compute_prototype_features,
+                                                            prototype_herd_scores,
+                                                            prototype_herd_slot_scores)
+    from cl_object_detection_tpu_torch.il.pseudo_label import generate_pseudo_labels
+    from cl_object_detection_tpu_torch.il.weight_init import compute_similarity
+
+    from cl_object_detection_tpu_torch.states import ILStates
+
+    coco = CocoJson(a["json"])
+    states = ILStates(list(coco.classes.values()), coco.classes_inverse, ["3", "2"])
+    old, new = (ILDataset(coco, states, a["images"], split="train", start_state=s)
+                for s in (0, 1))
+    model = _model(a["model_cfg"], 3, a["state_dict"])
+    cfg = a["data_cfg"]
+    unaugmented = lambda ds: BatchLoader(ds, cfg, shuffle=False, augment=False)
+    herd = HerdSampler(a["herd_ratio"])
+    out = dict(
+        similarity=compute_similarity(model, anchors_for, unaugmented(new), 2, 3, mesh=mesh),
+        importance={k: v.numpy() for k, v in compute_importance(
+            model, anchors_for, unaugmented(old), mesh=mesh).items()},
+        herd=herd.sample(model, old, cfg, 2, mesh=mesh),
+        prototypes=compute_prototype_features(model, anchors_for, unaugmented(old), 3,
+                                              mesh=mesh),
+        pseudo=generate_pseudo_labels(model, new, cfg, a["pseudo_cfg"],
+                                      states.inverse_label_map(), mesh=mesh),
+    )
+    out["herd_list"] = list(herd.examplar_list)
+    out["proto_slots"] = prototype_herd_slot_scores(model, anchors_for, old, cfg,
+                                                    out["prototypes"], mesh=mesh)
+    out["proto_mean"] = prototype_herd_scores(model, anchors_for, old, cfg, out["prototypes"],
+                                              mesh=mesh)
+    return out
+
+
+def case_validate(mesh, a, workdir):
+    """``cli.validate.run_validation`` of ``a["argv"]`` on the ranks, the
+    model's config given ``a["model"]``'s fields; the results every rank
+    returns."""
+    import functools
+
+    from cl_object_detection_tpu_torch import config
+    from cl_object_detection_tpu_torch.cli import common, validate
+
+    common.ModelConfig = functools.partial(config.ModelConfig, **a["model"])
+    a_ns = validate.get_parser().parse_args(a["argv"])
+    results = validate.run_validation(a_ns, device="cpu")
+    return {e: (r.mean_ap50, dict(r.ap50)) for e, r in results.items()}
+
+
+def case_collectives(mesh, a, workdir):
+    """The helpers of parallel/mesh.py on this rank's values."""
+    import torch
+
+    from cl_object_detection_tpu_torch.parallel import mesh as pm
+
+    r = mesh.rank
+    grads = {"a": torch.full((3, 2), float(r + 1)), "b": torch.arange(4.0) * (r + 1)}
+    lin = torch.nn.Linear(3, 2)
+    with torch.no_grad():
+        lin.weight.fill_(float(r))
+    pm.broadcast_module(mesh, lin)
+    parted = torch.nn.Linear(3, 2)
+    with torch.no_grad():
+        parted.weight.fill_(float(r))
+    try:
+        pm.check_replicas(mesh, parted, "probe")
+        parted_raised = False
+    except RuntimeError:
+        parted_raised = True
+    return dict(
+        grads={k: v.numpy() for k, v in pm.all_reduce_grads(mesh, grads).items()},
+        metrics={k: float(v) for k, v in pm.all_reduce_metrics(
+            mesh, {"x": torch.tensor(float(r)), "y": torch.tensor(2.0 * r)}).items()},
+        count=float(pm.all_reduce_sum(mesh, torch.tensor(float(r + 1)))),
+        obj=pm.broadcast_object(mesh, {"rank": r}),
+        gathered=pm.all_gather_object(mesh, r),
+        weight=lin.weight.detach().numpy().copy(),
+        sums=pm.check_replicas(mesh, lin),
+        parted_raised=parted_raised,
+        shape=mesh.shape, backend=mesh.backend, rank=mesh.rank,
+    )
+
+
+CASES = {k[5:]: v for k, v in dict(globals()).items() if k.startswith("case_")}
+
+
+def main() -> int:
+    rank, world, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    import torch
+
+    from cl_object_detection_tpu_torch.config import MeshConfig
+    from cl_object_detection_tpu_torch.parallel import mesh as pm
+
+    job = torch.load(os.path.join(workdir, "job.pt"), weights_only=False)
+    pm.init_distributed(num_processes=world, process_id=rank, cpu=True,
+                        init_method=f"file://{os.path.join(workdir, 'store')}")
+    torch.set_num_threads(job["threads"])
+    mesh = pm.create_mesh(MeshConfig(enabled=True), torch.device("cpu"))
+    result = CASES[job["case"]](mesh, job["args"], workdir)
+    torch.save(result, os.path.join(workdir, f"out{rank}.pt"))
+    pm.barrier(mesh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
