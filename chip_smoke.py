@@ -281,7 +281,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    epoch (``every_iter`` 2), (b) state 1 from (a)'s checkpoint with phase
    12's battery flags (``--sample_batch_size 4``, which the two ranks
    divide), and (c) ``cli.validate --mesh true --state 1 --bic true`` at
-   threshold 0.001 under ``nms_impl="pallas_fp"`` (as phase 12). Checks:
+   threshold 0.001 under ``nms_impl="pallas_fp"`` (as phase 12); between
+   (b) and (c) the IL passes (similarity, prototypes, herding,
+   pseudo-labels, MAS) on (a)'s state-0 model, its classification bias
+   raised, split over the ranks; then (d) (a) again with ``--zero1 true``
+   and (e) (b) again with ``--zero1 true``, in a second run root, with
+   ZeRO-1's ``param_all_gather`` of the R50 timed after (d). Checks:
    the ranks' parameters bit-identical at every epoch's end (the trainer
    raises otherwise; the checksums compared again here), their global
    losses, exemplar ids and BiC scalars equal; only rank 0 wrote into the
@@ -297,11 +302,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ranks' batch: the same images in the same slots, so the same cuDNN
    algorithms), and its per-class AP50 one process's in batches of 8
    within 0.005 (bf16 convs of 8 images take other algorithms, which
-   move scores by up to two bf16 ulps of their logit). Printed: images/s
-   of (a) and (b), (a)'s beside one process's ``cli.train`` of the same
-   first epoch under the same cuDNN settings, ms per all-reduce of the R50's gradient (147 MB, five
-   timed), each IL pass's seconds on the two ranks, peak memory per rank,
-   the phase's seconds, and the ``{"data_axis": ...}`` line.
+   move scores by up to two bf16 ulps of their logit); (d)'s and (e)'s
+   checkpoints equal (a)'s and (b)'s bit for bit (parameters, whole Adam
+   moments, groups, step), as do their checksums, losses, exemplar ids
+   and BiC scalars; a pass that splits its batches launches the stem once
+   per batch of the rank's share (ceil or floor of the batches / 2), the
+   BiC epoch and A-GEM refresh once per global batch; the sharded passes'
+   similarity, prototypes, herding picks and pseudo-labels equal one
+   process's bit for bit on this card (the MAS importance within rtol
+   1e-5). Printed, each beside the card's name and power limit: images/s
+   of (a), (b), (d), (e), (a)'s beside one process's ``cli.train`` of the
+   same first epoch under the same cuDNN settings, ms per all-reduce of
+   the R50's gradient (147 MB, five timed) and per ``param_all_gather``
+   (five timed, over gloo on one card, NCCL on two), each IL pass's
+   seconds on the ranks (beside the whole passes' earlier seconds) and in
+   one process, the Adam moment bytes and peak memory per rank of (a) and
+   (d), the phase's seconds, and the ``{"data_axis": ...}`` line.
 15. The ``{"trainer": ...}``, ``{"eval": ...}``, ``{"il_state1": ...}``,
    ``{"il_replay": ...}``, ``{"il_battery": ...}``, ``{"export": ...}`` and
    ``{"data_axis": ...}`` lines, phase 4's and phase 5's B=32 throughput beside the figures of
@@ -2348,7 +2364,7 @@ def similarity_card_vs_cpu(tr, s0):
             model = create_retinanet(cfg32, 15, device=dev)
             model.load_state_dict(s0)
             with torch.no_grad():
-                model.classification_head.output.bias += SIM_BIAS_RAISE
+                model.classification_head.output.bias += PASSES_BIAS_RAISE
             seen = []
             hook = model.register_forward_hook(lambda m, a, out: seen.append(out[0].cpu()))
             got[dev] = compute_similarity(model, tr.anchors_for, batches, 5, 15)
@@ -3157,10 +3173,12 @@ DATA_AXIS_ULP_SEEDS = (1, 2, 3, 4)
 DATA_AXIS_AP_TOL = 5e-3
 
 # One rank of phase 14: (a) cli.train state 0, (b) cli.train state 1 with the
-# battery, the gradient all-reduce timed, (c) cli.validate --bic under pallas_fp,
-# each through its entry point with the process flags, in one process group;
-# records per micro-step stem launches, each IL pass, the writes into the run
-# root, the first apply's all-reduced gradient with its inputs, and the peaks.
+# battery, the gradient all-reduce timed, the sharded IL passes on the state-0
+# model, (c) cli.validate --bic under pallas_fp, (d) (a) under --zero1 with
+# param_all_gather timed, (e) (b) under --zero1, each through its entry point
+# with the process flags, in one process group; records per micro-step stem
+# launches, each IL pass, the writes into the run roots, the first apply's
+# all-reduced gradient with its inputs, the moment bytes and the peaks.
 DATA_AXIS_CHILD = r"""
 import functools, json, os, sys, time
 rank, world, address, spec_path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
@@ -3181,13 +3199,18 @@ from cl_object_detection_tpu_torch.train import step as step_mod
 from cl_object_detection_tpu_torch.train import trainer as trainer_mod
 from cl_object_detection_tpu_torch.utils.checkpoint import host_copy
 
+sys.path.insert(0, spec["repo"])
+from chip_smoke import run_passes
+
 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
 proc = ["--coordinator_address", address, "--num_processes", str(world),
         "--process_id", str(rank)]
 out = os.path.join(spec["out"], f"rank{rank}")
 os.makedirs(out)
-rec = {"rank": rank, "steps": [], "passes": [], "writes": {"checkpoints": 0, "arrays": 0}}
+rec = {"rank": rank, "steps": [], "passes": [],
+       "writes": {"checkpoints": 0, "arrays": 0}}
 first = {"batches": 0}
+run = {"tag": None}
 real = dict(run_batch=trainer_mod.ILTrainer.run_batch, reduce=step_mod.all_reduce_grads,
             rename=os.rename, savez=np.savez, predict_cfg=config_mod.PredictConfig,
             refresh=agem_mod.AGem.compute_replay_grad, bic=bic_mod.BicTrainer.train_epoch,
@@ -3204,7 +3227,7 @@ def run_batch(self, batch, is_replay=False, sync_metrics=True, correction=False)
     before, t = stem_fused.launches, time.perf_counter()
     m = real["run_batch"](self, batch, is_replay=is_replay, sync_metrics=sync_metrics,
                           correction=correction)
-    rec["steps"].append({"state": self.cur_state, "replay": is_replay,
+    rec["steps"].append({"run": run["tag"], "state": self.cur_state, "replay": is_replay,
                          "launches": stem_fused.launches - before,
                          "s": time.perf_counter() - t})
     return m
@@ -3224,14 +3247,16 @@ def timed(name, fn, loader_of):
         before, t0 = stem_fused.launches, time.perf_counter()
         result = fn(*args, **kw)
         torch.cuda.synchronize()
-        rec["passes"].append({"name": name, "s": time.perf_counter() - t0,
-                              "batches": len(loader), "launches": stem_fused.launches - before})
+        rec["passes"].append({"run": run["tag"], "name": name, "s": time.perf_counter() - t0,
+                              "batches": len(loader),
+                              "launches": stem_fused.launches - before})
         return result
     return wrapper
 
 def counted(kind, fn):
     def wrapper(*args, **kw):
-        if str(args[1] if kind == "checkpoints" else args[0]).startswith(spec["root"]):
+        if any(str(args[1] if kind == "checkpoints" else args[0]).startswith(r)
+               for r in spec["roots"]):
             rec["writes"][kind] += 1
         return fn(*args, **kw)
     return wrapper
@@ -3254,55 +3279,183 @@ trainer_mod.compute_importance = timed("mas", real["compute_importance"],
 trainer_mod.generate_pseudo_labels = timed("pseudo_labels", real["generate_pseudo_labels"],
                                            lambda m, ds, cfg, *a: unaugmented(ds, cfg))
 
-def summary(tr, t0):
-    return {"s": time.perf_counter() - t0, "epoch_log": tr.epoch_log,
-            "checksums": pm.check_replicas(tr.mesh, tr.model), "loss_hist": list(tr.loss_hist),
-            "mesh": pm.describe(tr.mesh), "backend": tr.mesh.backend,
-            "device": str(tr.device), "world": tr.mesh.world}
+def train(tag):
+    run["tag"] = tag
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, t0 = len(rec["steps"]), time.perf_counter()
+    tr = train_main(spec[tag] + proc)
+    torch.cuda.synchronize()
+    rec[tag] = {"s": time.perf_counter() - t0, "epoch_log": tr.epoch_log,
+                "checksums": pm.check_replicas(tr.mesh, tr.model),
+                "loss_hist": list(tr.loss_hist), "mesh": pm.describe(tr.mesh),
+                "backend": tr.mesh.backend, "device": str(tr.device), "world": tr.mesh.world,
+                "zero1": tr.mesh.zero1, "sharded": tr.optimizer.sharded,
+                "moment_bytes": tr.optimizer.moment_bytes(),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "steps": [start, len(rec["steps"])]}
+    if tr.cur_state >= 1:
+        rec[tag].update(exemplars=list(tr.dataset_replay.image_ids),
+                        bic=[tr.bic.params.alphas.tolist(), tr.bic.params.betas.tolist()])
+    return tr
 
-torch.cuda.reset_peak_memory_stats()
-t0 = time.perf_counter()
-tr = train_main(spec["a"] + proc)
-rec["a"] = summary(tr, t0)
-rec["a"]["micro_steps"] = len(rec["steps"])
+def timed_ms(fn):
+    times = []
+    for _ in range(5):
+        pm.barrier(mesh)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+tr = train("a")
+mesh = tr.mesh
 del tr
-t0 = time.perf_counter()
-tr = train_main(spec["b"] + proc)
-rec["b"] = summary(tr, t0)
-rec["b"].update(exemplars=list(tr.dataset_replay.image_ids),
-                bic=[tr.bic.params.alphas.tolist(), tr.bic.params.betas.tolist()])
+tr = train("b")
 
 # the gradient all-reduce of the R50, timed on both ranks together
 grads = {n: torch.full_like(p, float(rank + 1)) for n, p in tr.model.named_parameters()}
 reduced = pm.all_reduce_grads(tr.mesh, grads)
 assert all(bool((v == 1.5).all()) for v in reduced.values()), "the all-reduce is not the mean"
-times = []
-for _ in range(5):
-    pm.barrier(tr.mesh)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    pm.all_reduce_grads(tr.mesh, grads)
-    torch.cuda.synchronize()
-    times.append((time.perf_counter() - t) * 1e3)
-rec["allreduce"] = {"ms": times, "mb": sum(v.numel() for v in grads.values()) * 4 / 1e6}
+rec["allreduce"] = {"ms": timed_ms(lambda: pm.all_reduce_grads(tr.mesh, grads)),
+                    "mb": sum(v.numel() for v in grads.values()) * 4 / 1e6}
 del tr, grads, reduced
 torch.cuda.empty_cache()
 
+# the IL passes on the ranks, each on the state-0 model of (a)
+run["tag"] = "passes"
+results, rec["sharded_passes"] = run_passes(spec, mesh)
+if rank == 0:
+    torch.save(results, os.path.join(out, "passes.pt"))
+del results
+torch.cuda.empty_cache()
+
+run["tag"] = "c"
 config_mod.PredictConfig = functools.partial(real["predict_cfg"], nms_impl="pallas_fp")
 nms0, stem0, t0 = nms_fp.launches, stem_fused.launches, time.perf_counter()
 res = validate.main(spec["c"] + proc)
+config_mod.PredictConfig = real["predict_cfg"]
 rec["c"] = {"s": time.perf_counter() - t0, "nms": nms_fp.launches - nms0,
             "stem": stem_fused.launches - stem0, "map50": res[1].mean_ap50,
             "ap50": dict(res[1].ap50)}
-rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+torch.cuda.empty_cache()
+
+# (d): (a) under ZeRO-1, then its all-gather of the R50's parameters timed
+tr = train("d")
+params = dict(tr.model.named_parameters())
+plan = pm.zero1_plan(tr.mesh, tr.model.named_parameters())
+before = pm.module_checksums(tr.model)
+rec["all_gather"] = {"ms": timed_ms(lambda: pm.param_all_gather(tr.mesh, params, plan)),
+                     "mb": sum(p.numel() for n, p in params.items()
+                               if plan[n] is not None) * 4 / 1e6,
+                     "split": sum(s is not None for s in plan.values()), "leaves": len(plan)}
+assert pm.module_checksums(tr.model) == before, "the all-gather changed a parameter"
+del tr, params
+torch.cuda.empty_cache()
+tr = train("e")
+del tr
+torch.cuda.empty_cache()
+
 with open(os.path.join(out, "record.json"), "w") as f:
     json.dump(rec, f)
-mesh = pm.create_mesh(config_mod.MeshConfig(enabled=True),
-                      torch.device("cuda", torch.cuda.current_device()))
 pm.barrier(mesh)
 torch.distributed.destroy_process_group()
 print(f"rank {rank}: done", flush=True)
 """
+
+# the IL passes that phase 14 runs on the ranks and in one process: (name, the
+# image set it reads: the state-0 images "old" or the state-1 images "new")
+DATA_AXIS_PASSES = (("similarity", "new"), ("prototypes", "old"), ("herding", "old"),
+                    ("pseudo_labels", "new"), ("mas", "old"))
+# on the classification bias of (a)'s model for those passes: from the prior's
+# 0.01 to ~0.35 per class, past the similarity gate (old-class sum >= 0.5) and
+# the pseudo-label threshold (PSEUDO_SCORE)
+PASSES_BIAS_RAISE = 4.0
+
+
+def run_passes(spec, mesh=None):
+    """Each IL pass of ``DATA_AXIS_PASSES`` with ``mesh=`` (None: one
+    process) on (a)'s state-0 checkpoint, its classification bias raised by
+    ``PASSES_BIAS_RAISE`` (the similarity gate and the pseudo-label
+    threshold then pass), over phase 8's toy images of scenario 15+5 in unshuffled,
+    unaugmented batches of 8, under the ranks' cuDNN settings. Returns the
+    results (numpy) and, per pass, its seconds (the card synchronised), its
+    stem launches and its whole loader's batch count."""
+    import os
+
+    import torch
+
+    from cl_object_detection_tpu_torch.cli.common import add_train_flags, args_to_config
+    from cl_object_detection_tpu_torch.config import PseudoLabelConfig
+    from cl_object_detection_tpu_torch.data.coco import CocoJson
+    from cl_object_detection_tpu_torch.data.dataset import ILDataset
+    from cl_object_detection_tpu_torch.data.loader import BatchLoader
+    from cl_object_detection_tpu_torch.data.transforms import logical_image_hw
+    from cl_object_detection_tpu_torch.il.herding import HerdSampler
+    from cl_object_detection_tpu_torch.il.mas import compute_importance
+    from cl_object_detection_tpu_torch.il.prototype import compute_prototype_features
+    from cl_object_detection_tpu_torch.il.pseudo_label import generate_pseudo_labels
+    from cl_object_detection_tpu_torch.il.weight_init import compute_similarity
+    from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+    from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
+    from cl_object_detection_tpu_torch.states import ILStates
+    from cl_object_detection_tpu_torch.utils.checkpoint import CheckpointManager
+
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    add_train_flags(parser)
+    a = parser.parse_args(spec["a"])
+    cfg = args_to_config(a)
+    device = torch.device("cuda", torch.cuda.current_device())
+    coco = CocoJson(a.train_json)
+    states = ILStates(list(coco.classes.values()), coco.classes_inverse, list(cfg.il.scenario))
+    sets = {k: ILDataset(coco, states, a.image_dir, split="train", start_state=s)
+            for k, s in (("old", 0), ("new", 1))}
+    st = states[1]
+    model = create_retinanet(cfg.model, st.num_past_class, device=device)
+    tree, _ = CheckpointManager(os.path.join(a.root_dir, cfg.checkpoint_dir),
+                                cfg.il.scenario).restore(0, -1)
+    model.load_state_dict(tree["model"])
+    with torch.no_grad():
+        model.classification_head.output.bias += PASSES_BIAS_RAISE
+    anchors = lambda images: anchors_for_shape(*logical_image_hw(images))  # noqa: E731
+    loader = lambda ds: BatchLoader(ds, cfg.data, shuffle=False, augment=False)  # noqa: E731
+    herd = HerdSampler(HERD_RATIO)
+    run = {
+        "similarity": lambda: compute_similarity(model, anchors, loader(sets["new"]),
+                                                 st.num_new_class, st.num_past_class, mesh=mesh),
+        "prototypes": lambda: compute_prototype_features(model, anchors, loader(sets["old"]),
+                                                         st.num_past_class, mesh=mesh),
+        "herding": lambda: (herd.sample(model, sets["old"], cfg.data, 2, mesh=mesh),
+                            list(herd.examplar_list))[1],
+        "pseudo_labels": lambda: generate_pseudo_labels(
+            model, sets["new"], cfg.data, PseudoLabelConfig(enabled=True,
+                                                            score_thresh=PSEUDO_SCORE),
+            states.inverse_label_map(), mesh=mesh),
+        "mas": lambda: {k: v.cpu().numpy() for k, v in compute_importance(
+            model, anchors, loader(sets["old"]), mesh=mesh).items()},
+    }
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    results, timing = {}, {}
+    try:
+        for name, images in DATA_AXIS_PASSES:
+            torch.cuda.synchronize()
+            before, t0 = stem_fused.launches, time.perf_counter()
+            results[name] = run[name]()
+            torch.cuda.synchronize()
+            # herding runs two passes over its images
+            timing[name] = {"s": time.perf_counter() - t0,
+                            "launches": stem_fused.launches - before,
+                            "batches": len(loader(sets[images])),
+                            "passes": 2 if name == "herding" else 1}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    return results, timing
 
 
 def data_axis_path(tmp: str) -> dict:
@@ -3326,9 +3479,15 @@ def data_axis_path(tmp: str) -> dict:
                "--image_dir", os.path.join(data, "images"), "--state", "1", "--epoch", "1",
                "--threshold", "0.001", "--bic", "true"] + IL_MODEL_FLAGS)
     mesh = ["--mesh", "true"]
-    spec = dict(root=root, out=os.path.join(tmp, "data_axis"),
+    root_z = os.path.join(tmp, "run_zero1")
+    paths_z = ["--root_dir", root_z] + paths[2:]
+    zero1 = ["--zero1", "true"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    spec = dict(root=root, roots=[root, root_z], repo=repo, out=os.path.join(tmp, "data_axis"),
                 a=paths + IL_MODEL_FLAGS + DATA_AXIS_A + mesh,
-                b=paths + IL_MODEL_FLAGS + DATA_AXIS_B + mesh, c=vflags + mesh)
+                b=paths + IL_MODEL_FLAGS + DATA_AXIS_B + mesh, c=vflags + mesh,
+                d=paths_z + IL_MODEL_FLAGS + DATA_AXIS_A + mesh + zero1,
+                e=paths_z + IL_MODEL_FLAGS + DATA_AXIS_B + mesh + zero1)
     os.makedirs(spec["out"])
     spec_path = os.path.join(tmp, "data_axis_spec.json")
     with open(spec_path, "w") as f:
@@ -3336,7 +3495,6 @@ def data_axis_path(tmp: str) -> dict:
     child = os.path.join(tmp, "data_axis_child.py")
     with open(child, "w") as f:
         f.write(DATA_AXIS_CHILD)
-    repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
     shared = torch.cuda.device_count() < ranks
     from cl_object_detection_tpu_torch.parallel.mesh import free_port
@@ -3348,7 +3506,7 @@ def data_axis_path(tmp: str) -> dict:
                               cwd=repo, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(ranks)]
     try:
-        deadline = time.monotonic() + 420
+        deadline = time.monotonic() + 600
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
                 break
@@ -3377,6 +3535,9 @@ def data_axis_path(tmp: str) -> dict:
         with open(os.path.join(spec["out"], f"rank{r}", "record.json")) as f:
             recs.append(json.load(f))
     record = check_data_axis_run(recs, shared, run_s)
+    record["zero1"] = data_axis_zero1(root, root_z)
+    torch.cuda.empty_cache()
+    record["passes"] = data_axis_passes(spec, recs)
     torch.cuda.empty_cache()
     ref_flags = ["--root_dir", root + "_ref"] + paths[2:] + IL_MODEL_FLAGS + DATA_AXIS_A
     record["gradient"] = data_axis_gradient(spec["out"], ref_flags, recs)
@@ -3388,25 +3549,42 @@ def data_axis_path(tmp: str) -> dict:
     phase_s = time.perf_counter() - t_phase
     rec0 = recs[0]
     ips = {k: rec0[k]["epoch_log"][-1]["images"] / rec0[k]["epoch_log"][-1]["train_s"]
-           for k in ("a", "b")}
+           for k in ("a", "b", "d", "e")}
     ar = sorted(rec0["allreduce"]["ms"])
     split_a = data_axis_split_a(recs)
     how = ("both ranks share one card over gloo, collectives through the host: not a scaling "
            "figure" if shared else "NCCL, one card per rank")
+    ag = sorted(rec0["all_gather"]["ms"])
     log(f"data axis (R50 bf16 640x1024, global B=8 on {ranks} ranks, {how}; deterministic "
-        f"cuDNN): (a) state 0 {ips['a']:.2f} images/s against {one_ips:.2f} for one process on "
-        f"the same first epoch with the same cuDNN settings, (b) state 1 with the battery "
-        f"{ips['b']:.2f} images/s (host clock, loader included); gradient all-reduce {np.median(ar):.1f} ms median "
-        f"(min {ar[0]:.1f}) for {rec0['allreduce']['mb']:.1f} MB; IL passes on {ranks} ranks "
+        f"cuDNN; {smi_line()}): (a) state 0 {ips['a']:.2f} images/s against {one_ips:.2f} for "
+        f"one process on the same first epoch with the same cuDNN settings, (b) state 1 with "
+        f"the battery {ips['b']:.2f} images/s, (d) = (a) under ZeRO-1 {ips['d']:.2f}, (e) = (b) "
+        f"under ZeRO-1 {ips['e']:.2f} (host clock, loader included); gradient all-reduce "
+        f"{np.median(ar):.1f} ms median (min {ar[0]:.1f}) for {rec0['allreduce']['mb']:.1f} MB; "
+        f"ZeRO-1's param_all_gather {np.median(ag):.1f} ms median (min {ag[0]:.1f}) for "
+        f"{rec0['all_gather']['mb']:.1f} MB over {rec0['d']['backend']}; IL passes in (b) on "
+        f"{ranks} ranks "
         + ", ".join(f"{p['name']} {p['s']:.2f} s" for p in rec0["passes"]
-                    if p["name"] != "agem_refresh")
-        + f", A-GEM refresh {record['agem_ms_per_refresh']:.1f} ms each; peak memory per rank "
-        + ", ".join(f"{r['peak_gib']:.2f} GiB" for r in recs)
-        + f"; the ranks' run {run_s:.1f} s; phase 14 took {phase_s:.1f} s")
+                    if p["name"] != "agem_refresh" and p["run"] == "b")
+        + f" (before the passes were split, whole on each of 2 ranks on an H100 80GB "
+          f"HBM3 at 700 W: "
+          f"similarity 0.63-0.77, MAS 1.10-1.55, pseudo-labels 0.38-0.54, BiC epoch "
+          f"0.36-0.45 s), A-GEM refresh "
+          f"{record['agem_ms_per_refresh']:.1f} ms each; Adam moments per rank (a) "
+        + ", ".join(f"{r['a']['moment_bytes'] / 1e6:.1f}" for r in recs) + " MB, (d) "
+        + ", ".join(f"{r['d']['moment_bytes'] / 1e6:.1f}" for r in recs)
+        + " MB; peak memory per rank (a) "
+        + ", ".join(f"{r['a']['peak_gib']:.2f}" for r in recs) + " GiB, (d) "
+        + ", ".join(f"{r['d']['peak_gib']:.2f}" for r in recs)
+        + f" GiB; the ranks' run {run_s:.1f} s; phase 14 took {phase_s:.1f} s")
     record.update(images_per_s=ips, one_process_images_per_s_a=one_ips, split_a=split_a,
                   allreduce_ms=rec0["allreduce"]["ms"],
                   allreduce_mb=rec0["allreduce"]["mb"], route=how,
-                  peak_gib=[r["peak_gib"] for r in recs], run_s=run_s, phase_s=phase_s)
+                  all_gather_ms=rec0["all_gather"]["ms"], all_gather_mb=rec0["all_gather"]["mb"],
+                  all_gather_backend=rec0["d"]["backend"],
+                  moment_mb={k: [r[k]["moment_bytes"] / 1e6 for r in recs] for k in ("a", "d")},
+                  peak_gib={k: [r[k]["peak_gib"] for r in recs] for k in ("a", "b", "d", "e")},
+                  run_s=run_s, phase_s=phase_s)
     return record
 
 
@@ -3418,7 +3596,7 @@ def data_axis_split_a(recs) -> list:
     out = []
     for r in recs:
         ep = r["a"]["epoch_log"][-1]
-        steps = [s["s"] for s in r["steps"][:r["a"]["micro_steps"]]]
+        steps = [s["s"] for s in r["steps"][slice(*r["a"]["steps"])]]
         out.append(dict(rank=r["rank"], train_s=ep["train_s"], loader_wait_s=ep["loader_wait_s"],
                         steps_s=steps, save_blocking_s=ep["save_blocking_s"]))
         log(f"data axis (a) rank {r['rank']} (host clock, untraced): epoch {ep['train_s']:.2f} s "
@@ -3451,57 +3629,183 @@ def data_axis_one_process(flags) -> float:
     return ep["images"] / ep["train_s"]
 
 
+def _share(n: int, rank: int, world: int) -> int:
+    """Rank ``rank``'s count of ``n`` batches dealt round robin."""
+    return len(range(rank, n, world))
+
+
+# the passes that split their whole batches over the ranks; the BiC epoch and the
+# A-GEM refresh read every global batch's slice on every rank
+SHARDED_PASSES = {"similarity", "mas", "pseudo_labels", "prototypes", "herding"}
+
+
 def check_data_axis_run(recs, shared: bool, run_s: float) -> dict:
     """Phase 14's checks on the ranks' records (module docstring); returns
     the phase's record."""
     import numpy as np
 
     r0, r1 = recs[0], recs[1]
-    backends = {r["a"]["backend"] for r in recs}
+    world = len(recs)
+    backends = {r[k]["backend"] for r in recs for k in ("a", "d")}
     want_backend = "gloo" if shared else "nccl"
     devices = [r["a"]["device"] for r in recs]
-    log(f"data axis: backends {sorted(backends)} on {devices}; micro-steps (a) "
-        f"{r0['a']['micro_steps']}, (b) {len(r0['steps']) - r0['a']['micro_steps']}; writes "
-        f"into the run root by rank: {[r['writes'] for r in recs]}")
+    steps = {k: r0[k]["steps"][1] - r0[k]["steps"][0] for k in ("a", "b", "d", "e")}
+    log(f"data axis: backends {sorted(backends)} on {devices}; micro-steps {steps}; writes "
+        f"into the run roots by rank: {[r['writes'] for r in recs]}")
     if backends != {want_backend} or len(set(devices)) != (1 if shared else len(recs)):
         raise AssertionError(f"backends {backends} on {devices}, want {want_backend}")
-    for tag in ("a", "b"):
+    for tag in ("a", "b", "d", "e"):
         if r0[tag]["checksums"] != r1[tag]["checksums"]:
             raise AssertionError(f"({tag}): the ranks' parameters differ")
         if r0[tag]["loss_hist"] != r1[tag]["loss_hist"]:
             raise AssertionError(f"({tag}): the ranks' global losses differ")
         if not np.isfinite(np.asarray(r0[tag]["loss_hist"])).all():
             raise AssertionError(f"({tag}): a loss is not finite")
+        zero1 = tag in ("d", "e")
+        if any(r[tag]["zero1"] != zero1 or r[tag]["sharded"] != zero1 for r in recs):
+            raise AssertionError(f"({tag}): ZeRO-1 is {'off' if zero1 else 'on'}")
+    for a, z in (("a", "d"), ("b", "e")):
+        if any(r[a][k] != r[z][k] for r in recs for k in ("checksums", "loss_hist")):
+            raise AssertionError(f"({z}) under ZeRO-1 differs from ({a})")
     if r1["writes"] != {"checkpoints": 0, "arrays": 0} or not r0["writes"]["checkpoints"]:
         raise AssertionError(f"writes {[r['writes'] for r in recs]}: only rank 0 may write")
-    if r0["b"]["exemplars"] != r1["b"]["exemplars"] or r0["b"]["bic"] != r1["b"]["bic"]:
-        raise AssertionError("the ranks' exemplar ids or BiC scalars differ")
-    n_a = r0["a"]["micro_steps"]
+    for tag in ("b", "e"):
+        if r0[tag]["exemplars"] != r1[tag]["exemplars"] or r0[tag]["bic"] != r1[tag]["bic"]:
+            raise AssertionError(f"({tag}): the ranks' exemplar ids or BiC scalars differ")
+    if r0["e"]["exemplars"] != r0["b"]["exemplars"] or r0["e"]["bic"] != r0["b"]["bic"]:
+        raise AssertionError("(e)'s exemplar ids or BiC scalars differ from (b)'s")
     for r in recs:
-        la = {s["launches"] for s in r["steps"][:n_a]}
-        lb = {s["launches"] for s in r["steps"][n_a:]}
-        if la != {1} or lb != {2} or any(s["replay"] for s in r["steps"]):
-            raise AssertionError(f"rank {r['rank']}: stem launches per micro-step {la} in "
-                                 f"(a), {lb} in (b), want 1 and 2 (no replay micro-step)")
-        if any(p["launches"] != p["batches"] or not p["batches"] for p in r["passes"]):
-            raise AssertionError(f"rank {r['rank']}: a pass launched the stem other than "
-                                 f"once per batch: {r['passes']}")
-    names = [p["name"] for p in r0["passes"]]
-    for name in ("similarity", "mas", "pseudo_labels", "bic_epoch", "agem_refresh"):
-        if name not in names:
-            raise AssertionError(f"the {name} pass did not run: {names}")
-    refresh = [p for p in r0["passes"] if p["name"] == "agem_refresh"]
+        for tag, want in (("a", 1), ("b", 2), ("d", 1), ("e", 2)):
+            got = {s["launches"] for s in r["steps"][slice(*r[tag]["steps"])]}
+            if got != {want} or any(s["replay"] for s in r["steps"][slice(*r[tag]["steps"])]):
+                raise AssertionError(f"rank {r['rank']}: stem launches per micro-step {got} in "
+                                     f"({tag}), want {want} (no replay micro-step)")
+        passes = [dict(p) for p in r["passes"]] + [
+            dict(v, name=k, run="passes") for k, v in r["sharded_passes"].items()]
+        for p in passes:
+            share = (_share(p["batches"], r["rank"], world) if p["name"] in SHARDED_PASSES
+                     else p["batches"])
+            if p["launches"] != share * p.get("passes", 1) or not p["batches"]:
+                raise AssertionError(f"rank {r['rank']}: {p['name']} in ({p['run']}) launched "
+                                     f"the stem {p['launches']} times for {p['batches']} "
+                                     f"batches, want {share * p.get('passes', 1)}")
+    for tag in ("b", "e"):
+        names = [p["name"] for p in r0["passes"] if p["run"] == tag]
+        for name in ("similarity", "mas", "pseudo_labels", "bic_epoch", "agem_refresh"):
+            if name not in names:
+                raise AssertionError(f"({tag}): the {name} pass did not run: {names}")
+    refresh = [p for p in r0["passes"] if p["name"] == "agem_refresh" and p["run"] == "b"]
     log(f"data axis: ranks bit-identical after every epoch (checksums of "
-        f"{len(r0['b']['checksums'])} tensors); exemplars {r0['b']['exemplars']}; BiC "
-        f"{r0['b']['bic']}; stem launches per rank per micro-step 1 in (a), 2 in (b); "
-        f"(c) per rank: {[(r['c']['nms'], r['c']['stem']) for r in recs]} NMS and stem "
-        f"launches, mAP50 {r0['c']['map50']:.4f}")
-    return dict(micro_steps=[n_a, len(r0["steps"]) - n_a], backend=want_backend,
+        f"{len(r0['b']['checksums'])} tensors), (d) and (e) under ZeRO-1 bit-identical to (a) "
+        f"and (b) (checksums and losses); exemplars {r0['b']['exemplars']}; BiC "
+        f"{r0['b']['bic']}; stem launches per rank per micro-step 1 in (a) and (d), 2 in (b) "
+        f"and (e); a sharded pass launches the stem once per batch of the rank's share "
+        f"(ceil or floor of the batches / {world}); (c) per rank: "
+        f"{[(r['c']['nms'], r['c']['stem']) for r in recs]} NMS and stem launches, mAP50 "
+        f"{r0['c']['map50']:.4f}")
+    return dict(micro_steps=steps, backend=want_backend,
                 exemplars=r0["b"]["exemplars"], bic=r0["b"]["bic"],
-                passes={p["name"]: p["s"] for p in r0["passes"] if p["name"] != "agem_refresh"},
+                passes={p["run"] + ":" + p["name"]: p["s"] for p in r0["passes"]
+                        if p["name"] != "agem_refresh"},
+                pass_launches={r["rank"]: {p["run"] + ":" + p["name"]: [p["launches"],
+                                                                        p["batches"]]
+                                           for p in r["passes"]} for r in recs},
                 agem_ms_per_refresh=sum(p["s"] for p in refresh) / len(refresh) * 1e3,
                 launches_c=[(r["c"]["nms"], r["c"]["stem"]) for r in recs],
-                seconds={k: r0[k]["s"] for k in ("a", "b", "c")})
+                seconds={k: r0[k]["s"] for k in ("a", "b", "c", "d", "e")})
+
+
+def _state_file(root: str, state: int) -> str:
+    import os
+
+    return os.path.join(root, "checkpoint", "15_5", f"state{state}", "epoch1", "state.pt")
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_trees_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return a == b
+
+
+def data_axis_zero1(root: str, root_z: str) -> dict:
+    """(d) and (e) under ZeRO-1 against (a) and (b): each checkpoint's
+    model and optimizer (whole moments, groups, step) bit for bit; the
+    tensors compared."""
+    import torch
+
+    out = {}
+    for state, (a, z) in enumerate((("a", "d"), ("b", "e"))):
+        ta = torch.load(_state_file(root, state), map_location="cpu", weights_only=True)
+        tz = torch.load(_state_file(root_z, state), map_location="cpu", weights_only=True)
+        tensors = len(ta["model"]) + sum(len(v) for v in ta["optimizer"]["state"].values())
+        same = _trees_equal(ta, tz)
+        log(f"data axis: ({z}) under ZeRO-1 against ({a}): state-{state} checkpoint "
+            f"({tensors} tensors: model, Adam moments, groups, step) equal bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"({z})'s checkpoint differs from ({a})'s")
+        out[f"{a}{z}_tensors"] = tensors
+    return out
+
+
+def data_axis_passes(spec, recs) -> dict:
+    """The IL passes that the ranks ran on (a)'s state-0 model
+    (``run_passes``), in one process on this card under the same cuDNN
+    settings: the similarity matrix, the prototypes, the herding picks and
+    the pseudo-labels bit for bit, the MAS importance within rtol 1e-5;
+    each pass's seconds on the ranks and in one process."""
+    import os
+
+    import numpy as np
+    import torch
+
+    ranks = torch.load(os.path.join(spec["out"], "rank0", "passes.pt"), weights_only=False)
+    one, timing = run_passes(spec)
+    report = {}
+    for name, _ in DATA_AXIS_PASSES:
+        got, want = ranks[name], one[name]
+        if name == "mas":
+            worst = max(float(np.max(np.abs(got[k] - w) / np.maximum(np.abs(w), 1e-30)))
+                        for k, w in want.items() if w.any())
+            ok = set(got) == set(want) and all(
+                np.allclose(got[k], w, rtol=1e-5, atol=0) for k, w in want.items())
+            how = f"worst relative |d| {worst:.3g} (bar 1e-5)"
+        else:
+            ok = _equal_results(got, want)
+            how = "bit for bit"
+        rank_s = [r["sharded_passes"][name]["s"] for r in recs]
+        report[name] = dict(equal=ok, one_process_s=timing[name]["s"], ranks_s=rank_s,
+                            batches=timing[name]["batches"],
+                            launches=[r["sharded_passes"][name]["launches"] for r in recs])
+        log(f"data axis: sharded {name} on {len(recs)} ranks against one process: {how}: {ok}; "
+            f"{timing[name]['batches']} batches, stem launches per rank "
+            f"{report[name]['launches']} (one process {timing[name]['launches']}); "
+            f"{max(rank_s):.2f} s on the ranks, {timing[name]['s']:.2f} s in one process")
+        if not ok:
+            raise AssertionError(f"the sharded {name} pass differs from one process's")
+    empty = [k for k, v in (("similarity", one["similarity"].sum() > 0),
+                            ("herding", bool(one["herding"])),
+                            ("pseudo_labels", any(one["pseudo_labels"].values()))) if not v]
+    if empty:
+        raise AssertionError(f"these passes gave nothing to compare: {empty}")
+    return report
+
+
+def _equal_results(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(_equal_results(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal_results(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == np.asarray(b).dtype and np.array_equal(a, b)
+    return a == b
 
 
 def data_axis_gradient(out: str, flags, recs) -> dict:

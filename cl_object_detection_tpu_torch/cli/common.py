@@ -192,17 +192,20 @@ def add_train_flags(parser: argparse.ArgumentParser) -> None:
     p.add_argument("--max_side", type=int, default=None,
                    help="resize max-side cap (default: image_width)")
     p.add_argument("--seed", type=int, default=0)
-    # parallelism: the mesh's data axis (parallel/mesh.py); the model
-    # axis and ZeRO-1 are refused (ROADMAP §1 item 6b)
+    # parallelism: the mesh's data axis and ZeRO-1 (parallel/mesh.py); the
+    # model axis is refused (ROADMAP §1 item 6b)
     p.add_argument("--mesh", type=str2bool, default=False,
                    help="data-parallel over ranks, one per device (NCCL when each has "
                         "a card, gloo on the CPU or on a shared card)")
     p.add_argument("--num_model", type=int, default=1,
-                   help="model-axis size; only 1 is ported")
+                   help="model-axis size; only 1 is ported (others are refused)")
     p.add_argument("--num_data", type=int, default=-1,
                    help="data-axis size (-1: one rank per visible device; with --cpu "
                         "the number of CPU ranks)")
-    p.add_argument("--zero1", type=str2bool, default=False, help="not ported: refused")
+    p.add_argument("--zero1", type=str2bool, default=False,
+                   help="with --mesh: shard the Adam moments over the data axis (each "
+                        "rank updates its slices, then an all-gather); a no-op on one "
+                        "rank; cli.validate ignores it")
     p.add_argument("--coordinator_address", default=None,
                    help="host:port of rank 0's rendezvous: this process is rank "
                         "--process_id of --num_processes")
@@ -225,9 +228,9 @@ def uses_mesh(a: argparse.Namespace) -> bool:
 def refuse_unported(parser: argparse.ArgumentParser, a: argparse.Namespace) -> None:
     """``parser.error`` for a flag whose feature the port lacks, naming
     the ROADMAP item that ports it."""
-    if a.zero1 or a.num_model != 1:
-        parser.error("ZeRO-1 and the model axis (--zero1, --num_model != 1) are not "
-                     "ported yet: ROADMAP §1 item 6b")
+    if a.num_model != 1:
+        parser.error("the model axis (--num_model != 1) is not ported yet: "
+                     "ROADMAP §1 item 6b")
 
 
 def _run_rank(rank: int, entry, argv: List[str], nprocs: int, address: str) -> None:

@@ -31,8 +31,11 @@ The mesh's data axis (``cli/common.start_ranks``, ``parallel/mesh.py``):
 Every rank trains its slice of each global batch (``--batch_size`` is the
 global size); rank 0 writes the checkpoints, ``params.json`` and the
 records. When ``main`` started the ranks itself it returns None.
-``--zero1`` and ``--num_model`` other than 1 are refused naming ROADMAP
-§1 item 6b.
+``--zero1 true`` shards the Adam moments over the ranks (ZeRO-1,
+``train/optim.py``): each rank updates its slices and an all-gather
+reassembles the parameters; the checkpoints are bit for bit those of the
+same run without it. On one rank it is a no-op. ``--num_model`` other
+than 1 is refused naming ROADMAP §1 item 6b.
 """
 from __future__ import annotations
 

@@ -24,12 +24,14 @@ state is predicted uncorrected and written without the suffix, and
 slice of every batch (``Evaluator`` with ``mesh=``, ``--bic`` and
 ``--quantize`` included), the rows are gathered, and rank 0 scores them
 and writes every output; every rank returns rank 0's results. The batch
-size must divide by the rank count. ``--zero1`` and ``--num_model``
-other than 1 are refused naming ROADMAP §1 item 6b.
+size must divide by the rank count. ``--zero1`` is accepted and ignored
+(there is no optimizer), as in JAX; ``--num_model`` other than 1 is
+refused naming ROADMAP §1 item 6b.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 from typing import List, Optional
@@ -91,7 +93,9 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
     if device is None:
         device = resolve_device("cpu" if getattr(a, "cpu", False) else None)
     cfg = args_to_config(a)
-    mesh = pmesh.create_mesh(cfg.mesh, device) if cfg.mesh.enabled else None
+    # --zero1 is a training flag: ignored here
+    mesh = (pmesh.create_mesh(dataclasses.replace(cfg.mesh, zero1=False), device)
+            if cfg.mesh.enabled else None)
     if mesh is not None:
         if cfg.data.batch_size % mesh.world:
             raise SystemExit(f"--mesh: batch_size {cfg.data.batch_size} not divisible by "

@@ -239,8 +239,9 @@ class MeshConfig:
     batch's gradient all-reduced. ``enabled=True`` makes the trainer, the
     IL tools and the evaluator run on the ranks of the process group
     (one rank when there is none); batch sizes (train and replay) must be
-    multiples of the rank count. ``num_model > 1`` and ``zero1`` raise
-    (ROADMAP §1 item 6b)."""
+    multiples of the rank count. ``zero1`` shards the Adam moments over
+    the ranks (ZeRO-1, ``train/optim.py``; a no-op on one rank).
+    ``num_model > 1`` raises (ROADMAP §1 item 6b)."""
     enabled: bool = False
     data_axis: str = "data"
     model_axis: str = "model"

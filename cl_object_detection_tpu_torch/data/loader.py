@@ -17,10 +17,14 @@ package's ``data/loader.py``).
   * on the mesh's data axis (``process_index``, ``process_count``) every
     rank draws the same global schedule and decodes only its contiguous
     slot slice of each global batch; the augmentation stays keyed by the
-    global slot, so the slices tile the single-process batch bit for bit.
+    global slot, so the slices tile the single-process batch bit for bit;
+  * a tool pass on the mesh takes whole batches instead, round robin
+    (``round_robin``: batch i of the schedule on rank i mod W), and a rank
+    decodes only its own.
 """
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 import time
@@ -109,10 +113,25 @@ class BatchLoader:
         self.process_index = process_index
         self.process_count = process_count
         self._pool: Optional[ThreadPoolExecutor] = None
+        self._round_robin: Optional[tuple] = None
         self._epoch = 0
         # seconds each batch of the current (or last) epoch took to
         # assemble, in the thread that assembled it
         self.batch_seconds: List[float] = []
+
+    def round_robin(self, rank: int, world: int) -> "BatchLoader":
+        """A copy of this loader that yields batches ``rank``, ``rank +
+        world``, ... of its schedule, whole, and decodes only those (a
+        tool pass's share on the mesh's data axis); the schedule is the
+        same on every rank. Trailing batches leave the ranks' counts one
+        apart at most."""
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside 0..{world - 1}")
+        other = copy.copy(self)
+        other._pool = None
+        other.batch_seconds = []
+        other._round_robin = (rank, world)
+        return other
 
     def set_epoch(self, epoch: int) -> None:
         """Pin the shuffle epoch so data order is a pure function of
@@ -242,7 +261,7 @@ class BatchLoader:
         key = (len(ids), hash(tuple(ids)), self.batch_size, self.drop_last)
         cached = getattr(self, "_len_cache", None)
         if cached is not None and cached[0] == key:
-            return cached[1]
+            return self._local_count(cached[1])
         sizes: Dict = {}
         for i in range(len(self.dataset)):
             k = self._canonical_of(i)
@@ -252,10 +271,20 @@ class BatchLoader:
         else:
             n = sum(-(-sz // self.batch_size) for sz in sizes.values())
         self._len_cache = (key, n)
-        return n
+        return self._local_count(n)
+
+    def _local_count(self, n: int) -> int:
+        """This loader's share of ``n`` scheduled batches."""
+        if self._round_robin is None:
+            return n
+        rank, world = self._round_robin
+        return len(range(rank, n, world))
 
     def __iter__(self) -> Iterator[Batch]:
         batches = self._bucketed_batches()
+        if self._round_robin is not None:
+            rank, world = self._round_robin
+            batches = batches[rank::world]
         epoch = self._epoch
         self._epoch += 1
         self.batch_seconds = []

@@ -20,6 +20,14 @@ loader order and the distances are ``np.linalg.norm``, as in JAX, so
 the picks equal JAX's: an on-card reduction in another order could swap
 two near-equal distances.
 
+On the mesh's data axis (``mesh=``) each rank runs its whole batches of
+the unshuffled loader, round robin. Pass 1: rank 0 gathers every batch's
+vectors, one round of W batches at a time (``dist.gather``: only rank 0
+receives, and holds one round), adds them up in loader order in float32
+as one process does, and broadcasts the class means. Pass 2: each rank
+measures its images' distances, gathered as scalars to every rank and
+merged in loader order. The picks are one process's, bit for bit.
+
 The resize is ``jax.image.resize(..., "bilinear")``'s: half-pixel
 centres, a triangle kernel widened by the shrink factor when it shrinks
 (antialiasing), weights renormalized at the edges; ``resize_bilinear``
@@ -87,6 +95,11 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return x
 
 
+def feature_dim(model) -> int:
+    """The length of ``make_feature_fn``'s vector of one image."""
+    return sum(s * s for s in FEATURE_SIZES) * model.fpn.p3_smooth.weight.shape[0]
+
+
 def make_feature_fn(model):
     """``fn(images) -> (B, 23239 * 256)`` float32 on the model's device:
     each image's FPN maps resized to ``FEATURE_SIZES``, flattened NHWC,
@@ -124,11 +137,11 @@ class HerdSampler:
     ) -> Dict[int, List[int]]:
         """Pick up to ``per_num`` new exemplars per class; returns {class:
         ids} of this call and extends the book-keeping. On the mesh's data
-        axis (``mesh=``) the passes run whole on every rank and the picks
-        follow rank 0's distances."""
-        from ..parallel.mesh import broadcast_object
-
+        axis (``mesh=``) the passes split the loader's batches over the
+        ranks (module docstring)."""
         from ..data.loader import BatchLoader
+        from ..parallel.mesh import (active, broadcast_arrays, gather_batches,
+                                     gather_to_primary, pass_loader)
 
         future = set(future_img_ids)
         device = next(model.parameters()).device
@@ -156,38 +169,54 @@ class HerdSampler:
         def vectors(batch) -> np.ndarray:
             return feature_fn(torch.from_numpy(batch.images).to(device)).cpu().numpy()
 
+        # pass 1, class means: rank 0 sums every round's W batches in the
+        # loader's order; a rank past the last batch sends zeros, unread
         sums: Dict[int, np.ndarray] = {}
         counts: Dict[int, int] = defaultdict(int)
         done = set()
-        for batch in loader:                       # pass 1: class means
-            f = vectors(batch)
-            for b, img_id in enumerate(batch.image_ids.tolist()):
-                if img_id in done or img_id not in img_classes:
-                    continue
-                done.add(img_id)
-                for cls in img_classes[img_id]:
-                    if cls in sums:
-                        sums[cls] += f[b]
-                    else:
-                        sums[cls] = f[b].astype(np.float32).copy()
-                    counts[cls] += 1
-        means = {c: sums[c] / counts[c] for c in sums}
+        rank, world = (mesh.rank, mesh.world) if active(mesh) else (0, 1)
+        mine = iter(pass_loader(mesh, loader))
+        total = len(loader)
+        for first in range(0, total, world):               # one round of W batches
+            batch = next(mine) if first + rank < total else None
+            f = (feature_fn(torch.from_numpy(batch.images).to(device)) if batch is not None
+                 else torch.zeros(loader.batch_size, feature_dim(model), device=device))
+            got = gather_to_primary(mesh, f, None if batch is None
+                                    else batch.image_ids.tolist())
+            for ids, v in got or ():                   # rank 0, in loader order
+                for b, img_id in enumerate(ids or ()):
+                    if img_id in done or img_id not in img_classes:
+                        continue
+                    done.add(img_id)
+                    for cls in img_classes[img_id]:
+                        if cls in sums:
+                            sums[cls] += v[b].numpy()
+                        else:
+                            sums[cls] = v[b].numpy().astype(np.float32).copy()
+                        counts[cls] += 1
+        means = broadcast_arrays(mesh, {c: sums[c] / counts[c] for c in sums}
+                                 if rank == 0 else None)
 
+        per_batch = []
+        for batch in pass_loader(mesh, loader):    # pass 2: distances
+            f = vectors(batch)
+            per_batch.append([
+                (img_id, [] if img_id in future else
+                 [(cls, float(np.linalg.norm(means[cls] - f[b])))
+                  for cls in img_classes.get(img_id, ()) if cls in means])
+                for b, img_id in enumerate(batch.image_ids.tolist())])
         scores: Dict[int, Dict[int, float]] = {c: {} for c in classified}
         done = set()
-        for batch in loader:                       # pass 2: distances
-            f = vectors(batch)
-            for b, img_id in enumerate(batch.image_ids.tolist()):
+        for rows in gather_batches(mesh, per_batch):   # the loader's order
+            for img_id, dists in rows:
                 if img_id in done or img_id not in img_classes:
                     continue
                 done.add(img_id)
                 if img_id in future:
                     continue
-                for cls in img_classes[img_id]:
-                    if cls in means:
-                        scores[cls][img_id] = float(np.linalg.norm(means[cls] - f[b]))
+                for cls, d in dists:
+                    scores[cls][img_id] = d
 
-        scores = broadcast_object(mesh, scores)
         # 4. closest first per class, no image reused
         new_dict: Dict[int, List[int]] = defaultdict(list)
         for cls, img_score in scores.items():

@@ -16,8 +16,11 @@ Each batch is one forward and one ``torch.autograd.grad`` under grad
 under inference mode would break its backward), on the model's device;
 the gradients land in fresh tensors, not in the parameters' ``.grad``
 (the train step's accumulator). The importance is a dict keyed by the
-port's parameter names. On the mesh's data axis (``mesh=``) the pass runs
-whole on every rank and every rank keeps rank 0's importance
+port's parameter names. On the mesh's data axis (``mesh=``) each rank sums
+|grad| over its whole batches of the loader (round robin) on its device;
+one flat float32 all-reduce adds the ranks' sums (the same bits on every
+rank), divided by the global batch count. The order of the sum differs
+from one process's, so the importance equals it to float32 rounding
 (``parallel.mesh``).
 """
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ..ops.boxes import positive_assignment
-from ..parallel.mesh import broadcast_tensors
+from ..parallel.mesh import all_reduce_sum, all_reduce_sums, pass_loader
 
 
 def _excluded(name: str) -> bool:
@@ -92,15 +95,15 @@ def compute_importance(model: torch.nn.Module, anchors: Union[np.ndarray, Callab
     params = dict(model.named_parameters())
     acc = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
     n = 0
-    for batch in loader:
+    for batch in pass_loader(mesh, loader):
         args = [torch.tensor(a, device=device)
                 for a in (provider(batch.images), batch.images, batch.boxes, batch.labels)]
         g = step(*args)
         torch._foreach_add_(list(acc.values()), [g[k] for k in acc])
         n += 1
+    acc = all_reduce_sums(mesh, acc)
+    n = int(all_reduce_sum(mesh, torch.tensor(float(n))))
     if n:
         torch._foreach_div_(list(acc.values()), float(n))
     mask = importance_mask(params)
-    importance = {k: v * mask[k] for k, v in acc.items()}
-    broadcast_tensors(mesh, list(importance.values()))
-    return importance
+    return {k: v * mask[k] for k, v in acc.items()}

@@ -25,8 +25,11 @@ in float64 on the host; the per-image features come back as float32 and
 the distances are ``np.linalg.norm`` on the host, as in JAX, so the
 picks equal JAX's.
 
-On the mesh's data axis (``mesh=``) each dataset pass runs whole on every
-rank and every rank keeps rank 0's result (``parallel.mesh``).
+On the mesh's data axis (``mesh=``) each rank runs its whole batches of a
+pass's loader (round robin), and the per-batch sums or per-image scores
+are gathered to every rank and reduced or merged in the loader's order:
+one process's prototypes, scores and picks, bit for bit
+(``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import positive_assignment
-from ..parallel.mesh import active, all_reduce_sum, batch_global, broadcast_object
+from ..parallel.mesh import (active, all_reduce_sum, batch_global, gather_batches,
+                             pass_loader)
 
 
 def _provider(anchors: Union[np.ndarray, Callable]) -> Callable:
@@ -90,16 +94,18 @@ def compute_prototype_features(model, anchors, loader, num_classes: int,
     provider = _provider(anchors)
     device = next(model.parameters()).device
     step = make_batch_prototype_fn(model, num_classes)
-    total = counts = None
-    for batch in loader:
+    per_batch = []
+    for batch in pass_loader(mesh, loader):
         s, c = step(*_batch_args(provider, batch, device))
-        s, c = s.cpu().numpy().astype(np.float64), c.cpu().numpy().astype(np.float64)
+        per_batch.append((s.cpu().numpy(), c.cpu().numpy()))
+    total = counts = None
+    for s, c in gather_batches(mesh, per_batch):          # the loader's order
+        s, c = s.astype(np.float64), c.astype(np.float64)
         total = s if total is None else total + s
         counts = c if counts is None else counts + c
     if total is None:
         raise ValueError("empty loader for prototype computation")
-    return broadcast_object(
-        mesh, (total / np.clip(counts[..., None], 1.0, None)).astype(np.float32))
+    return (total / np.clip(counts[..., None], 1.0, None)).astype(np.float32)
 
 
 def prototype_loss_from_batch(
@@ -180,22 +186,29 @@ def prototype_herd_slot_scores(model, anchors, dataset, data_cfg, prototypes: np
     provider = _provider(anchors)
     device = next(model.parameters()).device
     step = make_image_slot_feature_fn(model, num_classes, num_anchors)
-    scores = {c: {s: {} for s in range(num_anchors)} for c in range(num_classes)}
-    counts = np.zeros((num_classes, num_anchors), np.float64)
     loader = BatchLoader(dataset, data_cfg, shuffle=False, augment=False)
-    seen = set()
-    for batch in loader:
+    per_batch = []
+    for batch in pass_loader(mesh, loader):
         feat, cnt = step(*_batch_args(provider, batch, device))
         feat, cnt = feat.cpu().numpy(), cnt.cpu().numpy()          # (B,C,9,D), (B,C,9)
+        rows = []
         for b, img_id in enumerate(batch.image_ids.tolist()):
+            dists = [(int(c), int(s), float(np.linalg.norm(feat[b, c, s] - prototypes[c, s])))
+                     for c, s in zip(*np.nonzero(cnt[b]))]
+            rows.append((img_id, cnt[b], dists))
+        per_batch.append(rows)
+    scores = {c: {s: {} for s in range(num_anchors)} for c in range(num_classes)}
+    counts = np.zeros((num_classes, num_anchors), np.float64)
+    seen = set()
+    for rows in gather_batches(mesh, per_batch):          # the loader's order
+        for img_id, cnt, dists in rows:
             if img_id in seen:
                 continue
             seen.add(img_id)
-            counts += cnt[b]
-            for c, s in zip(*np.nonzero(cnt[b])):
-                scores[int(c)][int(s)][img_id] = float(
-                    np.linalg.norm(feat[b, c, s] - prototypes[c, s]))
-    return broadcast_object(mesh, (scores, counts))
+            counts += cnt
+            for c, s, d in dists:
+                scores[c][s][img_id] = d
+    return scores, counts
 
 
 def sample_by_slot_scores(
@@ -250,19 +263,24 @@ def prototype_herd_scores(model, anchors, dataset, data_cfg, prototypes: np.ndar
     step = make_image_feature_fn(model, num_classes)
     proto_mean = prototypes.mean(axis=1)                           # (C, D)
     loader = BatchLoader(dataset, data_cfg, shuffle=False, augment=False)
-    scores: Dict[int, Dict[int, float]] = {c: {} for c in range(num_classes)}
-    seen = set()
-    for batch in loader:
+    per_batch = []
+    for batch in pass_loader(mesh, loader):
         feat, cnt = step(*_batch_args(provider, batch, device))
         feat, cnt = feat.cpu().numpy(), cnt.cpu().numpy()          # (B,C,D), (B,C)
-        for b, img_id in enumerate(batch.image_ids.tolist()):
+        per_batch.append([(img_id, [(int(cls), float(np.linalg.norm(feat[b, cls]
+                                                                     - proto_mean[cls])))
+                                    for cls in np.where(cnt[b] > 0)[0]])
+                          for b, img_id in enumerate(batch.image_ids.tolist())])
+    scores: Dict[int, Dict[int, float]] = {c: {} for c in range(num_classes)}
+    seen = set()
+    for rows in gather_batches(mesh, per_batch):          # the loader's order
+        for img_id, dists in rows:
             if img_id in seen:
                 continue
             seen.add(img_id)
-            for cls in np.where(cnt[b] > 0)[0]:
-                scores[int(cls)][img_id] = float(
-                    np.linalg.norm(feat[b, cls] - proto_mean[cls]))
-    return broadcast_object(mesh, scores)
+            for cls, d in dists:
+                scores[cls][img_id] = d
+    return scores
 
 
 def sample_by_scores(scores: Dict[int, Dict[int, float]], per_num: int,

@@ -44,23 +44,27 @@ def generate_pseudo_labels(
     mesh=None,
 ) -> Dict[int, List[dict]]:
     """``{image_id: [COCO annotation dicts]}``, one entry per image. On
-    the mesh's data axis (``mesh=``) the pass runs whole on every rank and
-    every rank keeps rank 0's labels."""
-    from ..parallel.mesh import broadcast_object
+    the mesh's data axis (``mesh=``) each rank predicts its whole batches
+    of the loader (round robin) and the per-image rows of every batch are
+    gathered to every rank and merged in the loader's order: one process's
+    labels, bit for bit."""
+    from ..parallel.mesh import gather_batches, pass_loader
 
     predict = make_predict_fn(model, PredictConfig(
         score_thresh=0.05, nms_iou=0.5, max_detections=cfg.max_labels_per_image * 4))
     device = next(model.parameters()).device
     loader = BatchLoader(dataset, data_cfg, shuffle=False, augment=False)
 
-    out: Dict[int, List[dict]] = {}
-    seen = set()
-    for batch in loader:
+    per_batch = []
+    for batch in pass_loader(mesh, loader):
+        rows: List[tuple] = []
+        per_batch.append(rows)
         det = predict(torch.from_numpy(batch.images).to(device))
         boxes = det.boxes.cpu().numpy()
         scores = det.scores.cpu().numpy()
         labels = det.labels.cpu().numpy()
         valid = det.valid.cpu().numpy()
+        seen = set()
         for b in range(boxes.shape[0]):
             img_id = int(batch.image_ids[b])
             if img_id in seen:
@@ -86,5 +90,11 @@ def generate_pseudo_labels(
                     "category_id": int(label_to_cat[int(labels[b, d])]),
                     "score": float(scores[b, d]),
                 })
-            out[img_id] = anns
-    return broadcast_object(mesh, out)
+            rows.append((img_id, anns))
+    # the loader's order; an image again in a later batch (a short group's
+    # wrap-around) keeps its first batch's rows
+    out: Dict[int, List[dict]] = {}
+    for rows in gather_batches(mesh, per_batch):
+        for img_id, anns in rows:
+            out.setdefault(img_id, anns)
+    return out

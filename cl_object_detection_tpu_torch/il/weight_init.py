@@ -14,8 +14,10 @@ The forward is one batched call per batch under ``torch.no_grad`` (not
 ``inference_mode``: the model trains next, and tensors cached under
 inference mode would break its backward), on the model's device; the
 per-image sums come back to the host and add up in float64. On the
-mesh's data axis (``mesh=``) the pass runs whole on every rank and every
-rank keeps rank 0's matrix (``parallel.mesh``).
+mesh's data axis (``mesh=``) each rank runs its whole batches of the
+loader, round robin, every batch's sums are gathered to every rank, and
+each adds them up in the loader's order: the matrix one process gives,
+bit for bit (``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.boxes import positive_assignment
-from ..parallel.mesh import broadcast_object
+from ..parallel.mesh import gather_batches, pass_loader
 
 
 def make_similarity_step(model, num_new: int, num_old: int, threshold: float = 0.5):
@@ -70,17 +72,20 @@ def compute_similarity(model, anchors: Union[np.ndarray, Callable], loader,
     provider = anchors if callable(anchors) else (lambda images: anchors)
     device = next(model.parameters()).device
     step = make_similarity_step(model, num_new, num_old)
-    total = np.zeros((num_new, num_old), np.float64)
-    count = np.zeros((num_new,), np.float64)
-    for batch in loader:
+    per_batch = []
+    for batch in pass_loader(mesh, loader):
         args = [torch.tensor(a, device=device)
                 for a in (provider(batch.images), batch.images, batch.boxes, batch.labels)]
         s, c = step(*args)
-        total += s.cpu().numpy()
-        count += c.cpu().numpy()
+        per_batch.append((s.cpu().numpy(), c.cpu().numpy()))
+    total = np.zeros((num_new, num_old), np.float64)
+    count = np.zeros((num_new,), np.float64)
+    for s, c in gather_batches(mesh, per_batch):          # the loader's order
+        total += s
+        count += c
     sim = total / np.clip(count[:, None], 1.0, None)
     sim = np.where(sim > 0.05, sim, 0.0)
     denom = sim.sum()
     if denom > 0:
         sim = sim / denom
-    return broadcast_object(mesh, sim.astype(np.float32))
+    return sim.astype(np.float32)

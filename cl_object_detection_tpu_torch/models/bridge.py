@@ -107,7 +107,8 @@ def load_optax_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     the groups ``backbone`` and ``output``, nested numpy, each tree keyed
     like ``params`` and holding the group's leaves. Every parameter gets
     its moments exactly once and every leaf is used, or it raises; the
-    port's Adam has no ``eps_root``, so it must be 0."""
+    port's Adam has no ``eps_root``, so it must be 0. Under ZeRO-1 each
+    rank keeps its slices of the whole moments."""
     names = {id(p): n for n, p in model.named_parameters()}
     groups = {g["name"]: g for g in optimizer.param_groups}
     if set(state) != set(groups):
@@ -146,8 +147,9 @@ def load_optax_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         group["betas"] = (float(gstate["b1"]), float(gstate["b2"]))
         group["eps"] = float(gstate["eps"])
         for name, p in members.items():
-            optimizer.state[p] = {key: torch.from_numpy(moments[key][name]).to(p.device)
-                                  for key in ("mu", "nu")}
+            # whole moments in, this rank's slices kept under ZeRO-1
+            optimizer.set_moments(p, *(torch.from_numpy(moments[key][name])
+                                       for key in ("mu", "nu")))
 
 
 def save_npz(path: str, variables: Mapping) -> None:

@@ -21,8 +21,8 @@ a rank of one process group, and reduces by hand:
     more ranks than cards raise.
   * ``create_mesh`` keeps JAX's check that ``num_data x num_model`` equals
     the devices (one per rank) and returns a ``DataMesh``. ``num_model >
-    1`` and ZeRO-1 (``head_tp_spec``, ``zero1_extend_spec``,
-    ``make_param_constraint``) raise: ROADMAP §1 item 6b.
+    1`` (``head_tp_spec``, ``make_param_constraint`` on the model axis)
+    raises: ROADMAP §1 item 6b.
   * Every rank computes the GLOBAL batch's loss: terms normalised over the
     whole batch take global counts (``all_reduce_sum``, no gradient) and
     are scaled by the world size, so that the mean over the ranks of
@@ -30,12 +30,20 @@ a rank of one process group, and reduces by hand:
     same bits on every rank), is the global batch's gradient, and every
     rank's Adam takes the same step. ``all_reduce_metrics`` gives the
     global loss terms.
-  * The IL tool passes run whole on every rank, as JAX's multi-process
-    rule has it (its ``tool_placers`` identity), and every rank keeps rank
-    0's result (``broadcast_object``, ``broadcast_tensors``): cuDNN may
-    pick other algorithms on two cards, and a value near a threshold would
-    then part the ranks without an error. ``check_replicas`` compares a
-    checksum of every parameter and buffer across the ranks.
+  * ZeRO-1 (``MeshConfig.zero1``, JAX's ``zero1_extend_spec`` and
+    ``make_param_constraint``): each rank keeps the Adam moments of its
+    slice of every leaf that ``zero1_shard`` splits (JAX's rule, mapped
+    through the bridge's HWIO -> OIHW order so that the port splits the
+    same axis of the same leaf), takes the Adam step on its slices of the
+    whole, all-reduced gradient, and ``param_all_gather`` reassembles the
+    parameters from every rank's slices (one flat buffer per dtype).
+  * The IL tool passes split their loader's whole batches over the ranks,
+    round robin (``pass_loader``: batch i on rank i mod W, each forward at
+    one process's batch size), and gather the per-batch or per-image
+    results back into the loader's order (``gather_batches``,
+    ``gather_to_primary``), so every rank reduces the same bits in one
+    process's order. ``check_replicas`` compares a checksum of every
+    parameter and buffer across the ranks.
   * Each rank's loader decodes its contiguous slice of the global batch
     (``data/loader.py``, ``proc_shard``), which is what
     ``global_batch_from_local`` stitches in JAX.
@@ -59,18 +67,19 @@ import torch.distributed as dist
 from ..config import MeshConfig
 
 DEFAULT_TIMEOUT = timedelta(seconds=120)
-NOT_PORTED_6B = ("ZeRO-1 and the model axis (--zero1, --num_model > 1) are not ported yet: "
-                 "ROADMAP §1 item 6b")
+NOT_PORTED_6B = "the model axis (--num_model > 1) is not ported yet: ROADMAP §1 item 6b"
 
 
 @dataclass(frozen=True)
 class DataMesh:
     """This process's place on the data axis: its rank among ``world``
-    ranks, its device, and the group's backend (None for one process)."""
+    ranks, its device, the group's backend (None for one process), and
+    whether ZeRO-1 shards the Adam moments (only with several ranks)."""
     rank: int
     world: int
     device: torch.device
     backend: Optional[str] = None
+    zero1: bool = False
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -196,7 +205,7 @@ def create_mesh(cfg: Optional[MeshConfig] = None,
     """The data axis over the group's ranks, one device each (one rank
     when no group is initialized)."""
     cfg = cfg or MeshConfig()
-    if cfg.zero1 or cfg.num_model > 1:
+    if cfg.num_model > 1:
         raise NotImplementedError(NOT_PORTED_6B)
     up = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if up else 1
@@ -209,18 +218,25 @@ def create_mesh(cfg: Optional[MeshConfig] = None,
         from .. import resolve_device
 
         device = resolve_device(None)
+    # ZeRO-1 on one rank is a no-op, as zero1_extend_spec is for ndata <= 1
     return DataMesh(rank=rank, world=world, device=torch.device(device),
-                    backend=dist.get_backend() if up else None)
+                    backend=dist.get_backend() if up else None,
+                    zero1=bool(cfg.zero1) and world > 1)
 
 
-def describe(mesh: DataMesh) -> str:
-    """The trainer's ``mesh:`` line."""
+def describe(mesh: DataMesh, moment_bytes: Optional[int] = None) -> str:
+    """The trainer's ``mesh:`` line; under ZeRO-1 with ``moment_bytes``
+    (the Adam moments this rank keeps)."""
     route = {None: "one process",
              "nccl": "NCCL: one card per rank",
              "gloo": ("gloo on the CPU" if mesh.device.type == "cpu"
                       else "gloo: ranks share a card, collectives through the host")}
+    zero1 = ""
+    if mesh.zero1:
+        zero1 = "; ZeRO-1 on" + (f", {moment_bytes} bytes of Adam moments on this rank"
+                                 if moment_bytes is not None else "")
     return (f"mesh: {mesh.shape} over {mesh.world} devices "
-            f"(rank {mesh.rank} on {mesh.device}; {route[mesh.backend]})")
+            f"(rank {mesh.rank} on {mesh.device}; {route[mesh.backend]}{zero1})")
 
 
 # ----------------------------------------------------------------------
@@ -298,18 +314,25 @@ def all_reduce_sum(mesh: Optional[DataMesh], x: torch.Tensor) -> torch.Tensor:
     return buf.to(x.device, x.dtype)
 
 
-def all_reduce_grads(mesh: Optional[DataMesh],
-                     grads: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The mean over the ranks of a gradient dict, through one flat
-    float32 buffer: the summed buffer is the same on every rank, and so is
-    its quotient by the world size."""
+def all_reduce_sums(mesh: Optional[DataMesh], tensors: Mapping[str, torch.Tensor],
+                    mean: bool = False) -> Dict[str, torch.Tensor]:
+    """The sum (with ``mean``, the mean) over the ranks of a dict of
+    tensors, through one flat float32 buffer: the summed buffer is the
+    same on every rank, and so is its quotient by the world size."""
     if not active(mesh):
-        return dict(grads)
-    names, values = list(grads), list(grads.values())
+        return dict(tensors)
+    names, values = list(tensors), list(tensors.values())
     flat = _flat(values, torch.float32, mesh.comm_device)
     dist.all_reduce(flat)
-    flat /= mesh.world
+    if mean:
+        flat /= mesh.world
     return dict(zip(names, _unflat(flat, values)))
+
+
+def all_reduce_grads(mesh: Optional[DataMesh],
+                     grads: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The mean over the ranks of a gradient dict (``all_reduce_sums``)."""
+    return all_reduce_sums(mesh, grads, mean=True)
 
 
 def all_reduce_metrics(mesh: Optional[DataMesh],
@@ -371,6 +394,106 @@ def check_replicas(mesh: Optional[DataMesh], module: torch.nn.Module,
 
 
 # ----------------------------------------------------------------------
+# ZeRO-1
+# ----------------------------------------------------------------------
+
+Shard = Tuple[int, slice]
+
+# the dims of a port conv weight (O, I, kh, kw) in JAX's HWIO order
+# (kh, kw, I, O): JAX's dim j is the port's dim _OIHW_OF_HWIO[j]
+_OIHW_OF_HWIO = (2, 3, 1, 0)
+
+
+def zero1_shard(shape: Sequence[int], ndata: int, rank: int) -> Optional[Shard]:
+    """JAX's ``zero1_extend_spec`` on a port parameter's shape: the
+    largest dim that ``ndata`` divides (at least ``ndata`` long), the first
+    of equal sizes in JAX's dim order (a 4-D weight read as HWIO), as the
+    port's dim, with this rank's slice of it; None when no dim divides or
+    ``ndata <= 1`` (the leaf stays whole on every rank)."""
+    shape = tuple(int(n) for n in shape)
+    if ndata <= 1 or not shape:
+        return None
+    order = _OIHW_OF_HWIO if len(shape) == 4 else range(len(shape))
+    best = None
+    for d in order:
+        n = shape[d]
+        if n >= ndata and n % ndata == 0 and (best is None or n > shape[best]):
+            best = d
+    if best is None:
+        return None
+    size = shape[best] // ndata
+    return best, slice(rank * size, (rank + 1) * size)
+
+
+def zero1_plan(mesh: Optional[DataMesh],
+               named_params) -> Dict[str, Optional[Shard]]:
+    """``zero1_shard`` of every ``(name, parameter)`` for this rank; all
+    None unless ZeRO-1 is on over several ranks."""
+    on = active(mesh) and mesh.zero1
+    return {n: zero1_shard(p.shape, mesh.world, mesh.rank) if on else None
+            for n, p in named_params}
+
+
+def shard_of(t: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    """This rank's slice of ``t`` (a view; ``t`` itself when whole)."""
+    if shard is None:
+        return t
+    dim, sl = shard
+    return t.narrow(dim, sl.start, sl.stop - sl.start)
+
+
+def _all_gather_flat(mesh: DataMesh, out: torch.Tensor, mine: torch.Tensor) -> None:
+    """Every rank's ``mine`` into ``out``, in rank order: NCCL's single-buffer
+    all-gather, gloo's all-gather into the ranks' views of ``out``."""
+    if mesh.backend == "nccl":
+        dist.all_gather_into_tensor(out, mine)
+    else:
+        dist.all_gather(list(out.view(mesh.world, -1).unbind(0)), mine)
+
+
+def gather_shards(mesh: DataMesh,
+                  pieces: Sequence[Tuple[torch.Tensor, Sequence[int], Shard]]) -> List[torch.Tensor]:
+    """The whole tensors of ``pieces``, each ``(this rank's slice, the
+    whole shape, its shard)``, reassembled from every rank's slices on the
+    slices' device: one all-gather of one flat buffer per dtype (every
+    rank's slices are the same sizes)."""
+    out: List[Optional[torch.Tensor]] = [None] * len(pieces)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, (t, _, _) in enumerate(pieces):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for dtype, idx in by_dtype.items():
+        mine = torch.cat([pieces[i][0].detach().reshape(-1) for i in idx]).to(mesh.comm_device)
+        flat = mine.new_empty(mesh.world * mine.numel())
+        _all_gather_flat(mesh, flat, mine)
+        ranks = flat.to(pieces[idx[0]][0].device).view(mesh.world, -1)
+        at = 0
+        for i in idx:
+            t, shape, (dim, _) = pieces[i]
+            n = t.numel()
+            part = ranks[:, at:at + n].reshape((mesh.world,) + tuple(t.shape))
+            out[i] = torch.cat(part.unbind(0), dim=dim).reshape(tuple(shape))
+            at += n
+    return out
+
+
+def param_all_gather(mesh: Optional[DataMesh], params: Mapping[str, torch.Tensor],
+                     plan: Mapping[str, Optional[Shard]]) -> None:
+    """ZeRO-1's all-gather: overwrite every sharded parameter of ``params``
+    in place with the ranks' slices of it (this rank's updated slice
+    included), one flat buffer per dtype: NCCL's all-gather on the card,
+    gloo's through host copies. Whole leaves are left as they are."""
+    if not active(mesh):
+        return
+    names = [n for n in params if plan.get(n) is not None]
+    if not names:
+        return
+    pieces = [(shard_of(params[n], plan[n]), params[n].shape, plan[n]) for n in names]
+    with torch.no_grad():
+        for n, whole in zip(names, gather_shards(mesh, pieces)):
+            params[n].copy_(whole)
+
+
+# ----------------------------------------------------------------------
 # batches
 # ----------------------------------------------------------------------
 
@@ -393,3 +516,80 @@ def spawn_ranks(fn: Callable, nprocs: int, args: tuple = ()) -> None:
     import torch.multiprocessing as mp
 
     mp.start_processes(fn, args=args, nprocs=nprocs, join=True, start_method="spawn")
+
+
+# ----------------------------------------------------------------------
+# the IL tool passes
+# ----------------------------------------------------------------------
+
+def pass_loader(mesh: Optional[DataMesh], loader):
+    """This rank's share of a tool pass's loader: whole batches, round
+    robin (batch i on rank i mod W), each at the batch size one process
+    runs. A ``BatchLoader`` decodes only this rank's batches
+    (``round_robin``); any other iterable of batches is read in full and
+    every W-th kept. The loader itself on one rank."""
+    if not active(mesh):
+        return loader
+    if hasattr(loader, "round_robin"):
+        return loader.round_robin(mesh.rank, mesh.world)
+    import itertools
+
+    return itertools.islice(loader, mesh.rank, None, mesh.world)
+
+
+def gather_batches(mesh: Optional[DataMesh], items: Sequence[Any]) -> List[Any]:
+    """Every rank's per-batch results of a ``pass_loader`` pass (this
+    rank's in its batch order, picklable), merged into the loader's batch
+    order, on every rank: batch i is rank (i mod W)'s (i div W)-th. The
+    ranks may hold counts that differ by one (trailing batches)."""
+    if not active(mesh):
+        return list(items)
+    rows = all_gather_object(mesh, list(items))
+    return [rows[i % mesh.world][i // mesh.world] for i in range(sum(map(len, rows)))]
+
+
+def gather_to_primary(mesh: Optional[DataMesh], tensor: torch.Tensor,
+                      obj: Any = None) -> Optional[List[Tuple[Any, torch.Tensor]]]:
+    """Every rank's ``(obj, tensor)`` (tensors of one shape and dtype) on
+    rank 0, in rank order, on the host; None on the other ranks. Only rank
+    0 receives (``dist.gather``), so only rank 0 holds W tensors. One
+    rank's own pair on one rank."""
+    if not active(mesh):
+        return [(obj, tensor.detach().cpu())]
+    t = tensor.detach().to(mesh.comm_device).contiguous()
+    primary = mesh.rank == 0
+    tensors = [torch.empty_like(t) for _ in range(mesh.world)] if primary else None
+    dist.gather(t, tensors, dst=0)
+    objs: Optional[List[Any]] = [None] * mesh.world if primary else None
+    dist.gather_object(obj, objs, dst=0)
+    if not primary:
+        return None
+    return [(o, x.cpu()) for o, x in zip(objs, tensors)]
+
+
+def broadcast_arrays(mesh: Optional[DataMesh],
+                     arrays: Optional[Mapping[Any, Any]]) -> Dict[Any, Any]:
+    """Rank 0's ``{key: float32 numpy array}`` on every rank (herding's
+    class means): the keys and shapes as an object, the values as one
+    flat float32 buffer, bit for bit. Other ranks pass None."""
+    import numpy as np
+
+    if not active(mesh):
+        return dict(arrays)
+    meta = broadcast_object(mesh, None if arrays is None else
+                            [(k, tuple(np.shape(v))) for k, v in arrays.items()])
+    total = sum(int(np.prod(shape)) for _, shape in meta)
+    if mesh.rank == 0:
+        flat = torch.from_numpy(np.concatenate(
+            [np.asarray(arrays[k], np.float32).reshape(-1) for k, _ in meta]
+            or [np.zeros(0, np.float32)])).to(mesh.comm_device)
+    else:
+        flat = torch.empty(total, dtype=torch.float32, device=mesh.comm_device)
+    dist.broadcast(flat, src=0)
+    flat = flat.cpu().numpy()
+    out, at = {}, 0
+    for k, shape in meta:
+        n = int(np.prod(shape))
+        out[k] = flat[at:at + n].reshape(shape).copy()
+        at += n
+    return out

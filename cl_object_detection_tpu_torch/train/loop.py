@@ -31,7 +31,8 @@ On the mesh's data axis every rank runs this loop over its slices of the
 same batches; the metrics are the global batch's, so ``loss_hist`` (and a
 resume) is the same whatever the rank count. Rank 0 prints and records;
 after every epoch ``parallel.mesh.check_replicas`` raises if the ranks'
-parameters parted.
+parameters parted (under ZeRO-1 too: the all-gather after every update
+must leave them bit-identical).
 """
 from __future__ import annotations
 

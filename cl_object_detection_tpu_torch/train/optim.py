@@ -24,15 +24,30 @@ moves the moments, and a parameter Adam skipped would fall behind.
 No clipping here and no accumulation: the train step owns both
 (``train/step.py``), as the JAX trainer builds its optimizer with
 ``use_clip=False``.
+
+ZeRO-1 (``make_optimizer`` with a mesh whose ``zero1`` is on, JAX's
+``zero1_extend_spec`` and ``make_param_constraint``): a shard plan
+(``parallel.mesh.zero1_plan``) names this rank's slice of every leaf it
+splits. The rank keeps ``mu`` and ``nu`` of its slices only (whole ones
+for the leaves that stay whole), runs the same arithmetic on contiguous
+copies of its slices of the gradient and the parameter (Adam is
+elementwise, so those bits equal the whole update's), writes them back,
+and ``parallel.mesh.param_all_gather`` reassembles every parameter from
+the ranks' slices. The groups' ``count``, LR and betas stay on every
+rank. ``state_dict`` gathers whole moments (a collective every rank
+calls), so a checkpoint written under ZeRO-1 is bit-identical to one
+written without it and loads at any rank count; ``load_state_dict`` and
+``set_moments`` keep this rank's slices of whole moments.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..config import ScheduleConfig
+from ..parallel import mesh as pmesh
 
 CLS_OUTPUT_PREFIX = "classification_head.output."
 
@@ -47,10 +62,43 @@ def param_labels(model: torch.nn.Module) -> Dict[str, str]:
 class Adam(torch.optim.Optimizer):
     """optax's Adam with injected ``lr``, ``b1`` and ``b2`` per group and
     a step ``count`` per group (module docstring). State per parameter:
-    ``mu`` and ``nu``."""
+    ``mu`` and ``nu``, of this rank's slice under a shard plan.
 
-    def __init__(self, param_groups, lr: float, betas=(0.9, 0.999), eps: float = 1e-8):
+    ``names`` maps every parameter to its name; ``plan`` (by name,
+    ``parallel.mesh.zero1_plan``) and ``mesh`` turn on ZeRO-1."""
+
+    def __init__(self, param_groups, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 names: Optional[Mapping[torch.Tensor, str]] = None,
+                 plan: Optional[Mapping[str, Optional[pmesh.Shard]]] = None,
+                 mesh: Optional[pmesh.DataMesh] = None):
         super().__init__(param_groups, dict(lr=lr, betas=betas, eps=eps, count=0))
+        self.mesh = mesh
+        self._names = dict(names or {})
+        plan = plan or {}
+        self._shards = {p: plan.get(self._names.get(p)) for g in self.param_groups
+                        for p in g["params"]}
+        self.sharded = any(s is not None for s in self._shards.values())
+
+    def _shard(self, p: torch.Tensor) -> Optional[pmesh.Shard]:
+        return self._shards.get(p)
+
+    def _own(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """A contiguous copy of this rank's slice of ``t`` (shaped like
+        ``p``); ``t`` itself for a whole leaf."""
+        shard = self._shard(p)
+        return t if shard is None else pmesh.shard_of(t, shard).contiguous()
+
+    def moment_bytes(self) -> int:
+        """Bytes of ``mu`` and ``nu`` this rank keeps (of its slices under
+        ZeRO-1), whether or not a step has made them yet."""
+        return sum(2 * pmesh.shard_of(p, s).numel() * p.element_size()
+                   for p, s in self._shards.items())
+
+    def set_moments(self, p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor) -> None:
+        """Set ``p``'s moments from whole ``mu`` and ``nu`` (this rank's
+        slices of them under ZeRO-1), on ``p``'s device."""
+        self.state[p] = {k: self._own(p, v.to(p.device, torch.float32)).clone()
+                         for k, v in (("mu", mu), ("nu", nu))}
 
     @torch.no_grad()
     def step(self):
@@ -64,7 +112,10 @@ class Adam(torch.optim.Optimizer):
                                  "tensor (zeros where masked), as optax moves every moment")
             for p in params:
                 if p not in self.state:
-                    self.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+                    z = self._own(p, p)
+                    self.state[p] = {"mu": torch.zeros_like(z), "nu": torch.zeros_like(z)}
+            grads = [self._own(p, g) for p, g in zip(params, grads)]
+            targets = [self._own(p, p) for p in params]
             mus = [self.state[p]["mu"] for p in params]
             nus = [self.state[p]["nu"] for p in params]
             one = np.float32(1)
@@ -84,18 +135,51 @@ class Adam(torch.optim.Optimizer):
             torch._foreach_add_(denom, float(np.float32(group["eps"])))
             upd = torch._foreach_div(torch._foreach_div(mus, bc1), denom)
             torch._foreach_mul_(upd, float(-np.float32(group["lr"])))
-            torch._foreach_add_(params, upd)
+            torch._foreach_add_(targets, upd)
+            for p, t in zip(params, targets):
+                if t is not p:
+                    pmesh.shard_of(p, self._shard(p)).copy_(t)
+        if self.sharded:
+            plan = {self._names[p]: s for p, s in self._shards.items()}
+            pmesh.param_all_gather(self.mesh, {self._names[p]: p for p in self._shards}, plan)
+
+    def state_dict(self):
+        """torch's optimizer state dict with whole moments: under ZeRO-1 a
+        collective (every rank calls it) that gathers the ranks' slices."""
+        sd = super().state_dict()
+        if not self.sharded:
+            return sd
+        order = [p for g in self.param_groups for p in g["params"]]
+        keys = [(i, k) for i, p in enumerate(order) if i in sd["state"]
+                and self._shard(p) is not None for k in ("mu", "nu")]
+        pieces = [(sd["state"][i][k], order[i].shape, self._shard(order[i])) for i, k in keys]
+        whole = pmesh.gather_shards(self.mesh, pieces) if pieces else []
+        state = {i: dict(st) for i, st in sd["state"].items()}
+        for (i, k), w in zip(keys, whole):
+            state[i][k] = w
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    def load_state_dict(self, state_dict) -> None:
+        """torch's, then this rank's slices of the whole moments."""
+        super().load_state_dict(state_dict)
+        for p, st in list(self.state.items()):
+            if self._shard(p) is not None and "mu" in st:
+                self.set_moments(p, st["mu"], st["nu"])
 
 
-def make_optimizer(cfg: ScheduleConfig, model: torch.nn.Module) -> Adam:
+def make_optimizer(cfg: ScheduleConfig, model: torch.nn.Module,
+                   mesh: Optional[pmesh.DataMesh] = None) -> Adam:
     """Adam over ``model``'s parameters in the two groups, each group
-    carrying its ``name``."""
+    carrying its ``name``; with ZeRO-1 on ``mesh``, over this rank's
+    slices of the moments (module docstring)."""
     labels = param_labels(model)
     groups = []
     for name, lr in (("backbone", cfg.lr), ("output", cfg.lr * cfg.classifier_lr_scale)):
         params = [p for n, p in model.named_parameters() if labels[n] == name]
         groups.append({"name": name, "params": params, "lr": lr})
-    return Adam(groups, lr=cfg.lr, betas=(cfg.beta1, cfg.beta2))
+    named = list(model.named_parameters())
+    return Adam(groups, lr=cfg.lr, betas=(cfg.beta1, cfg.beta2),
+                names={p: n for n, p in named}, plan=pmesh.zero1_plan(mesh, named), mesh=mesh)
 
 
 def lr_at_epoch(cfg: ScheduleConfig, epoch: int) -> float:

@@ -19,7 +19,13 @@ once per apply (``parallel.mesh.all_reduce_grads``) before the mask, the
 clip, the warm zeroing and the A-GEM projection, which then see the global
 gradient, so every rank's Adam takes the same step; the metrics are the
 global batch's loss terms, and the final correction's skip is decided on
-the global loss, so the ranks never part.
+the global loss, so the ranks never part. Under ZeRO-1 the optimizer
+(``train/optim.py``) then updates this rank's slices and all-gathers the
+parameters, so the order is: all-reduce -> mask -> clip -> warm zeroing ->
+A-GEM -> Adam on the shard -> all-gather. Every step before Adam sees the
+whole all-reduced gradient, which keeps ZeRO-1 bit for bit the data
+axis's run (a reduce-scatter in place of the all-reduce would change the
+clip's summation order).
 """
 from __future__ import annotations
 

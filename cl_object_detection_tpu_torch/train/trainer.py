@@ -47,11 +47,17 @@ its device. The train, replay and BiC loaders give each rank its slice of
 every global batch (JAX's ``_proc_shard``), the batch sizes must divide by
 the rank count, the step all-reduces the gradient once per apply, rank 0's
 parameters are broadcast after construction and after each expansion, the
-IL tools run whole on every rank and keep rank 0's results, only rank 0
-writes checkpoints and sidecars, and the loop's
+IL tool passes split their loaders' whole batches over the ranks and
+gather the results back into one process's order (``parallel.mesh``),
+only rank 0 writes checkpoints and sidecars, and the loop's
 ``parallel.mesh.check_replicas`` after every epoch raises if the ranks'
-parameters part.
-``--zero1`` and the model axis raise (ROADMAP §1 item 6b).
+parameters part. Under ``--zero1`` (``MeshConfig.zero1``) every optimizer
+the trainer builds shards its Adam moments over the ranks
+(``train/optim.py``); the ``mesh:`` line, printed with each new
+optimizer, gives the moment bytes on this rank. A resume, a
+``--torch_ckpt`` optimizer and a checkpoint all hold whole moments, of
+which each rank keeps its slices. The model axis raises (ROADMAP §1 item
+6b).
 """
 from __future__ import annotations
 
@@ -128,7 +134,6 @@ class ILTrainer:
                 raise ValueError(
                     f"replay sample_batch_size {cfg.il.replay.sample_batch_size} not "
                     f"divisible by the data-axis size {ndata} (set --sample_batch_size)")
-            print(pmesh.describe(self.mesh))
         self.primary = pmesh.is_primary(self.mesh)
         self.coco = CocoJson(train_json)
         self.image_dir = image_dir
@@ -250,9 +255,12 @@ class ILTrainer:
     # infrastructure
     # ------------------------------------------------------------------
     def _new_train_state(self) -> None:
-        """A fresh optimizer (both Adam groups at the schedule's LR) and
-        train state over the current model."""
-        self.optimizer = make_optimizer(self.cfg.schedule, self.model)
+        """A fresh optimizer (both Adam groups at the schedule's LR; under
+        ZeRO-1 its shard plan over the current model's leaves) and train
+        state over the current model; on the mesh, the ``mesh:`` line."""
+        self.optimizer = make_optimizer(self.cfg.schedule, self.model, self.mesh)
+        if self.mesh is not None:
+            print(pmesh.describe(self.mesh, self.optimizer.moment_bytes()))
         self.train_state = TrainState(self.model, self.optimizer)
         self._beta_is_replay = None
         self._steps.clear()

@@ -23,8 +23,12 @@ On the mesh's data axis (``mesh=``, more than one rank) only rank 0
 writes (checkpoints, sidecars, directories) and deletes; a save is
 synchronous, so that no collective runs in a writer thread, and every
 save, sidecar save and ``wait()`` ends in a barrier, so that no rank reads
-before rank 0's write is complete. Every rank reads (``restore``,
-``epochs``, the sidecars); reading calls no collective.
+before rank 0's write is complete. Every rank enters ``save``: under
+ZeRO-1 the optimizer's ``state_dict`` gathers the ranks' moment slices
+(a collective, on the caller's thread, never the writer's), so the file
+holds whole moments, bit for bit those of a run without ZeRO-1. Every
+rank reads (``restore``, ``epochs``, the sidecars); reading calls no
+collective.
 """
 from __future__ import annotations
 
@@ -134,11 +138,14 @@ class CheckpointManager:
         """Persist one (state, epoch) checkpoint; returns its directory."""
         self._join()
         path = self.epoch_dir(state, epoch)
+        # every rank, on this thread: under ZeRO-1 the optimizer's state
+        # dict gathers the ranks' moment slices (a collective)
+        opt_state = optimizer.state_dict()
         if not self.primary:
             self._barrier()
             return path
-        tree = host_copy({"model": model.state_dict(),
-                          "optimizer": optimizer.state_dict(), "step": int(step)})
+        tree = host_copy({"model": model.state_dict(), "optimizer": opt_state,
+                          "step": int(step)})
         tmp = os.path.join(self.state_dir(state), f".tmp_epoch{epoch}")
 
         def write():

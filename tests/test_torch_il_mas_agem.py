@@ -216,10 +216,12 @@ def test_compute_importance_matches_jax():
 
 
 def test_compute_importance_mesh_raises(monkeypatch):
-    """The mesh (ROADMAP §1 item 6a, once refused here): on a one-rank
-    mesh the importance is one process's; on rank 1 of two the pass runs
-    whole and the rank keeps rank 0's importance, which the broadcast
-    (stubbed here: rank 0's values are all 0.5) writes into it."""
+    """The mesh (ROADMAP §1 item 6a, once refused here; its passes split
+    over the ranks since item 6b-i): on a one-rank mesh the importance is
+    one process's; on rank 1 of two, whose share of a one-batch loader
+    (batch i on rank i mod 2) is empty, the ranks' sums and the global
+    batch count come through all-reduces (stubbed here: every element 1,
+    the count 1), so its importance is the mask."""
     from cl_object_detection_tpu_torch.parallel import mesh as pm
 
     _, v = jax_model(C)
@@ -228,10 +230,12 @@ def test_compute_importance_mesh_raises(monkeypatch):
     one = pm.DataMesh(rank=0, world=1, device=torch.device("cpu"))
     got = mas.compute_importance(port_model(v, C), ANCHORS, loader, mesh=one)
     assert all(torch.equal(got[k], want[k]) for k in want)
-    monkeypatch.setattr(pm.dist, "broadcast", lambda t, src: t.fill_(0.5))
+    monkeypatch.setattr(pm.dist, "all_reduce", lambda t, *a, **k: t.fill_(1.0))
     rank1 = pm.DataMesh(rank=1, world=2, device=torch.device("cpu"), backend="gloo")
-    got = mas.compute_importance(port_model(v, C), ANCHORS, loader, mesh=rank1)
-    assert set(got) == set(want) and all(bool((t == 0.5).all()) for t in got.values())
+    model = port_model(v, C)
+    got = mas.compute_importance(model, ANCHORS, loader, mesh=rank1)
+    mask = mas.importance_mask(dict(model.named_parameters()))
+    assert set(got) == set(want) and all(torch.equal(got[k], mask[k]) for k in got)
 
 
 def test_mas_penalty_and_mask_mirror_jax():

@@ -71,6 +71,15 @@ def test_create_mesh_without_a_group_is_one_rank():
 
 @pytest.mark.parametrize("cfg", [MeshConfig(zero1=True), MeshConfig(num_model=2)])
 def test_zero1_and_model_axis_name_item_6b(cfg):
+    """ZeRO-1 (item 6b-i) builds the mesh, where one rank splits nothing
+    (JAX's ``zero1_extend_spec`` at ``ndata <= 1``); the model axis is
+    still refused naming ROADMAP §1 item 6b."""
+    if cfg.zero1:
+        m = pm.create_mesh(cfg, torch.device("cpu"))
+        assert m.world == 1 and not m.zero1
+        assert pm.zero1_plan(m, torch.nn.Linear(4, 2).named_parameters()) == {
+            "weight": None, "bias": None}
+        return
     with pytest.raises(NotImplementedError, match="item 6b"):
         pm.create_mesh(cfg, torch.device("cpu"))
 

@@ -490,16 +490,17 @@ _STATE1 = ["--scenario", "3", "2", "--end_state", "1", "--end_epoch", "1",
                             "random"], None, id="flags0-item 4c"),
     pytest.param(_STATE1 + ["--mas", "true"], None, id="flags1-item 4c"),
     pytest.param(["--mesh", "true"], "one rank", id="flags2-item 6"),
-    pytest.param(["--zero1", "true"], "item 6b", id="flags3-item 6"),
+    pytest.param(["--mesh", "true", "--zero1", "true"], "one rank", id="flags3-item 6"),
     pytest.param(["--mesh", "true", "--num_data", "2"], "two ranks", id="flags4-item 6"),
     pytest.param(["--coordinator_address", "localhost:1234", "--num_processes", "1",
                   "--process_id", "0"], "one rank", id="flags5-item 6"),
     pytest.param(["--num_model", "2"], "item 6b", id="flags6-item 6b"),
 ])
 def test_train_cli_refuses_what_is_not_ported(toy, tmp_path, capsys, flags, item):
-    """ZeRO-1 and the model axis are refused naming ROADMAP §1 item 6b.
-    The data axis (item 6a, once refused here) trains: ``--mesh true`` on
-    the CPU, and the process flags of one process, on a one-rank mesh;
+    """The model axis is refused naming ROADMAP §1 item 6b. The data axis
+    (item 6a, once refused here) trains: ``--mesh true`` on the CPU, and
+    the process flags of one process, on a one-rank mesh, where ZeRO-1
+    (item 6b-i, once refused here) is a no-op (no moment is split);
     ``--mesh true --num_data 2`` starts two CPU ranks, which write one
     checkpoint per epoch (``main`` returns None in the process that started
     them). A-GEM and MAS (item 4c, once refused here) train state 0 and
@@ -507,6 +508,7 @@ def test_train_cli_refuses_what_is_not_ported(toy, tmp_path, capsys, flags, item
     if item == "one rank":
         trainer = train_main(_cli(toy, str(tmp_path), "--cpu", *flags))
         assert trainer.mesh.shape == {"data": 1, "model": 1} and trainer.mesh.backend is None
+        assert not trainer.mesh.zero1 and not trainer.optimizer.sharded
         assert trainer.ckpt.epochs(0) == [1, 2] and len(trainer.loss_hist) == 8
         return
     if item == "two ranks":
@@ -532,7 +534,8 @@ def test_train_cli_refuses_what_is_not_ported(toy, tmp_path, capsys, flags, item
 
 def test_trainer_refuses_states_and_mesh(toy, tmp_path):
     """The mesh (item 6a, once refused here) builds a one-rank data axis
-    without a process group; ZeRO-1 is refused naming ROADMAP §1 item 6b.
+    without a process group, where ZeRO-1 (item 6b-i, once refused here)
+    is a no-op; the model axis is refused naming ROADMAP §1 item 6b.
     BiC and A-GEM (items
     4d and 4c, once refused here) build their tools at a state-1 start
     with replay: BiC's held-out loader and scalars, A-GEM over the replay
@@ -556,8 +559,11 @@ def test_trainer_refuses_states_and_mesh(toy, tmp_path):
                    workdir=str(tmp_path), device="cpu")
     assert (tr.mesh.rank, tr.mesh.world, tr.primary) == (0, 1, True)
     assert tr.train_loader.process_count == 1
+    tr = ILTrainer(base.replace(mesh=tcfg.MeshConfig(enabled=True, zero1=True)), json_path,
+                   images, workdir=str(tmp_path), device="cpu")
+    assert not tr.mesh.zero1 and not tr.optimizer.sharded
     with pytest.raises(NotImplementedError, match="item 6b"):
-        ILTrainer(base.replace(mesh=tcfg.MeshConfig(enabled=True, zero1=True)), json_path,
+        ILTrainer(base.replace(mesh=tcfg.MeshConfig(enabled=True, num_model=2)), json_path,
                   images, workdir=str(tmp_path), device="cpu")
 
 

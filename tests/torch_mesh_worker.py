@@ -10,6 +10,7 @@ torch and the port only (no JAX), so a rank starts in a few seconds.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -53,6 +54,61 @@ def run_ranks(workdir: str, case: str, args: dict, world: int = 2, timeout: floa
         assert p.returncode == 0, f"{case}: rank {r} exited {p.returncode}:\n{log[-4000:]}"
     return [torch.load(os.path.join(workdir, f"out{r}.pt"), weights_only=False)
             for r in range(world)]
+
+
+def shared_result(tmp_path_factory, name: str, compute, timeout: float = 900.0):
+    """``compute()`` once per test session, whichever test workers ask
+    (pytest-xdist runs a module fixture again on every worker that runs a
+    test using it): the first caller computes and saves the result in the
+    session's temporary root, the others wait for it and load it. A
+    failed computation fails every caller."""
+    import torch
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent                      # shared by the session's workers
+    path, lock = root / f"{name}.result.pt", root / f"{name}.lock"
+    try:
+        os.close(os.open(str(lock), os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+    except FileExistsError:
+        deadline = time.monotonic() + timeout
+        while not path.exists():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{name}: no result after {timeout} s")
+            time.sleep(0.5)
+        out = torch.load(str(path), weights_only=False)
+        if isinstance(out, dict) and "__error__" in out:
+            raise AssertionError(f"{name} failed in another worker: {out['__error__']}")
+        return out
+    tmp = root / f"{name}.partial.pt"
+    try:
+        out = compute()
+    except BaseException as e:
+        torch.save({"__error__": repr(e)}, str(tmp))
+        os.replace(str(tmp), str(path))
+        raise
+    torch.save(out, str(tmp))
+    os.replace(str(tmp), str(path))
+    return out
+
+
+@contextlib.contextmanager
+def float64_plain_path(model):
+    """``model`` and the loss in float64: the parameters, buffers and every
+    module's compute dtype, and ``Tensor.float`` (the loss's casts to
+    float32) leaving a float64 tensor as it is."""
+    import torch
+
+    model.double()
+    for m in model.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float64
+    real = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else real(t, *a, **k)
+    try:
+        yield model
+    finally:
+        torch.Tensor.float = real
 
 
 # ----------------------------------------------------------------------
@@ -182,7 +238,8 @@ def case_tools(mesh, a, workdir):
     """Each IL tool pass with ``mesh=`` (None: one process) on the old
     model of scenario 3+2: the similarity and the pseudo-labels over the
     state-1 images, the MAS importance, herding, the prototypes and
-    prototype-herd over the state-0 images."""
+    prototype-herd over the state-0 images; and the number of batches of
+    each image set this rank ran."""
     from cl_object_detection_tpu_torch.data.coco import CocoJson
     from cl_object_detection_tpu_torch.data.dataset import ILDataset
     from cl_object_detection_tpu_torch.data.loader import BatchLoader
@@ -219,6 +276,11 @@ def case_tools(mesh, a, workdir):
                                                     out["prototypes"], mesh=mesh)
     out["proto_mean"] = prototype_herd_scores(model, anchors_for, old, cfg, out["prototypes"],
                                               mesh=mesh)
+    # this rank's share of each pass's batches (all of them in one process)
+    from cl_object_detection_tpu_torch.parallel.mesh import pass_loader
+
+    out["batches"] = {name: len(pass_loader(mesh, unaugmented(ds)))
+                      for name, ds in (("old", old), ("new", new))}
     return out
 
 
@@ -269,6 +331,128 @@ def case_collectives(mesh, a, workdir):
         parted_raised=parted_raised,
         shape=mesh.shape, backend=mesh.backend, rank=mesh.rank,
     )
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_trees_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return a == b
+
+
+def zero1_steps(mesh, a, every_iter, workdir):
+    """Two applies of the train step (``every_iter`` micro-steps each) on
+    this rank's half of ``a["batch"]`` from ``a["state_dict"]``, on the
+    data axis and then under ZeRO-1 (the same ranks): whether ZeRO-1's
+    parameters, whole optimizer state and checkpoint equal the data axis's
+    bit for bit, whether a ZeRO-1 optimizer that reloads the checkpoint
+    gathers the same state, each run's moment sizes on this rank, and the
+    ZeRO-1 parameters' checksums (on rank 0 at every_iter 1, the
+    parameters, the gradient each Adam step took and the checkpoint's
+    directory, kept for the caller; the other checkpoints are removed)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from cl_object_detection_tpu_torch.config import FocalConfig, ILConfig, ScheduleConfig
+    from cl_object_detection_tpu_torch.il.losses import LossStatics
+    from cl_object_detection_tpu_torch.parallel.mesh import barrier, module_checksums
+    from cl_object_detection_tpu_torch.train.optim import make_optimizer
+    from cl_object_detection_tpu_torch.train.state import TrainState
+    from cl_object_detection_tpu_torch.train.step import StepStatics, make_train_step
+    from cl_object_detection_tpu_torch.utils.checkpoint import CheckpointManager
+
+    images, boxes, labels = (torch.from_numpy(x) for x in a["batch"])
+    per = images.shape[0] // mesh.world
+    sl = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    runs = {}
+    for tag, m in (("dp", dataclasses.replace(mesh, zero1=False)),
+                   ("zero1", dataclasses.replace(mesh, zero1=True))):
+        model = _model(a["model_cfg"], a["num_classes"], a["state_dict"])
+        opt = make_optimizer(ScheduleConfig(lr=a["lr"], every_iter=every_iter), model, m)
+        step = make_train_step(model, None, a["anchors"], ILConfig(), FocalConfig(),
+                               LossStatics(num_classes=a["num_classes"]),
+                               StepStatics(every_iter=every_iter), mesh=m)
+        state = TrainState(model, opt)
+        applied = []
+        real_step = opt.step
+
+        def step_and_record():
+            # the gradient Adam takes: all-reduced, clipped, whole
+            applied.append({n: p.grad.clone() for n, p in model.named_parameters()})
+            real_step()
+
+        opt.step = step_and_record
+        for _ in range(2 * every_iter):
+            state, _ = step(state, images[sl], boxes[sl], labels[sl])
+        root = os.path.join(workdir, f"ck_{tag}_{every_iter}")
+        CheckpointManager(root, ["4"], mesh=m).save(0, 1, model, opt, state.step)
+        ckpt = torch.load(os.path.join(root, "4", "state0", "epoch1", "state.pt"),
+                          weights_only=True)
+        fresh = make_optimizer(ScheduleConfig(lr=a["lr"]), model, m)
+        fresh.load_state_dict(ckpt["optimizer"])
+        runs[tag] = dict(model=model, opt=opt, whole=opt.state_dict(), root=root, ckpt=ckpt,
+                         reloaded=_trees_equal(fresh.state_dict(), ckpt["optimizer"]),
+                         applied=applied)
+    dp, z = runs["dp"], runs["zero1"]
+    out = dict(
+        params_equal=_trees_equal(z["model"].state_dict(), dp["model"].state_dict()),
+        optimizer_equal=_trees_equal(z["whole"], dp["whole"]),
+        checkpoint_equal=_trees_equal(z["ckpt"], dp["ckpt"]),
+        reloaded=z["reloaded"] and dp["reloaded"],
+        sharded=(z["opt"].sharded, dp["opt"].sharded),
+        checksums=module_checksums(z["model"]),
+        moment_bytes={t: r["opt"].moment_bytes() for t, r in runs.items()},
+        moment_numel={t: {n: sum(v.numel() for v in r["opt"].state[p].values())
+                          for n, p in r["model"].named_parameters()}
+                      for t, r in runs.items()})
+    barrier(mesh)
+    keep = mesh.rank == 0 and every_iter == 1
+    if keep:
+        out.update(params={k: v.detach().clone() for k, v in z["model"].state_dict().items()},
+                   root=z["root"], applied=z["applied"])
+    if mesh.rank == 0:
+        for tag, r in runs.items():
+            if not (keep and tag == "zero1"):
+                shutil.rmtree(r["root"], ignore_errors=True)
+    return out
+
+
+def case_zero1(mesh, a, workdir):
+    """ZeRO-1's steps for every_iter 1 and 2 (``zero1_steps``), then
+    ``pseudo_teachers`` of ``a["pseudo_teachers"]`` (one spawn for both)."""
+    out = {e: zero1_steps(mesh, a, e, workdir) for e in (1, 2)}
+    out["pseudo_teachers"] = pseudo_teachers(mesh, a["pseudo_teachers"], workdir)
+    return out
+
+
+def pseudo_teachers(mesh, a, workdir):
+    """``case_train``'s record of ``a``'s run, plus, for each pseudo-label
+    pass, its teacher's class count and the labels."""
+    from cl_object_detection_tpu_torch.train import trainer as trainer_mod
+
+    teachers = []
+    real = trainer_mod.generate_pseudo_labels
+
+    def spy(model, dataset, *args, **kw):
+        labels = real(model, dataset, *args, **kw)
+        teachers.append(dict(classes=model.classification_head.output.bias.numel() // 9,
+                             labels=labels))
+        return labels
+
+    trainer_mod.generate_pseudo_labels = spy
+    try:
+        out = case_train(mesh, a, workdir)
+    finally:
+        trainer_mod.generate_pseudo_labels = real
+    out["teachers"] = teachers
+    return out
 
 
 CASES = {k[5:]: v for k, v in dict(globals()).items() if k.startswith("case_")}
