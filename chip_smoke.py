@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving, training, evaluation, incremental (replay and the IL battery included), export and data-parallel paths on one GPU and check them.
+"""Run the PyTorch/CUDA port's serving, training, evaluation, incremental (replay and the IL battery included), export, data-parallel and head-tensor-parallel paths on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -318,9 +318,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    seconds on the ranks (beside the whole passes' earlier seconds) and in
    one process, the Adam moment bytes and peak memory per rank of (a) and
    (d), the phase's seconds, and the ``{"data_axis": ...}`` line.
-15. The ``{"trainer": ...}``, ``{"eval": ...}``, ``{"il_state1": ...}``,
-   ``{"il_replay": ...}``, ``{"il_battery": ...}``, ``{"export": ...}`` and
-   ``{"data_axis": ...}`` lines, phase 4's and phase 5's B=32 throughput beside the figures of
+15. The mesh's model axis, on phase 8's toy data under phase 14's cuDNN
+   settings, the ranks started with the process flags (gloo when they
+   share a card, NCCL on a host with a card per rank; the line says
+   which): (f) ``cli.train --mesh true --num_data 1 --num_model 2`` state
+   0 of ``--scenario 15 5`` for one epoch, then four more micro-steps of
+   its trainer with the model group's collectives timed between card
+   synchronisations, (g) state 1 from (f)'s checkpoint with phase 12's
+   battery flags on the same 1 x 2 mesh, (h) ``--num_data 2 --num_model
+   2 --zero1 true`` state 0 for one epoch (four ranks) and its four timed
+   micro-steps, (i) ``cli.validate --mesh true --num_data 2 --num_model 2
+   --state 1 --bic true`` of (g)'s checkpoint under ``pallas_fp``.
+   Checks: (f)'s and (h)'s first apply's whole gradient (the trunks'
+   slices joined, then reduced over the data group) against phase 14's
+   one process from the same initial weights on the same two global
+   batches (the same bits, checked), at phase 12's bar; the ranks'
+   parameters bit-identical after every epoch (the trainer raises; the
+   checksums compared again here) and their global losses equal; a
+   rank's slice of ``classification_head.conv1`` (128, 256, 3, 3) and of
+   ``conv2`` (256, 128, 3, 3); a trunk weight's Adam moments 1/2 of it
+   per rank in (f), 1/4 in (h); 40 collectives of the model group per
+   micro-step (2 x 2 heads x 5 levels forward, as many backward) and one
+   gradient gather per apply in (f), (g) and (h), 40 per replay batch of
+   each A-GEM refresh; stem launches per rank 1 per micro-step in (f)
+   and (h), 2 in (g); only rank 0 writes; one process's ``cli.validate``
+   reads (f)'s and (h)'s checkpoints; (i)'s rows equal bit for bit one
+   process's ``cli.validate`` in batches of 4, each rank one NMS and one
+   stem launch per global batch; (g)'s exemplar ids and BiC scalars equal
+   on both ranks and finite. Printed, each beside the card's name and
+   power limit: images/s of (f), (g), (h) beside phase 14's (a) and (d);
+   ms and MB of the model group's collectives per micro-step and ms per
+   gradient gather, (f) and (h); Adam moment bytes and peak memory per
+   rank beside phase 14's; the phase's seconds; the ``{"model_axis":
+   ...}`` line.
+16. The ``{"trainer": ...}``, ``{"eval": ...}``, ``{"il_state1": ...}``,
+   ``{"il_replay": ...}``, ``{"il_battery": ...}``, ``{"export": ...}``,
+   ``{"data_axis": ...}`` and ``{"model_axis": ...}`` lines, phase 4's and phase 5's B=32 throughput beside the figures of
    the port before its kernels became ``torch.library`` operators
    (464.67 and 225.81 images/s, H100 80GB HBM3 at 700 W), the kernels'
    JSON line, then the ``{"ok": true, ...}`` line.
@@ -3345,9 +3378,10 @@ torch.cuda.empty_cache()
 # (d): (a) under ZeRO-1, then its all-gather of the R50's parameters timed
 tr = train("d")
 params = dict(tr.model.named_parameters())
-plan = pm.zero1_plan(tr.mesh, tr.model.named_parameters())
+plans = pm.shard_plans(tr.mesh, tr.model.named_parameters())
+plan = plans[rank]
 before = pm.module_checksums(tr.model)
-rec["all_gather"] = {"ms": timed_ms(lambda: pm.param_all_gather(tr.mesh, params, plan)),
+rec["all_gather"] = {"ms": timed_ms(lambda: pm.param_all_gather(tr.mesh, params, plans)),
                      "mb": sum(p.numel() for n, p in params.items()
                                if plan[n] is not None) * 4 / 1e6,
                      "split": sum(s is not None for s in plan.values()), "leaves": len(plan)}
@@ -3497,9 +3531,8 @@ def data_axis_path(tmp: str) -> dict:
         f.write(DATA_AXIS_CHILD)
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
     shared = torch.cuda.device_count() < ranks
-    from cl_object_detection_tpu_torch.parallel.mesh import free_port
-
-    address = f"127.0.0.1:{free_port()}"
+    # a file store in the run's directory: no port to pick and lose
+    address = "file://" + os.path.join(tmp, "data_axis_store")
     logs = [open(os.path.join(tmp, f"data_axis_rank{r}.log"), "w+") for r in range(ranks)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, child, str(r), str(ranks), address, spec_path],
@@ -3540,7 +3573,12 @@ def data_axis_path(tmp: str) -> dict:
     record["passes"] = data_axis_passes(spec, recs)
     torch.cuda.empty_cache()
     ref_flags = ["--root_dir", root + "_ref"] + paths[2:] + IL_MODEL_FLAGS + DATA_AXIS_A
-    record["gradient"] = data_axis_gradient(spec["out"], ref_flags, recs)
+    out = spec["out"]
+    reference = first_apply_reference(
+        ref_flags, os.path.join(out, "rank0", "init.pt"),
+        [[os.path.join(out, f"rank{r}", f"batch{k}.npz") for r in range(ranks)] for k in (1, 2)])
+    record["gradient"] = check_first_apply(f"data axis: (a)'s, {ranks} ranks,",
+                                           os.path.join(out, "rank0", "grad.pt"), reference)
     torch.cuda.empty_cache()
     one_ips = data_axis_one_process(["--root_dir", root + "_one"] + paths[2:] + IL_MODEL_FLAGS
                                     + DATA_AXIS_A)
@@ -3585,7 +3623,7 @@ def data_axis_path(tmp: str) -> dict:
                   moment_mb={k: [r[k]["moment_bytes"] / 1e6 for r in recs] for k in ("a", "d")},
                   peak_gib={k: [r[k]["peak_gib"] for r in recs] for k in ("a", "b", "d", "e")},
                   run_s=run_s, phase_s=phase_s)
-    return record
+    return record, reference
 
 
 def data_axis_split_a(recs) -> list:
@@ -3808,25 +3846,25 @@ def _equal_results(a, b) -> bool:
     return a == b
 
 
-def data_axis_gradient(out: str, flags, recs) -> dict:
-    """(a)'s first apply: rank 0's all-reduced gradient against one
-    process's of the same two global batches (the ranks' slices joined)
-    from the same initial weights, at phase 12's bar: the larger of the
-    gradient bar and twice the move that one-ulp weight changes (four
-    seeds) give the single-process gradient."""
-    import os
-
+def first_apply_reference(flags, init_file: str, batch_files) -> dict:
+    """One process's first-apply gradient from the weights in ``init_file``
+    on the global batches that ``batch_files`` hold (per batch, the
+    npz files of its slices in data-index order), a trainer of ``flags``
+    on this card under the ranks' cuDNN settings, and phase 12's bar: the
+    larger of the gradient bar and twice the move that one-ulp weight
+    changes (four seeds) give that gradient. Also the weights and the
+    batches, so that another mesh's run can be shown to start from the
+    same ones."""
     import numpy as np
     import torch
 
     from cl_object_detection_tpu_torch.data.loader import Batch
     from cl_object_detection_tpu_torch.train import step as step_mod
 
-    want_grad = torch.load(os.path.join(out, "rank0", "grad.pt"), weights_only=True)
-    init = torch.load(os.path.join(out, "rank0", "init.pt"), weights_only=True)
+    init = torch.load(init_file, weights_only=True)
     batches = []
-    for k in (1, 2):
-        parts = [np.load(os.path.join(out, f"rank{r}", f"batch{k}.npz")) for r in range(len(recs))]
+    for files in batch_files:
+        parts = [np.load(f) for f in files]
         arrays = {f: np.concatenate([p[f] for p in parts]) for f in ("images", "boxes", "labels")}
         n = arrays["images"].shape[0]
         batches.append(Batch(num_boxes=np.zeros(n, np.int32), num_pseudo=np.zeros(n, np.int32),
@@ -3856,16 +3894,44 @@ def data_axis_gradient(out: str, flags, recs) -> dict:
     finally:
         step_mod.all_reduce_grads = real_reduce
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
-    worst, rel, leaves = _grads_rel(want_grad, ref)
-    bar = max(1.0, 2 * max(moves))
-    log(f"data axis: (a)'s first apply, the all-reduced gradient of {len(recs)} ranks against "
-        f"one process's of the same global batches: worst {worst:.3g} of the gradient bar "
-        f"(|d| <= 1e-3 |g| + 1e-4 max|g| per leaf; largest |d| / max|g| {rel:.3g}; worst "
-        f"leaves {leaves}); one-ulp weight moves give {[f'{m:.3g}' for m in moves]}; bar "
-        f"{bar:.3g}")
-    if not worst <= bar:
-        raise AssertionError("the all-reduced gradient differs from one process's")
-    return dict(worst=worst, rel=rel, ulp_moves=moves, bar=bar)
+    del tr
+    return dict(grad=ref, moves=moves, bar=max(1.0, 2 * max(moves)), init=init,
+                batches=[{f: getattr(b, f) for f in ("images", "boxes", "labels")}
+                         for b in batches])
+
+
+def same_start(ref: dict, init_file: str, batch_files) -> bool:
+    """Whether a run's first weights and first global batches are
+    ``ref``'s, bit for bit."""
+    import numpy as np
+    import torch
+
+    init = torch.load(init_file, weights_only=True)
+    if set(init) != set(ref["init"]) or not all(torch.equal(v, ref["init"][k])
+                                                for k, v in init.items()):
+        return False
+    for files, want in zip(batch_files, ref["batches"]):
+        parts = [np.load(f) for f in files]
+        for f, w in want.items():
+            if not np.array_equal(np.concatenate([p[f] for p in parts]), w):
+                return False
+    return True
+
+
+def check_first_apply(label: str, grad_file: str, ref: dict) -> dict:
+    """A run's first-apply gradient (``grad_file``, the whole gradient that
+    the ranks reduced) against ``first_apply_reference``'s at its bar."""
+    import torch
+
+    want = torch.load(grad_file, weights_only=True)
+    worst, rel, leaves = _grads_rel(want, ref["grad"])
+    log(f"{label} first apply, the reduced gradient against one process's of the same global "
+        f"batches from the same weights: worst {worst:.3g} of the gradient bar (|d| <= 1e-3 |g| "
+        f"+ 1e-4 max|g| per leaf; largest |d| / max|g| {rel:.3g}; worst leaves {leaves}); "
+        f"one-ulp weight moves give {[f'{m:.3g}' for m in ref['moves']]}; bar {ref['bar']:.3g}")
+    if not worst <= ref["bar"]:
+        raise AssertionError(f"{label} reduced gradient differs from one process's")
+    return dict(worst=worst, rel=rel, ulp_moves=ref["moves"], bar=ref["bar"])
 
 
 def _rows_by_key(rows):
@@ -3962,6 +4028,478 @@ def data_axis_validate(root: str, data: str, vflags, recs) -> dict:
     return dict(rows=len(rows[""]), equal_to_batches_of_4=same, d_ap50_batches_of_8=d_ap8,
                 d_score_batches_of_8=d_score, map50=[recs[0]["c"]["map50"], res8[1].mean_ap50],
                 map50_a=res_a[1].mean_ap50)
+
+
+# phase 15's meshes on phase 8's toy data: (f) and (g) on a 1 x 2 mesh, (h) and
+# (i) on a 2 x 2 mesh; the root directories, the data paths and the process
+# flags are added per run
+MODEL_AXIS_1X2 = ["--mesh", "true", "--num_data", "1", "--num_model", "2"]
+MODEL_AXIS_2X2 = ["--mesh", "true", "--num_data", "2", "--num_model", "2"]
+MODEL_AXIS_TIMED = 4             # micro-steps (two applies) with the collectives timed
+# the trunk's leaves whose slices the phase prints: (name, its slice on a rank)
+MODEL_AXIS_SLICES = (("classification_head.conv1.weight", [128, 256, 3, 3]),
+                     ("classification_head.conv2.weight", [256, 128, 3, 3]))
+# the model group's collectives per micro-step at a trunk depth of 4: 2 per
+# head and level forward (g after conv2 and conv4), 2 backward (f before conv1
+# and conv3), 2 heads, 5 levels
+MODEL_AXIS_CALLS = 2 * 2 * 5 * 2
+
+# One rank of phase 15. Group "A" (2 ranks, 1 x 2): (f) cli.train state 0, then
+# MODEL_AXIS_TIMED more micro-steps of (f)'s trainer with the collectives timed
+# between card synchronisations, then (g) cli.train state 1 with the battery.
+# Group "B" (4 ranks, 2 x 2): (h) cli.train state 0 under --zero1, its timed
+# micro-steps, then (i) cli.validate --bic under pallas_fp. Each through its
+# entry point with the process flags; records per micro-step the stem launches
+# and the model group's collectives and gradient gathers, each A-GEM refresh's
+# collectives, the writes into the run roots, the first apply's whole reduced
+# gradient with its inputs, the slices' shapes, the moments and the peaks.
+MODEL_AXIS_CHILD = r"""
+import functools, json, os, sys, time
+rank, world, address, spec_path, group = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                                          sys.argv[4], sys.argv[5])
+with open(spec_path) as f:
+    spec = json.load(f)
+import numpy as np
+import torch
+
+from cl_object_detection_tpu_torch import config as config_mod
+from cl_object_detection_tpu_torch.cli import validate
+from cl_object_detection_tpu_torch.cli.train import main as train_main
+from cl_object_detection_tpu_torch.il import agem as agem_mod
+from cl_object_detection_tpu_torch.ops.nms_fp import nms_fp
+from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
+from cl_object_detection_tpu_torch.parallel import mesh as pm
+from cl_object_detection_tpu_torch.train import step as step_mod
+from cl_object_detection_tpu_torch.train import trainer as trainer_mod
+from cl_object_detection_tpu_torch.utils.checkpoint import host_copy
+
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+proc = ["--coordinator_address", address, "--num_processes", str(world),
+        "--process_id", str(rank)]
+out = os.path.join(spec["out"], group, f"rank{rank}")
+os.makedirs(out)
+stats = pm.model_axis_stats
+rec = {"rank": rank, "steps": [], "refreshes": [], "writes": {"checkpoints": 0, "arrays": 0}}
+first = {}
+run = {"tag": None, "refresh_calls": 0}
+real = dict(run_batch=trainer_mod.ILTrainer.run_batch, reduce=step_mod.all_reduce_grads,
+            rename=os.rename, savez=np.savez, predict_cfg=config_mod.PredictConfig,
+            refresh=agem_mod.AGem.compute_replay_grad)
+
+def snap():
+    return dict(calls=stats.calls, bytes=stats.bytes, coll_s=stats.seconds,
+                gathers=stats.gathers, gather_bytes=stats.gather_bytes,
+                gather_s=stats.gather_seconds)
+
+def since(before):
+    return {k: v - before[k] for k, v in snap().items()}
+
+def run_batch(self, batch, is_replay=False, sync_metrics=True, correction=False):
+    tag = run["tag"]
+    if self.cur_state == 0 and first.get(tag, 0) < 2:
+        if not first.get(tag):
+            torch.save(host_copy(self.model.state_dict()), os.path.join(out, f"{tag}_init.pt"))
+        first[tag] = first.get(tag, 0) + 1
+        real["savez"](os.path.join(out, f"{tag}_batch{first[tag]}.npz"), images=batch.images,
+                      boxes=batch.boxes, labels=batch.labels)
+    before, calls, refreshes, t = stem_fused.launches, snap(), run["refresh_calls"], time.perf_counter()
+    m = real["run_batch"](self, batch, is_replay=is_replay, sync_metrics=sync_metrics,
+                          correction=correction)
+    rec["steps"].append({"run": tag, "state": self.cur_state, "replay": is_replay,
+                         "launches": stem_fused.launches - before, "s": time.perf_counter() - t,
+                         "refresh_calls": run["refresh_calls"] - refreshes, **since(calls)})
+    return m
+
+def all_reduce_grads(mesh, grads):
+    reduced = real["reduce"](mesh, grads)
+    if run["tag"] in ("f", "h") and not first.get(run["tag"] + "_grad"):
+        first[run["tag"] + "_grad"] = True
+        if rank == 0:
+            torch.save(host_copy(reduced), os.path.join(out, f"{run['tag']}_grad.pt"))
+    return reduced
+
+def refresh(self, *args, **kw):
+    before = snap()
+    result = real["refresh"](self, *args, **kw)
+    got = since(before)
+    run["refresh_calls"] += got["calls"]
+    rec["refreshes"].append({"run": run["tag"], "batches": len(self.replay_loader), **got})
+    return result
+
+def counted(kind, fn):
+    def wrapper(*args, **kw):
+        if any(str(args[1] if kind == "checkpoints" else args[0]).startswith(r)
+               for r in spec["roots"]):
+            rec["writes"][kind] += 1
+        return fn(*args, **kw)
+    return wrapper
+
+trainer_mod.ILTrainer.run_batch = run_batch
+step_mod.all_reduce_grads = all_reduce_grads
+agem_mod.AGem.compute_replay_grad = refresh
+os.rename = counted("checkpoints", real["rename"])
+np.savez = counted("arrays", real["savez"])
+
+def train(tag):
+    run["tag"] = tag
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, t0 = len(rec["steps"]), time.perf_counter()
+    tr = train_main(spec[tag] + proc)
+    torch.cuda.synchronize()
+    params = dict(tr.model.named_parameters())
+    rec[tag] = {"s": time.perf_counter() - t0, "epoch_log": tr.epoch_log,
+                "checksums": pm.check_replicas(tr.mesh, tr.model),
+                "loss_hist": list(tr.loss_hist), "mesh": pm.describe(tr.mesh),
+                "backend": tr.mesh.backend, "device": str(tr.device), "shape": tr.mesh.shape,
+                "index": [tr.mesh.data_index, tr.mesh.model_index], "zero1": tr.mesh.zero1,
+                "sharded": tr.optimizer.sharded, "moment_bytes": tr.optimizer.moment_bytes(),
+                "trunk_moments": {n: sum(v.numel() for v in
+                                         tr.optimizer.state.get(params[n], {}).values())
+                                  / (2 * params[n].numel()) for n, _ in spec["slices"]},
+                "slices": {n: list(pm.shard_of(params[n], (pm.head_tp_shard(
+                    n, params[n].shape, tr.mesh.num_model, tr.mesh.model_index),)).shape)
+                           for n, _ in spec["slices"]},
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "steps": [start, len(rec["steps"])]}
+    if tr.cur_state >= 1:
+        rec[tag].update(exemplars=list(tr.dataset_replay.image_ids),
+                        bic=[tr.bic.params.alphas.tolist(), tr.bic.params.betas.tolist()])
+    return tr
+
+def timed_steps(tr, tag):
+    # the collectives of MODEL_AXIS_TIMED more micro-steps, each between two
+    # synchronisations of the card, on the trainer's first batch
+    run["tag"] = tag
+    batch = next(iter(tr.train_loader))
+    stats.sync = True
+    start = len(rec["steps"])
+    try:
+        for _ in range(spec["timed"]):
+            tr.run_batch(batch, sync_metrics=False)
+    finally:
+        stats.sync = False
+    rec[tag] = {"steps": [start, len(rec["steps"])]}
+
+if group == "A":
+    tr = train("f")
+    mesh = tr.mesh
+    timed_steps(tr, "f_timed")
+    del tr
+    torch.cuda.empty_cache()
+    tr = train("g")
+    del tr
+else:
+    tr = train("h")
+    mesh = tr.mesh
+    timed_steps(tr, "h_timed")
+    del tr
+    torch.cuda.empty_cache()
+    run["tag"] = "i"
+    config_mod.PredictConfig = functools.partial(real["predict_cfg"], nms_impl="pallas_fp")
+    nms0, stem0, t0 = nms_fp.launches, stem_fused.launches, time.perf_counter()
+    res = validate.main(spec["i"] + proc)
+    config_mod.PredictConfig = real["predict_cfg"]
+    rec["i"] = {"s": time.perf_counter() - t0, "nms": nms_fp.launches - nms0,
+                "stem": stem_fused.launches - stem0, "map50": res[1].mean_ap50}
+torch.cuda.empty_cache()
+with open(os.path.join(out, "record.json"), "w") as f:
+    json.dump(rec, f)
+pm.barrier(mesh)
+torch.distributed.destroy_process_group()
+print(f"rank {rank}: done", flush=True)
+"""
+
+
+def start_group(tmp: str, spec_path: str, group: str, ranks: int, timeout: float = 600):
+    """Phase 15's ``group`` of ``ranks`` child processes (one process group,
+    a file store in ``tmp``); waits for them, raises if one fails; returns
+    their records and the seconds they took."""
+    import os
+    import subprocess
+
+    child = os.path.join(tmp, "model_axis_child.py")
+    if not os.path.exists(child):
+        with open(child, "w") as f:
+            f.write(MODEL_AXIS_CHILD)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    address = "file://" + os.path.join(tmp, f"model_axis_store_{group}")
+    logs = [open(os.path.join(tmp, f"model_axis_{group}_rank{r}.log"), "w+")
+            for r in range(ranks)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, child, str(r), str(ranks), address, spec_path,
+                               group], cwd=repo, env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(ranks)]
+    try:
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    run_s = time.perf_counter() - t0
+    tails = []
+    for r, lg in enumerate(logs):
+        lg.seek(0)
+        tails.append(lg.read())
+        lg.close()
+        for line in tails[r].splitlines():
+            if line.startswith("mesh:"):
+                log(f"model axis {group} rank {r}: {line}")
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"model axis {group}: rank {r} exited {p.returncode}:\n"
+                                 f"{tails[r][-3000:]}")
+    with open(spec_path) as f:
+        out = json.load(f)["out"]
+    recs = []
+    for r in range(ranks):
+        with open(os.path.join(out, group, f"rank{r}", "record.json")) as f:
+            recs.append(json.load(f))
+    return recs, run_s
+
+
+def model_axis_path(tmp: str, reference: dict, data_axis: dict) -> dict:
+    """Phase 15: the mesh's model axis through ``cli.train`` and
+    ``cli.validate`` with the process flags: (f) state 0 and (g) state 1
+    with the battery on a 1 x 2 mesh, (h) state 0 under ``--zero1`` and (i)
+    ``cli.validate --bic`` under ``pallas_fp`` on a 2 x 2 mesh, checked
+    against one process (module docstring). ``reference`` is phase 14's
+    one-process first apply, from the same weights on the same batches;
+    ``data_axis`` phase 14's record (its moments, printed beside)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "data")
+    root = os.path.join(tmp, "run_mp")
+    root_h = os.path.join(tmp, "run_mp_zero1")
+    paths = ["--train_json", os.path.join(data, "train.json"), "--image_dir",
+             os.path.join(data, "images")]
+    vflags = (["--root_dir", root, "--test_json", os.path.join(data, "test.json"),
+               "--image_dir", os.path.join(data, "images"), "--state", "1", "--epoch", "1",
+               "--threshold", "0.001", "--bic", "true"] + IL_MODEL_FLAGS)
+    spec = dict(roots=[root, root_h], out=os.path.join(tmp, "model_axis"), timed=MODEL_AXIS_TIMED,
+                slices=MODEL_AXIS_SLICES,
+                f=["--root_dir", root] + paths + IL_MODEL_FLAGS + DATA_AXIS_A + MODEL_AXIS_1X2,
+                g=["--root_dir", root] + paths + IL_MODEL_FLAGS + DATA_AXIS_B + MODEL_AXIS_1X2,
+                h=(["--root_dir", root_h] + paths + IL_MODEL_FLAGS + DATA_AXIS_A + MODEL_AXIS_2X2
+                   + ["--zero1", "true"]),
+                i=vflags + MODEL_AXIS_2X2)
+    spec_path = os.path.join(tmp, "model_axis_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    recs_a, run_a = start_group(tmp, spec_path, "A", 2)
+    torch.cuda.empty_cache()
+    recs_b, run_b = start_group(tmp, spec_path, "B", 4)
+    torch.cuda.empty_cache()
+    record = check_model_axis_run(recs_a, recs_b)
+    log(f"model axis: (g)'s exemplar ids {record['exemplars']} and BiC scalars {record['bic']} "
+        f"beside phase 14's (b): {data_axis['exemplars']} and {data_axis['bic']}")
+    out = spec["out"]
+    # (f)'s and (h)'s first apply against one process: the global batch is the
+    # model index 0 ranks' slices in data-index order
+    record["gradient"] = {}
+    for tag, group, data_ranks in (("f", "A", (0,)), ("h", "B", (0, 2))):
+        init = os.path.join(out, group, "rank0", f"{tag}_init.pt")
+        files = [[os.path.join(out, group, f"rank{r}", f"{tag}_batch{k}.npz") for r in data_ranks]
+                 for k in (1, 2)]
+        if not same_start(reference, init, files):
+            raise AssertionError(f"({tag}) did not start from phase 14's weights and batches")
+        record["gradient"][tag] = check_first_apply(
+            f"model axis: ({tag})'s, {len(recs_a if group == 'A' else recs_b)} ranks,",
+            os.path.join(out, group, "rank0", f"{tag}_grad.pt"), reference)
+    record["validate"] = model_axis_validate(root, root_h, data, vflags, recs_b)
+    phase_s = time.perf_counter() - t_phase
+    smi = smi_line()
+    ips = {}
+    for tag, recs in (("f", recs_a), ("g", recs_a), ("h", recs_b)):
+        ep = recs[0][tag]["epoch_log"][-1]
+        ips[tag] = ep["images"] / ep["train_s"]
+    timed = {}
+    for tag, recs in (("f", recs_a), ("h", recs_b)):
+        steps = recs[0]["steps"][slice(*recs[0][tag + "_timed"]["steps"])]
+        gathers = [s for s in steps if s["gathers"]]
+        timed[tag] = dict(
+            coll_ms=sorted(s["coll_s"] * 1e3 for s in steps),
+            calls=[s["calls"] for s in steps], mb=steps[0]["bytes"] / 1e6,
+            gather_ms=sorted(s["gather_s"] * 1e3 / s["gathers"] for s in gathers),
+            gather_mb=gathers[0]["gather_bytes"] / 1e6 / gathers[0]["gathers"],
+            step_ms=sorted(s["s"] * 1e3 for s in steps))
+    how = {t: ("all ranks share one card over gloo, collectives through the host"
+               if r[0][t]["backend"] == "gloo" else "NCCL, one card per rank")
+           for t, r in (("f", recs_a), ("h", recs_b))}
+    log(f"model axis (R50 bf16 640x1024, global B=8; {smi}): (f) 1 x 2 ({how['f']}) "
+        f"{ips['f']:.2f} images/s, (g) state 1 with the battery {ips['g']:.2f}, (h) 2 x 2 "
+        f"under ZeRO-1 ({how['h']}) {ips['h']:.2f} (host clock, loader included; phase 14's "
+        f"(a) {data_axis['images_per_s']['a']:.2f} and (d) {data_axis['images_per_s']['d']:.2f} "
+        f"on 2 ranks of the data axis)")
+    for tag in ("f", "h"):
+        t = timed[tag]
+        log(f"model axis ({tag}) ({smi}): the model group's collectives per micro-step "
+            f"{np.median(t['coll_ms']):.1f} ms median (min {t['coll_ms'][0]:.1f}) for {t['mb']:.1f} MB "
+            f"in {t['calls'][0]} collectives; gradient gather over the model group "
+            f"{np.median(t['gather_ms']):.1f} ms median (min {t['gather_ms'][0]:.1f}) for "
+            f"{t['gather_mb']:.1f} MB; the micro-step with the card synchronised around each "
+            f"collective {np.median(t['step_ms']):.1f} ms")
+    log(f"model axis ({smi}): Adam moments per rank (f) "
+        + ", ".join(f"{r['f']['moment_bytes'] / 1e6:.1f}" for r in recs_a) + " MB, (h) "
+        + ", ".join(f"{r['h']['moment_bytes'] / 1e6:.1f}" for r in recs_b) + " MB (phase 14: (a) "
+        + ", ".join(f"{m:.1f}" for m in data_axis["moment_mb"]["a"]) + ", (d) "
+        + ", ".join(f"{m:.1f}" for m in data_axis["moment_mb"]["d"]) + " MB); peak memory per "
+        "rank (f) " + ", ".join(f"{r['f']['peak_gib']:.2f}" for r in recs_a) + ", (g) "
+        + ", ".join(f"{r['g']['peak_gib']:.2f}" for r in recs_a) + ", (h) "
+        + ", ".join(f"{r['h']['peak_gib']:.2f}" for r in recs_b) + f" GiB; the ranks' runs "
+        f"{run_a:.1f} s (A) and {run_b:.1f} s (B); phase 15 took {phase_s:.1f} s")
+    record.update(images_per_s=ips, timed=timed, route=how, run_s=[run_a, run_b],
+                  moment_mb={"f": [r["f"]["moment_bytes"] / 1e6 for r in recs_a],
+                             "h": [r["h"]["moment_bytes"] / 1e6 for r in recs_b]},
+                  peak_gib={"f": [r["f"]["peak_gib"] for r in recs_a],
+                            "g": [r["g"]["peak_gib"] for r in recs_a],
+                            "h": [r["h"]["peak_gib"] for r in recs_b]},
+                  card=smi, phase_s=phase_s)
+    return record
+
+
+def check_model_axis_run(recs_a, recs_b) -> dict:
+    """Phase 15's checks on the ranks' records (module docstring); returns
+    the phase's record."""
+    import numpy as np
+    import torch
+
+    for group, recs, tags in (("A", recs_a, ("f", "g")), ("B", recs_b, ("h",))):
+        world, shared = len(recs), torch.cuda.device_count() < len(recs)
+        want_backend = "gloo" if shared else "nccl"
+        num_data = world // 2
+        for tag in tags:
+            r0 = recs[0][tag]
+            if {r[tag]["backend"] for r in recs} != {want_backend}:
+                raise AssertionError(f"({tag}): backends {[r[tag]['backend'] for r in recs]}, "
+                                     f"want {want_backend}")
+            if r0["shape"] != {"data": num_data, "model": 2} or [r[tag]["index"] for r in recs] != [
+                    [d, m] for d in range(num_data) for m in range(2)]:
+                raise AssertionError(f"({tag}): mesh {r0['shape']}, places "
+                                     f"{[r[tag]['index'] for r in recs]}")
+            if any(r[tag]["checksums"] != r0["checksums"] for r in recs):
+                raise AssertionError(f"({tag}): the ranks' parameters differ")
+            if any(r[tag]["loss_hist"] != r0["loss_hist"] for r in recs):
+                raise AssertionError(f"({tag}): the ranks' global losses differ")
+            if not np.isfinite(np.asarray(r0["loss_hist"])).all():
+                raise AssertionError(f"({tag}): a loss is not finite")
+            fraction = 0.25 if tag == "h" else 0.5         # (g)'s last optimizer has no step yet
+            for r in recs:
+                if r[tag]["slices"] != {n: shape for n, shape in MODEL_AXIS_SLICES}:
+                    raise AssertionError(f"rank {r['rank']}: slices {r[tag]['slices']}")
+                if tag != "g" and set(r[tag]["trunk_moments"].values()) != {fraction}:
+                    raise AssertionError(f"rank {r['rank']} ({tag}): trunk moments "
+                                         f"{r[tag]['trunk_moments']}, want {fraction} each")
+                steps = r["steps"][slice(*r[tag]["steps"])]
+                want = 2 if tag == "g" else 1
+                if {s["launches"] for s in steps} != {want} or any(s["replay"] for s in steps):
+                    raise AssertionError(f"rank {r['rank']}: stem launches per micro-step "
+                                         f"{sorted({s['launches'] for s in steps})} in ({tag}), "
+                                         f"want {want} (no replay micro-step)")
+                calls = {s["calls"] - s["refresh_calls"] for s in steps}
+                if calls != {MODEL_AXIS_CALLS} or sum(s["gathers"] for s in steps) != len(
+                        steps) // 2:
+                    raise AssertionError(f"rank {r['rank']} ({tag}): collectives per micro-step "
+                                         f"{calls}, want {MODEL_AXIS_CALLS}; gradient gathers "
+                                         f"{sum(s['gathers'] for s in steps)} in {len(steps)} "
+                                         "micro-steps, want one per apply")
+            for r in recs:
+                timed = r["steps"][slice(*r[tag + "_timed"]["steps"])] if tag != "g" else []
+                if any(s["calls"] != MODEL_AXIS_CALLS for s in timed):
+                    raise AssertionError(f"({tag}) timed: collectives {[s['calls'] for s in timed]}")
+        if any(r["writes"] != {"checkpoints": 0, "arrays": 0} for r in recs[1:]) or not recs[0][
+                "writes"]["checkpoints"]:
+            raise AssertionError(f"group {group} writes {[r['writes'] for r in recs]}: only rank 0 "
+                                 "may write")
+    g0 = recs_a[0]["g"]
+    if any(r["g"]["exemplars"] != g0["exemplars"] or r["g"]["bic"] != g0["bic"] for r in recs_a):
+        raise AssertionError("(g): the ranks' exemplar ids or BiC scalars differ")
+    if not g0["exemplars"] or not np.isfinite(np.asarray(g0["bic"])).all():
+        raise AssertionError(f"(g): exemplars {g0['exemplars']}, BiC {g0['bic']}")
+    refreshes = [p for p in recs_a[0]["refreshes"] if p["run"] == "g"]
+    if not refreshes or any(p["calls"] != MODEL_AXIS_CALLS * p["batches"] for p in refreshes):
+        raise AssertionError(f"(g): A-GEM refreshes' collectives "
+                             f"{[(p['calls'], p['batches']) for p in refreshes]}, want "
+                             f"{MODEL_AXIS_CALLS} per replay batch")
+    steps = {t: recs[0][t]["steps"][1] - recs[0][t]["steps"][0]
+             for t, recs in (("f", recs_a), ("g", recs_a), ("h", recs_b))}
+    log(f"model axis: ranks bit-identical after every epoch (checksums of "
+        f"{len(recs_a[0]['g']['checksums'])} tensors), global losses equal; slices "
+        f"{dict(MODEL_AXIS_SLICES)}; trunk moments per rank 1/2 in (f), 1/4 in (h); stem "
+        f"launches per rank per micro-step 1 in (f) and (h), 2 in (g); {MODEL_AXIS_CALLS} "
+        f"collectives of the model group per micro-step and one gradient gather per apply "
+        f"(micro-steps {steps}); A-GEM refreshes {MODEL_AXIS_CALLS} per replay batch; only "
+        f"rank 0 wrote; (g): exemplars {g0['exemplars']}, BiC {g0['bic']}, state-1 losses "
+        f"{min(g0['loss_hist']):.4g}..{max(g0['loss_hist']):.4g}")
+    return dict(micro_steps=steps, exemplars=g0["exemplars"], bic=g0["bic"],
+                backend={t: r[0][t]["backend"] for t, r in (("f", recs_a), ("h", recs_b))},
+                seconds={t: recs[0][t]["s"] for t, recs in (("f", recs_a), ("g", recs_a),
+                                                              ("h", recs_b), ("i", recs_b))})
+
+
+def model_axis_validate(root: str, root_h: str, data: str, vflags, recs) -> dict:
+    """One process's ``cli.validate`` reads (f)'s and (h)'s state-0
+    checkpoints; (i)'s rows equal bit for bit one process's ``cli.validate``
+    of (g)'s checkpoint with ``--bic`` under ``pallas_fp`` in batches of 4
+    (each data rank's share: the same images in the same slots), and each
+    rank launched one NMS and one stem kernel per global batch."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cl_object_detection_tpu_torch import config as config_mod
+    from cl_object_detection_tpu_torch.cli import validate
+
+    read = {}
+    for tag, run in (("f", root), ("h", root_h)):
+        res = validate.main(["--root_dir", run, "--test_json", os.path.join(data, "test.json"),
+                             "--image_dir", os.path.join(data, "images"), "--state", "0",
+                             "--epoch", "1"] + IL_MODEL_FLAGS)
+        read[tag] = res[1].mean_ap50
+        if not np.isfinite(read[tag]):
+            raise AssertionError(f"cli.validate of ({tag})'s checkpoint: mAP not finite")
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    real_pc = config_mod.PredictConfig
+    config_mod.PredictConfig = functools.partial(real_pc, nms_impl="pallas_fp")
+    try:
+        res4 = validate.main(vflags + ["--batch_size", "4", "--new_folder", "true",
+                                       "--specific_folder", "single4"])
+    finally:
+        config_mod.PredictConfig = real_pc
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    out = os.path.join(root, "val_result", "15_5", "state1")
+    rows = {}
+    for tag in ("", "single4"):
+        with open(os.path.join(out, tag, "voc2007_results_epoch1_bic.json")) as f:
+            rows[tag] = json.load(f)
+    same = bool(rows[""]) and rows[""] == rows["single4"]
+    batches = _global_batches(vflags)
+    log(f"model axis: (i) cli.validate --mesh --bic on {len(recs)} ranks (2 x 2, pallas_fp) "
+        f"against one process in batches of 4: {len(rows['single4'])} rows, equal bit for bit: "
+        f"{same}; mAP50 {recs[0]['i']['map50']:.4f} against {res4[1].mean_ap50:.4f}; per rank "
+        f"NMS and stem launches {[(r['i']['nms'], r['i']['stem']) for r in recs]} for "
+        f"{batches} global batches; one process reads (f)'s and (h)'s checkpoints: mAP50 "
+        f"{read['f']:.4f}, {read['h']:.4f}")
+    if not same:
+        raise AssertionError("(i)'s rows differ from one process's")
+    for r in recs:
+        if not r["i"]["nms"] == r["i"]["stem"] == batches:
+            raise AssertionError(f"rank {r['rank']}: (i) launches {r['i']}, want one NMS and "
+                                 f"one stem launch per global batch ({batches})")
+    return dict(rows=len(rows[""]), equal_to_batches_of_4=same, map50=recs[0]["i"]["map50"],
+                readback_map50=read)
 
 
 def trainer_from_flags(argv, override=None):
@@ -4251,7 +4789,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         export = export_path(tmp)
         torch.cuda.empty_cache()
-        data_axis = data_axis_path(tmp)
+        data_axis, reference = data_axis_path(tmp)
+        torch.cuda.empty_cache()
+        model_axis = model_axis_path(tmp, reference, data_axis)
+        del reference
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4269,6 +4810,7 @@ def main() -> int:
     log(json.dumps({"il_battery": il_battery}))
     log(json.dumps({"export": export, "operator_overhead_us": overhead}))
     log(json.dumps({"data_axis": data_axis}))
+    log(json.dumps({"model_axis": model_axis}))
     log(f"predict B=32 images/s: float {ips['float']:.2f}, int8 {ips['int8']:.2f} (before the "
         f"kernels became torch.library operators: 464.67 and 225.81 on an H100 80GB HBM3 at "
         f"700 W); the operators add {overhead['int8_matmul']['added_us']:.1f} us of host time "

@@ -1,13 +1,14 @@
 """Shared CLI plumbing (the JAX package's ``cli/common.py``): the same
 flags -> TrainConfig for ``cli.train`` and ``cli.validate``. ``--cpu``
-selects the CPU device in place of the JAX backend switch; flags for
-what the port does not have yet parse, and ``refuse_unported`` refuses
-them naming the ROADMAP item. ``start_ranks`` puts a ``--mesh`` run on
-the data axis (``parallel/mesh.py``): with the process flags
-(``--coordinator_address host:port --num_processes N --process_id r``)
-this process is one rank of N; under ``torchrun`` its environment says
-which; otherwise ``--mesh true`` starts one rank per visible device
-(``--num_data`` of them on the CPU with ``--cpu``) and waits for them."""
+selects the CPU device in place of the JAX backend switch.
+``start_ranks`` puts a ``--mesh`` run on the mesh (``parallel/mesh.py``):
+with the process flags (``--coordinator_address host:port --num_processes
+N --process_id r``) this process is one rank of N; under ``torchrun`` its
+environment says which; otherwise ``--mesh true`` starts ``num_data x
+num_model`` ranks, one per visible device (``--num_data`` defaults to the
+cards // ``--num_model``; on the CPU with ``--cpu``, to 1) and waits for
+them. Without ``--mesh`` (or the process flags) ``--num_model`` is
+ignored, as JAX's ``MeshConfig(enabled=False)`` ignores it."""
 from __future__ import annotations
 
 import argparse
@@ -192,23 +193,25 @@ def add_train_flags(parser: argparse.ArgumentParser) -> None:
     p.add_argument("--max_side", type=int, default=None,
                    help="resize max-side cap (default: image_width)")
     p.add_argument("--seed", type=int, default=0)
-    # parallelism: the mesh's data axis and ZeRO-1 (parallel/mesh.py); the
-    # model axis is refused (ROADMAP §1 item 6b)
+    # parallelism: the mesh's data and model axes and ZeRO-1 (parallel/mesh.py)
     p.add_argument("--mesh", type=str2bool, default=False,
-                   help="data-parallel over ranks, one per device (NCCL when each has "
-                        "a card, gloo on the CPU or on a shared card)")
+                   help="data- (and with --num_model, head-tensor-) parallel over ranks, "
+                        "one per device (NCCL when each has a card, gloo on the CPU or on "
+                        "a shared card)")
     p.add_argument("--num_model", type=int, default=1,
-                   help="model-axis size; only 1 is ported (others are refused)")
+                   help="with --mesh: model-axis size, the head trunks' convs split over "
+                        "its ranks (fpn_channels must divide by it)")
     p.add_argument("--num_data", type=int, default=-1,
-                   help="data-axis size (-1: one rank per visible device; with --cpu "
-                        "the number of CPU ranks)")
+                   help="data-axis size (-1: the visible devices // --num_model; with "
+                        "--cpu, 1)")
     p.add_argument("--zero1", type=str2bool, default=False,
                    help="with --mesh: shard the Adam moments over the data axis (each "
-                        "rank updates its slices, then an all-gather); a no-op on one "
-                        "rank; cli.validate ignores it")
+                        "rank updates its blocks, then an all-gather); a no-op without a "
+                        "data axis; cli.validate ignores it")
     p.add_argument("--coordinator_address", default=None,
-                   help="host:port of rank 0's rendezvous: this process is rank "
-                        "--process_id of --num_processes")
+                   help="host:port of rank 0's rendezvous (or a file:// URL of a store "
+                        "that every rank reaches): this process is rank --process_id of "
+                        "--num_processes")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--just_train_classifier", type=str2bool, default=False,
@@ -225,27 +228,27 @@ def uses_mesh(a: argparse.Namespace) -> bool:
     return bool(a.mesh or a.coordinator_address or (a.num_processes or 1) > 1)
 
 
-def refuse_unported(parser: argparse.ArgumentParser, a: argparse.Namespace) -> None:
-    """``parser.error`` for a flag whose feature the port lacks, naming
-    the ROADMAP item that ports it."""
-    if a.num_model != 1:
-        parser.error("the model axis (--num_model != 1) is not ported yet: "
-                     "ROADMAP §1 item 6b")
-
-
-def _run_rank(rank: int, entry, argv: List[str], nprocs: int, address: str) -> None:
+def _run_rank(rank: int, entry, argv: List[str], nprocs: int, address: str,
+              threads: int) -> None:
+    os.environ["OMP_NUM_THREADS"] = str(threads)     # init_distributed divides it
     entry(list(argv) + ["--coordinator_address", address, "--num_processes", str(nprocs),
                         "--process_id", str(rank)])
 
 
 def start_ranks(a: argparse.Namespace, entry, argv: Optional[List[str]]):
-    """This process's device, after joining the data axis's process
-    group when the run has several ranks; or None when this process
-    started the ranks itself (``--mesh true`` with no process flags,
-    outside ``torchrun``), ran ``entry(argv + process flags)`` in each
-    and waited for them (the first that raises ends the others, and the
-    error is raised here)."""
+    """This process's device, after joining the mesh's process group when
+    the run has several ranks; or None when this process started the ranks
+    itself (``--mesh true`` with no process flags, outside ``torchrun``),
+    ran ``entry(argv + process flags)`` in each and waited for them (the
+    first that raises ends the others, and the error is raised here). The
+    ranks it starts meet through a file store in a temporary directory of
+    this process's, which no other process can take from them (a TCP port
+    picked free could be taken before rank 0 binds it), and share this
+    process's torch threads (as ``OMP_NUM_THREADS``, which
+    ``parallel.mesh.init_distributed`` divides among a host's CPU ranks)."""
+    import shutil
     import sys
+    import tempfile
 
     import torch
 
@@ -253,22 +256,28 @@ def start_ranks(a: argparse.Namespace, entry, argv: Optional[List[str]]):
 
     torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     if a.mesh and not a.coordinator_address and not torchrun:
+        num_model = max(1, a.num_model)
         if a.cpu:
-            n = a.num_data if a.num_data > 0 else 1
+            n = (a.num_data if a.num_data > 0 else 1) * num_model
         else:
             from .. import resolve_device
 
             resolve_device(None)                 # raises without CUDA
             cards = torch.cuda.device_count()
-            n = a.num_data if a.num_data > 0 else cards
+            n = (a.num_data if a.num_data > 0 else cards // num_model) * num_model
             if n > cards:
-                raise RuntimeError(f"--num_data {n} ranks but {cards} CUDA device(s): a "
-                                   "rank would have no device of its own")
+                raise RuntimeError(f"{n} ranks (--num_data x --num_model) but {cards} CUDA "
+                                   "device(s): a rank would have no device of its own")
         if n > 1:
             argv = list(sys.argv[1:] if argv is None else argv)
-            address = f"127.0.0.1:{pmesh.free_port()}"
+            folder = tempfile.mkdtemp(prefix="mesh_rendezvous_")
+            address = f"file://{os.path.join(folder, 'store')}"
             print(f"mesh: starting {n} ranks (rendezvous {address})", flush=True)
-            pmesh.spawn_ranks(_run_rank, n, (entry, argv, n, address))
+            try:
+                pmesh.spawn_ranks(_run_rank, n, (entry, argv, n, address,
+                                                 torch.get_num_threads()))
+            finally:
+                shutil.rmtree(folder, ignore_errors=True)
             return None
     return pmesh.init_distributed(a.coordinator_address, a.num_processes, a.process_id,
                                   cpu=a.cpu)

@@ -18,24 +18,29 @@ checkpoint); ``--val true`` then validates the last epoch
 (``cli.validate.run_validation``, with the checkpoint's BiC correction
 under ``--bic true``). ``main`` returns the trainer.
 
-The mesh's data axis (``cli/common.start_ranks``, ``parallel/mesh.py``):
+The mesh (``cli/common.start_ranks``, ``parallel/mesh.py``):
 
     # one rank per visible card (or --num_data N CPU ranks with --cpu)
     python -m cl_object_detection_tpu_torch.cli.train ... --mesh true
+    # a num_data x num_model mesh: the head trunks split over --num_model ranks
+    python -m cl_object_detection_tpu_torch.cli.train ... --mesh true --num_data 2 --num_model 2
     # or each rank started by hand (two on one card share it over gloo)
     python -m cl_object_detection_tpu_torch.cli.train ... --mesh true \
         --coordinator_address 127.0.0.1:29500 --num_processes 2 --process_id 0
     # or under torchrun
     torchrun --nproc_per_node 2 -m cl_object_detection_tpu_torch.cli.train ... --mesh true
 
-Every rank trains its slice of each global batch (``--batch_size`` is the
-global size); rank 0 writes the checkpoints, ``params.json`` and the
-records. When ``main`` started the ranks itself it returns None.
-``--zero1 true`` shards the Adam moments over the ranks (ZeRO-1,
-``train/optim.py``): each rank updates its slices and an all-gather
-reassembles the parameters; the checkpoints are bit for bit those of the
-same run without it. On one rank it is a no-op. ``--num_model`` other
-than 1 is refused naming ROADMAP §1 item 6b.
+Every rank trains its data index's slice of each global batch
+(``--batch_size`` is the global size and must divide by ``num_data``);
+with ``--num_model`` the ranks of one data index split the head trunks'
+convs (column- and row-parallel, JAX's ``head_tp_spec``) and keep their
+blocks of those leaves' Adam moments; rank 0 writes the checkpoints,
+``params.json`` and the records. When ``main`` started the ranks itself it
+returns None. ``--zero1 true`` also shards the Adam moments over the data
+axis (ZeRO-1, ``train/optim.py``): each rank updates its blocks and an
+all-gather reassembles the parameters; the checkpoints are bit for bit
+those of the same mesh without it. Without a data axis it is a no-op.
+Without ``--mesh`` ``--num_model`` is ignored.
 """
 from __future__ import annotations
 
@@ -47,11 +52,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     from .common import (add_train_flags, args_to_config, print_il_info,
-                         refuse_unported, resolve_dataset_paths, start_ranks)
+                         resolve_dataset_paths, start_ranks)
 
     add_train_flags(parser)
     a = parser.parse_args(argv)
-    refuse_unported(parser, a)
     cfg = args_to_config(a)
 
     import torch

@@ -20,13 +20,14 @@ state is predicted uncorrected and written without the suffix, and
 ``--torch_ckpt`` (no meta) ignores the flag with a warning.
 
 ``--mesh true`` (and the process flags, or ``torchrun``, as for
-``cli.train``) predicts on the mesh's data axis: each rank predicts its
-slice of every batch (``Evaluator`` with ``mesh=``, ``--bic`` and
-``--quantize`` included), the rows are gathered, and rank 0 scores them
-and writes every output; every rank returns rank 0's results. The batch
-size must divide by the rank count. ``--zero1`` is accepted and ignored
-(there is no optimizer), as in JAX; ``--num_model`` other than 1 is
-refused naming ROADMAP §1 item 6b.
+``cli.train``) predicts on the mesh: the batch splits over the data axis
+only, as JAX's ``cli/validate.py`` shards it; each rank predicts its data
+index's slice of every batch on whole weights (``Evaluator`` with
+``mesh=``, ``--bic`` and ``--quantize`` included), so the ranks of a
+model group predict the same slice and only model index 0's rows are
+gathered; rank 0 scores them and writes every output; every rank returns
+rank 0's results. The batch size must divide by ``num_data``. ``--zero1``
+is accepted and ignored (there is no optimizer), as in JAX.
 """
 from __future__ import annotations
 
@@ -97,9 +98,9 @@ def run_validation(a, state: Optional[int] = None, epochs: Optional[List[int]] =
     mesh = (pmesh.create_mesh(dataclasses.replace(cfg.mesh, zero1=False), device)
             if cfg.mesh.enabled else None)
     if mesh is not None:
-        if cfg.data.batch_size % mesh.world:
+        if cfg.data.batch_size % mesh.num_data:
             raise SystemExit(f"--mesh: batch_size {cfg.data.batch_size} not divisible by "
-                             f"the data axis ({mesh.world})")
+                             f"the data axis ({mesh.num_data})")
         print(pmesh.describe(mesh))
     primary = pmesh.is_primary(mesh)
     state = state if state is not None else getattr(a, "state", 0)
@@ -322,11 +323,10 @@ def _write_hparams_summary(a, cfg, state: int, results) -> None:
 
 
 def main(argv=None):
-    from .common import refuse_unported, start_ranks
+    from .common import start_ranks
 
     parser = get_parser()
     a = parser.parse_args(argv)
-    refuse_unported(parser, a)
     device = start_ranks(a, main, argv)
     if device is None:
         return None

@@ -233,19 +233,23 @@ class ILConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout of multi-device training. The port has the data
-    axis (``parallel/mesh.py``): one process per device on
-    ``torch.distributed``, every batch split over the ranks, the global
-    batch's gradient all-reduced. ``enabled=True`` makes the trainer, the
-    IL tools and the evaluator run on the ranks of the process group
-    (one rank when there is none); batch sizes (train and replay) must be
-    multiples of the rank count. ``zero1`` shards the Adam moments over
-    the ranks (ZeRO-1, ``train/optim.py``; a no-op on one rank).
-    ``num_model > 1`` raises (ROADMAP §1 item 6b)."""
+    """Device-mesh layout of multi-device training (``parallel/mesh.py``):
+    one process per device on ``torch.distributed``, the ranks a
+    ``num_data x num_model`` grid in JAX's row-major order. Every batch
+    splits over the data axis and the global batch's gradient is
+    all-reduced over it; ``num_model > 1`` splits the head trunks' 3x3
+    convs over the model axis (JAX's ``head_tp_spec``: column- and
+    row-parallel). ``enabled=True`` makes the trainer, the IL tools and the
+    evaluator run on the ranks of the process group (one rank when there
+    is none); batch sizes (train and replay) must be multiples of
+    ``num_data`` and ``fpn_channels`` of ``num_model``. ``zero1`` also
+    shards the Adam moments over the data axis (ZeRO-1,
+    ``train/optim.py``; a no-op without one). With ``enabled=False`` the
+    other fields are ignored."""
     enabled: bool = False
     data_axis: str = "data"
     model_axis: str = "model"
-    num_data: int = -1                 # -1: all devices on the data axis
+    num_data: int = -1                 # -1: the devices // num_model
     num_model: int = 1
     zero1: bool = False                # shard the Adam moments over data
 

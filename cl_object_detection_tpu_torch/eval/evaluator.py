@@ -7,13 +7,15 @@ augmentation, short groups wrap-filled); each batch goes to the model's
 device and through ``make_predict_fn``. Where the JAX package takes
 ``(model, variables)``, the port takes a model (its weights live in it).
 
-One loop serves one process and the mesh's data axis (``mesh=``, the
-model on this rank's device): each rank decodes and predicts its slice of
-every batch (the counterpart of the JAX package's
-``make_sharded_predict_fn``: detection is per image, so the predict needs
-no collective); the rows, tagged by (batch, global slot), are gathered on
-every rank with ``all_gather_object`` (the identity for one process) and
-deduplicated in batch and slot order, so the rows equal one process's.
+One loop serves one process and the mesh (``mesh=``, the model on this
+rank's device): each rank decodes and predicts its data index's slice of
+every batch on whole weights (the counterpart of the JAX package's
+``make_sharded_predict_fn``, the batch split over the data axis only:
+detection is per image, so the predict needs no collective); the rows of
+model index 0's ranks (the other ranks of a model group predict the same
+slice), tagged by (batch, global slot), are gathered on every rank with
+``all_gather_object`` (the identity for one process) and deduplicated in
+batch and slot order, so the rows equal one process's.
 The COCO protocol (``evaluate``) needs no collective; ``cli.validate``
 runs it on rank 0.
 """
@@ -113,6 +115,8 @@ class Evaluator:
                        for key, fn in fns.items()}
             for j, img_id in enumerate(batch.image_ids.tolist()):
                 mine.append((b, lo + j, img_id, {k: v[j] for k, v in per_key.items()}))
+        if mesh is not None and mesh.model_index:
+            mine = []                   # the model group's rows come from its model index 0
         entries = sorted((e for rank_rows in all_gather_object(mesh, mine) for e in rank_rows),
                          key=lambda e: e[:2])
         seen: set = set()

@@ -17,7 +17,11 @@ On the mesh's data axis (``mesh=``) the replay loader gives each rank its
 slice of every replay batch; the losses are the global batch's shares
 (``il.losses``) and each batch's gradient is all-reduced BEFORE its clip,
 so that the clip sees the global batch's gradient, as under JAX's mesh,
-and every rank holds the same replay gradient.
+and every rank holds the same replay gradient. On the model axis the loss
+runs the student's head trunks split, as the train step runs them
+(``models.heads.head_parallel``), and the slices' gradients are joined
+over the model group (``parallel.mesh.gather_model_grads``) before that
+all-reduce, which then averages over every rank.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ import torch
 
 from ..config import FocalConfig, ILConfig
 from ..data.loader import put_step_batch
-from ..parallel.mesh import all_reduce_grads
+from ..models.heads import head_parallel
+from ..parallel.mesh import all_reduce_grads, gather_model_grads
 from .losses import LossStatics, compute_losses
 
 Grads = Dict[str, torch.Tensor]
@@ -61,12 +66,13 @@ class AGem:
     def _grad_step(self, model, anchors, images, boxes, labels) -> Grads:
         """The clipped gradient of one replay batch's plain loss."""
         names, params = zip(*model.named_parameters())
-        with torch.enable_grad():
+        with torch.enable_grad(), head_parallel(model, self.mesh):
             total, _ = compute_losses(model, images, boxes, labels, anchors, self.il_cfg,
                                       self.focal_cfg, self.statics, mesh=self.mesh)
             grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        grads = list(all_reduce_grads(self.mesh, dict(zip(names, grads))).values())
+        grads = dict(zip(names, grads))
+        grads = list(all_reduce_grads(self.mesh, gather_model_grads(self.mesh, grads)).values())
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         scale = torch.clamp(0.1 / torch.clamp(norm, min=1e-6), max=1.0)
         return dict(zip(names, torch._foreach_mul(grads, scale)))

@@ -40,10 +40,11 @@ JAX package's (``cls_bg_loss``, ``cls_fg_loss``, ``reg_loss``,
     the scores are ``sigmoid(bic_correct(logits))``; on the incremental
     path the logits are corrected before the sigmoid.
 
-On the mesh's data axis (``mesh=``, W > 1 ranks, each holding its slice
-of the global batch) every term is this rank's share of the GLOBAL
-batch's, so that the mean over the ranks of the terms, and of their
-gradients, is the global batch's, as under JAX's mesh:
+On the mesh's data axis (``mesh=``, W = ``num_data`` > 1 ranks in each
+data group, each holding its slice of the global batch; the ranks of a
+model group hold the same slice) every term is this rank's share of the
+GLOBAL batch's, so that the mean over the data group of the terms, and of
+their gradients, is the global batch's, as under JAX's mesh:
   * per-image means (``fg``, ``bg``, ``reg``, the cosine feature loss, a
     mean over B*H*W) average correctly over equal slices as they stand;
   * terms normalised by a count over the batch (``_masked_mean``:
@@ -66,7 +67,7 @@ import torch
 
 from ..config import FocalConfig, ILConfig
 from ..ops.focal_loss import focal_loss
-from ..parallel.mesh import DataMesh, active, all_reduce_sum
+from ..parallel.mesh import DataMesh, all_reduce_sum, data_active
 from .prototype import prototype_loss_from_batch
 
 
@@ -93,11 +94,12 @@ class LossStatics:
 
 
 def _global_ratio(total: torch.Tensor, cnt: torch.Tensor, mesh: Optional[DataMesh]):
-    """(numerator, count) of a batch-normalised term: on the mesh, W *
-    the local sum and the global count (no gradient through it)."""
-    if not active(mesh):
+    """(numerator, count) of a batch-normalised term: on the mesh's data
+    axis, W * the local sum and the global count (no gradient through it),
+    W the data axis's size and the count summed over the data group."""
+    if not data_active(mesh):
         return total, cnt
-    return total * mesh.world, all_reduce_sum(mesh, cnt)
+    return total * mesh.num_data, all_reduce_sum(mesh, cnt)
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor,
@@ -300,7 +302,7 @@ def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILC
     result["reg_loss"] = out.reg_loss.mean()
     if s.use_enhance_on_new:
         e = out.enhance_on_new_loss        # a sum over the batch
-        result["enhance_on_new_loss"] = e * mesh.world if active(mesh) else e
+        result["enhance_on_new_loss"] = e * mesh.num_data if data_active(mesh) else e
     if use_prototype:
         result["prototype_loss"] = prototype_loss_from_batch(
             unfolded, ~out.bg_mask, out.pos_label, prototype_features,

@@ -16,7 +16,7 @@ Each batch is one forward and one ``torch.autograd.grad`` under grad
 under inference mode would break its backward), on the model's device;
 the gradients land in fresh tensors, not in the parameters' ``.grad``
 (the train step's accumulator). The importance is a dict keyed by the
-port's parameter names. On the mesh's data axis (``mesh=``) each rank sums
+port's parameter names. On the mesh (``mesh=``) each rank of every axis sums
 |grad| over its whole batches of the loader (round robin) on its device;
 one flat float32 all-reduce adds the ranks' sums (the same bits on every
 rank), divided by the global batch count. The order of the sum differs
@@ -101,8 +101,9 @@ def compute_importance(model: torch.nn.Module, anchors: Union[np.ndarray, Callab
         g = step(*args)
         torch._foreach_add_(list(acc.values()), [g[k] for k in acc])
         n += 1
-    acc = all_reduce_sums(mesh, acc)
-    n = int(all_reduce_sum(mesh, torch.tensor(float(n))))
+    # the pass's batches are split over every rank of the mesh
+    acc = all_reduce_sums(mesh, acc, axis="world")
+    n = int(all_reduce_sum(mesh, torch.tensor(float(n)), axis="world"))
     if n:
         torch._foreach_div_(list(acc.values()), float(n))
     mask = importance_mask(params)

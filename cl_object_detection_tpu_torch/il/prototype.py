@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import positive_assignment
-from ..parallel.mesh import (active, all_reduce_sum, batch_global, gather_batches,
+from ..parallel.mesh import (all_reduce_sum, batch_global, data_active, gather_batches,
                              pass_loader)
 
 
@@ -133,7 +133,7 @@ def prototype_loss_from_batch(
     sums = (onehot.reshape(b * cells, -1).T @ unfolded.reshape(b * cells, d)) \
         .reshape(num_anchors, num_new_class, d).transpose(0, 1)    # (K, 9, D)
     counts = onehot.sum(dim=(0, 1)).T                              # (K, 9)
-    if active(mesh):
+    if data_active(mesh):
         sums = sums + (all_reduce_sum(mesh, sums) - sums.detach())
         counts = all_reduce_sum(mesh, counts)
     cur = (sums / torch.clamp(counts[..., None], min=1.0)).mean(dim=1)   # (K, D)

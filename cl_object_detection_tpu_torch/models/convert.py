@@ -218,8 +218,8 @@ def load_reference_optimizer(model: torch.nn.Module, optimizer: torch.optim.Opti
 
     torch ``exp_avg``/``exp_avg_sq`` -> ``mu``/``nu`` (the same Adam),
     the largest ``step`` -> each group's ``count``; parameters the file
-    holds no moments for start from zeros, as fresh Adam does. Under
-    ZeRO-1 each rank keeps its slices of the whole moments. Returns
+    holds no moments for start from zeros, as fresh Adam does. On the
+    mesh each rank keeps its blocks of the whole moments. Returns
     ``{"step", "last_lr", "loaded", "skipped"}``. Raises ValueError if
     the file has no ``optimizer_state_dict``."""
     ckp = _torch_load(path, allow_pickle)
@@ -252,7 +252,7 @@ def load_reference_optimizer(model: torch.nn.Module, optimizer: torch.optim.Opti
     for group in optimizer.param_groups:
         group["count"] = count
         for p in group["params"]:
-            # whole moments in, this rank's slices kept under ZeRO-1
+            # whole moments in, this rank's blocks kept on the mesh
             optimizer.set_moments(p, **moments[name_of[id(p)]])
     last_lr = None
     sched = ckp.get("scheduler_state_dict")

@@ -73,9 +73,23 @@ class Conv(nn.Module):
             convs, run = override
             if self in convs:
                 return run(self, x)
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
-                        self.stride, self.padding)
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding, self.dtype)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+           stride: int, padding: int, dtype: torch.dtype) -> torch.Tensor:
+    """``F.conv2d`` of ``x``, ``weight`` and ``bias`` cast to ``dtype``. On
+    the CPU in bfloat16 under grad, a strided conv over a 1x1 input runs in
+    float32 and rounds its output to bfloat16: PyTorch's CPU bfloat16
+    kernel gives that conv a wrong weight gradient (it reads uninitialized
+    memory; ``fpn.p7`` on frames of 64 pixels, where P6 is 1x1)."""
+    x, w = x.to(dtype), weight.to(dtype)
+    b = None if bias is None else bias.to(dtype)
+    if (dtype == torch.bfloat16 and x.device.type == "cpu" and torch.is_grad_enabled()
+            and stride > 1 and tuple(x.shape[-2:]) == (1, 1)):
+        return F.conv2d(x.float(), w.float(), None if b is None else b.float(), stride,
+                        padding).to(dtype)
+    return F.conv2d(x, w, b, stride, padding)
 
 
 class FrozenBN(nn.Module):

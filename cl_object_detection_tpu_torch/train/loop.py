@@ -27,12 +27,12 @@ waited for the loader, the loader's own mean seconds per batch (in its
 thread), the BiC epoch's seconds, and the checkpoint save's blocking
 seconds.
 
-On the mesh's data axis every rank runs this loop over its slices of the
+On the mesh every rank runs this loop over its data index's slices of the
 same batches; the metrics are the global batch's, so ``loss_hist`` (and a
-resume) is the same whatever the rank count. Rank 0 prints and records;
-after every epoch ``parallel.mesh.check_replicas`` raises if the ranks'
-parameters parted (under ZeRO-1 too: the all-gather after every update
-must leave them bit-identical).
+resume) is the same whatever the mesh. Rank 0 prints and records; after
+every epoch ``parallel.mesh.check_replicas`` raises if any rank's (whole)
+parameters parted from rank 0's (on the model axis and under ZeRO-1 too:
+the all-gather after every update must leave them bit-identical).
 """
 from __future__ import annotations
 

@@ -25,23 +25,27 @@ No clipping here and no accumulation: the train step owns both
 (``train/step.py``), as the JAX trainer builds its optimizer with
 ``use_clip=False``.
 
-ZeRO-1 (``make_optimizer`` with a mesh whose ``zero1`` is on, JAX's
-``zero1_extend_spec`` and ``make_param_constraint``): a shard plan
-(``parallel.mesh.zero1_plan``) names this rank's slice of every leaf it
-splits. The rank keeps ``mu`` and ``nu`` of its slices only (whole ones
-for the leaves that stay whole), runs the same arithmetic on contiguous
-copies of its slices of the gradient and the parameter (Adam is
-elementwise, so those bits equal the whole update's), writes them back,
-and ``parallel.mesh.param_all_gather`` reassembles every parameter from
-the ranks' slices. The groups' ``count``, LR and betas stay on every
-rank. ``state_dict`` gathers whole moments (a collective every rank
-calls), so a checkpoint written under ZeRO-1 is bit-identical to one
-written without it and loads at any rank count; ``load_state_dict`` and
-``set_moments`` keep this rank's slices of whole moments.
+The mesh's blocks (``make_optimizer`` with a mesh whose model axis has
+several ranks or whose ``zero1`` is on; JAX's ``shard_train_state``,
+``zero1_extend_spec`` and ``make_param_constraint``): a shard plan per rank
+(``parallel.mesh.shard_plans``) names each rank's block of every leaf it
+splits: the model axis's slice of a head-trunk conv (``head_tp_shard``),
+then, under ZeRO-1, the data axis's slice of a free dim (``zero1_shard``).
+The rank keeps ``mu`` and ``nu`` of its blocks only (whole ones for the
+leaves that stay whole), runs the same arithmetic on contiguous copies of
+its blocks of the gradient and the parameter (Adam is elementwise, so
+those bits equal the whole update's), writes them back, and
+``parallel.mesh.param_all_gather`` reassembles every parameter from the
+ranks' blocks. The groups' ``count``, LR and betas stay on every rank.
+``state_dict`` gathers whole moments (a collective every rank calls), so a
+checkpoint written on any mesh is bit-identical to one written in one
+process from the same gradients and loads on any mesh;
+``load_state_dict`` and ``set_moments`` keep this rank's blocks of whole
+moments.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,19 +66,21 @@ def param_labels(model: torch.nn.Module) -> Dict[str, str]:
 class Adam(torch.optim.Optimizer):
     """optax's Adam with injected ``lr``, ``b1`` and ``b2`` per group and
     a step ``count`` per group (module docstring). State per parameter:
-    ``mu`` and ``nu``, of this rank's slice under a shard plan.
+    ``mu`` and ``nu``, of this rank's block under a shard plan.
 
-    ``names`` maps every parameter to its name; ``plan`` (by name,
-    ``parallel.mesh.zero1_plan``) and ``mesh`` turn on ZeRO-1."""
+    ``names`` maps every parameter to its name; ``plans`` (every rank's,
+    by name, ``parallel.mesh.shard_plans``) and ``mesh`` split the
+    moments."""
 
     def __init__(self, param_groups, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
                  names: Optional[Mapping[torch.Tensor, str]] = None,
-                 plan: Optional[Mapping[str, Optional[pmesh.Shard]]] = None,
+                 plans: Optional[Sequence[Mapping[str, Optional[pmesh.Shard]]]] = None,
                  mesh: Optional[pmesh.DataMesh] = None):
         super().__init__(param_groups, dict(lr=lr, betas=betas, eps=eps, count=0))
         self.mesh = mesh
         self._names = dict(names or {})
-        plan = plan or {}
+        self._plans = list(plans or [{}])
+        plan = self._plans[mesh.rank if len(self._plans) > 1 else 0]
         self._shards = {p: plan.get(self._names.get(p)) for g in self.param_groups
                         for p in g["params"]}
         self.sharded = any(s is not None for s in self._shards.values())
@@ -83,20 +89,20 @@ class Adam(torch.optim.Optimizer):
         return self._shards.get(p)
 
     def _own(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """A contiguous copy of this rank's slice of ``t`` (shaped like
+        """A contiguous copy of this rank's block of ``t`` (shaped like
         ``p``); ``t`` itself for a whole leaf."""
         shard = self._shard(p)
         return t if shard is None else pmesh.shard_of(t, shard).contiguous()
 
     def moment_bytes(self) -> int:
-        """Bytes of ``mu`` and ``nu`` this rank keeps (of its slices under
-        ZeRO-1), whether or not a step has made them yet."""
+        """Bytes of ``mu`` and ``nu`` this rank keeps (of its blocks on the
+        mesh), whether or not a step has made them yet."""
         return sum(2 * pmesh.shard_of(p, s).numel() * p.element_size()
                    for p, s in self._shards.items())
 
     def set_moments(self, p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor) -> None:
         """Set ``p``'s moments from whole ``mu`` and ``nu`` (this rank's
-        slices of them under ZeRO-1), on ``p``'s device."""
+        blocks of them on the mesh), on ``p``'s device."""
         self.state[p] = {k: self._own(p, v.to(p.device, torch.float32)).clone()
                          for k, v in (("mu", mu), ("nu", nu))}
 
@@ -140,19 +146,20 @@ class Adam(torch.optim.Optimizer):
                 if t is not p:
                     pmesh.shard_of(p, self._shard(p)).copy_(t)
         if self.sharded:
-            plan = {self._names[p]: s for p, s in self._shards.items()}
-            pmesh.param_all_gather(self.mesh, {self._names[p]: p for p in self._shards}, plan)
+            pmesh.param_all_gather(self.mesh, {self._names[p]: p for p in self._shards},
+                                   self._plans)
 
     def state_dict(self):
-        """torch's optimizer state dict with whole moments: under ZeRO-1 a
-        collective (every rank calls it) that gathers the ranks' slices."""
+        """torch's optimizer state dict with whole moments: on the mesh a
+        collective (every rank calls it) that gathers the ranks' blocks."""
         sd = super().state_dict()
         if not self.sharded:
             return sd
         order = [p for g in self.param_groups for p in g["params"]]
         keys = [(i, k) for i, p in enumerate(order) if i in sd["state"]
                 and self._shard(p) is not None for k in ("mu", "nu")]
-        pieces = [(sd["state"][i][k], order[i].shape, self._shard(order[i])) for i, k in keys]
+        pieces = [(sd["state"][i][k], order[i].shape,
+                   [plan[self._names[order[i]]] for plan in self._plans]) for i, k in keys]
         whole = pmesh.gather_shards(self.mesh, pieces) if pieces else []
         state = {i: dict(st) for i, st in sd["state"].items()}
         for (i, k), w in zip(keys, whole):
@@ -160,7 +167,7 @@ class Adam(torch.optim.Optimizer):
         return {"state": state, "param_groups": sd["param_groups"]}
 
     def load_state_dict(self, state_dict) -> None:
-        """torch's, then this rank's slices of the whole moments."""
+        """torch's, then this rank's blocks of the whole moments."""
         super().load_state_dict(state_dict)
         for p, st in list(self.state.items()):
             if self._shard(p) is not None and "mu" in st:
@@ -170,8 +177,8 @@ class Adam(torch.optim.Optimizer):
 def make_optimizer(cfg: ScheduleConfig, model: torch.nn.Module,
                    mesh: Optional[pmesh.DataMesh] = None) -> Adam:
     """Adam over ``model``'s parameters in the two groups, each group
-    carrying its ``name``; with ZeRO-1 on ``mesh``, over this rank's
-    slices of the moments (module docstring)."""
+    carrying its ``name``; on ``mesh`` (a model axis, or ZeRO-1), over this
+    rank's blocks of the moments (module docstring)."""
     labels = param_labels(model)
     groups = []
     for name, lr in (("backbone", cfg.lr), ("output", cfg.lr * cfg.classifier_lr_scale)):
@@ -179,7 +186,7 @@ def make_optimizer(cfg: ScheduleConfig, model: torch.nn.Module,
         groups.append({"name": name, "params": params, "lr": lr})
     named = list(model.named_parameters())
     return Adam(groups, lr=cfg.lr, betas=(cfg.beta1, cfg.beta2),
-                names={p: n for n, p in named}, plan=pmesh.zero1_plan(mesh, named), mesh=mesh)
+                names={p: n for n, p in named}, plans=pmesh.shard_plans(mesh, named), mesh=mesh)
 
 
 def lr_at_epoch(cfg: ScheduleConfig, epoch: int) -> float:

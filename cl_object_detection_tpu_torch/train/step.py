@@ -26,6 +26,18 @@ A-GEM -> Adam on the shard -> all-gather. Every step before Adam sees the
 whole all-reduced gradient, which keeps ZeRO-1 bit for bit the data
 axis's run (a reduce-scatter in place of the all-reduce would change the
 clip's summation order).
+
+On the model axis (``mesh.num_model > 1``) the student's forward runs its
+head trunks split over the model group (``models.heads.head_parallel``):
+a trunk leaf's ``.grad`` on this rank is right only in its slice, so each
+apply first joins the slices' gradients over the model group
+(``parallel.mesh.gather_model_grads``) into the whole gradient, then runs
+the data axis's steps above on it. The ranks of a model group read the
+same slice of the batch, so they hold the same whole gradient up to the
+card's nondeterministic reductions (a replicated leaf's gradient is
+computed on each); the all-reduce averages over every rank, which leaves
+them the same bits, and Adam updates each rank's block of every leaf
+(``train/optim.py``).
 """
 from __future__ import annotations
 
@@ -36,7 +48,8 @@ import torch
 
 from ..config import FocalConfig, ILConfig
 from ..il.losses import LossStatics, compute_losses
-from ..parallel.mesh import DataMesh, all_reduce_grads, all_reduce_metrics
+from ..models.heads import head_parallel
+from ..parallel.mesh import DataMesh, all_reduce_grads, all_reduce_metrics, gather_model_grads
 from .state import TrainState
 
 Grads = Dict[str, torch.Tensor]
@@ -121,7 +134,7 @@ def make_train_step(
     a batch whose loss is not > 0 skips the optimizer, moments included,
     as JAX does. The port decides that on the host: it reads the loss,
     one host sync per micro-step in that phase only. ``mesh``: the data
-    axis (module docstring).
+    and model axes (module docstring).
     """
     if teacher_model is not None:
         teacher_model.eval().requires_grad_(False)
@@ -131,7 +144,7 @@ def make_train_step(
     params = dict(model.named_parameters())
 
     def apply(state: TrainState, g: Grads, trainable_mask, replay_grad) -> None:
-        g = all_reduce_grads(mesh, g)
+        g = all_reduce_grads(mesh, gather_model_grads(mesh, g))
         if trainable_mask is not None:
             g = {k: v * trainable_mask[k] for k, v in g.items()}
         if ss.use_clip and ss.grad_clip > 0:
@@ -152,7 +165,7 @@ def make_train_step(
                 prototype_features: Optional[torch.Tensor] = None,
                 mas_prev_params: Optional[Grads] = None,
                 mas_importance: Optional[Grads] = None):
-        with torch.enable_grad():
+        with torch.enable_grad(), head_parallel(state.model, mesh):
             total, metrics = compute_losses(
                 state.model, images, boxes, labels, anchors, il_cfg, focal_cfg,
                 loss_statics, teacher=teacher_model,

@@ -41,23 +41,27 @@ stages, the LR schedule, the checkpoints and the resume:
     cross-state entry, finding no sidecar, computes it with the expanded
     model on the new state's data, as JAX does.
 
-The mesh's data axis (``MeshConfig.enabled``, ``parallel/mesh.py``): the
-trainer is one rank of the process group (one rank when there is none) on
-its device. The train, replay and BiC loaders give each rank its slice of
-every global batch (JAX's ``_proc_shard``), the batch sizes must divide by
-the rank count, the step all-reduces the gradient once per apply, rank 0's
-parameters are broadcast after construction and after each expansion, the
-IL tool passes split their loaders' whole batches over the ranks and
-gather the results back into one process's order (``parallel.mesh``),
-only rank 0 writes checkpoints and sidecars, and the loop's
-``parallel.mesh.check_replicas`` after every epoch raises if the ranks'
-parameters part. Under ``--zero1`` (``MeshConfig.zero1``) every optimizer
-the trainer builds shards its Adam moments over the ranks
-(``train/optim.py``); the ``mesh:`` line, printed with each new
-optimizer, gives the moment bytes on this rank. A resume, a
-``--torch_ckpt`` optimizer and a checkpoint all hold whole moments, of
-which each rank keeps its slices. The model axis raises (ROADMAP §1 item
-6b).
+The mesh (``MeshConfig.enabled``, ``parallel/mesh.py``): the trainer is
+one rank of the process group (one rank when there is none) on its
+device, at a place on the ``num_data x num_model`` grid. The train, replay
+and BiC loaders give each rank its data index's slice of every global
+batch (JAX's ``_proc_shard``; the ranks of a model group read the same
+slice), the batch sizes must divide by ``num_data`` and ``fpn_channels``
+by ``num_model``, the step splits the student's head trunks over the
+model group and joins their gradients, then all-reduces the gradient over
+the data group once per apply, rank 0's parameters are broadcast after
+construction and after each expansion, the IL tool passes split their
+loaders' whole batches over all the ranks, on whole weights, and gather
+the results back into one process's order (``parallel.mesh``), only rank
+0 writes checkpoints and sidecars, and the loop's
+``parallel.mesh.check_replicas`` after every epoch raises if any rank's
+(whole) parameters part from rank 0's. Every optimizer the trainer builds
+keeps this rank's blocks of the Adam moments (the model axis's slices of
+the head trunks; under ``--zero1``, ``MeshConfig.zero1``, also the data
+axis's) (``train/optim.py``); the ``mesh:`` line, printed with each new
+optimizer, names both axes and gives the moment bytes on this rank. A
+resume, a ``--torch_ckpt`` optimizer and a checkpoint all hold whole
+moments, of which each rank keeps its blocks.
 """
 from __future__ import annotations
 
@@ -126,7 +130,11 @@ class ILTrainer:
         self.mesh: Optional[pmesh.DataMesh] = None
         if cfg.mesh.enabled:
             self.mesh = pmesh.create_mesh(cfg.mesh, self.device)
-            ndata = self.mesh.world
+            ndata = self.mesh.num_data
+            if cfg.model.fpn_channels % self.mesh.num_model:
+                raise ValueError(
+                    f"fpn_channels {cfg.model.fpn_channels} not divisible by the model-axis "
+                    f"size {self.mesh.num_model}: the head trunks split their channels")
             if cfg.data.batch_size % ndata:
                 raise ValueError(f"batch_size {cfg.data.batch_size} not divisible by the "
                                  f"data-axis size {ndata}")
@@ -255,8 +263,8 @@ class ILTrainer:
     # infrastructure
     # ------------------------------------------------------------------
     def _new_train_state(self) -> None:
-        """A fresh optimizer (both Adam groups at the schedule's LR; under
-        ZeRO-1 its shard plan over the current model's leaves) and train
+        """A fresh optimizer (both Adam groups at the schedule's LR; on the
+        mesh its shard plans over the current model's leaves) and train
         state over the current model; on the mesh, the ``mesh:`` line."""
         self.optimizer = make_optimizer(self.cfg.schedule, self.model, self.mesh)
         if self.mesh is not None:

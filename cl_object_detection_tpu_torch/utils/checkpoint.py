@@ -23,10 +23,12 @@ On the mesh's data axis (``mesh=``, more than one rank) only rank 0
 writes (checkpoints, sidecars, directories) and deletes; a save is
 synchronous, so that no collective runs in a writer thread, and every
 save, sidecar save and ``wait()`` ends in a barrier, so that no rank reads
-before rank 0's write is complete. Every rank enters ``save``: under
-ZeRO-1 the optimizer's ``state_dict`` gathers the ranks' moment slices
-(a collective, on the caller's thread, never the writer's), so the file
-holds whole moments, bit for bit those of a run without ZeRO-1. Every
+before rank 0's write is complete. Every rank enters ``save``: where the
+ranks keep blocks of the Adam moments (the model axis, ZeRO-1) the
+optimizer's ``state_dict`` gathers them from both axes (a collective, on
+the caller's thread, never the writer's), so the file holds whole
+moments, bit for bit those of a run without ZeRO-1, and loads on any
+mesh or in one process, each rank keeping its blocks. Every
 rank reads (``restore``, ``epochs``, the sidecars); reading calls no
 collective.
 """
@@ -138,8 +140,8 @@ class CheckpointManager:
         """Persist one (state, epoch) checkpoint; returns its directory."""
         self._join()
         path = self.epoch_dir(state, epoch)
-        # every rank, on this thread: under ZeRO-1 the optimizer's state
-        # dict gathers the ranks' moment slices (a collective)
+        # every rank, on this thread: on the mesh the optimizer's state
+        # dict gathers the ranks' moment blocks (a collective)
         opt_state = optimizer.state_dict()
         if not self.primary:
             self._barrier()

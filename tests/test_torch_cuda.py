@@ -1263,6 +1263,92 @@ def test_two_gloo_ranks_on_one_card_all_reduce_to_the_exact_mean(dev, tmp_path):
         assert torch.equal(res[0]["out"][k], want) and torch.equal(res[1]["out"][k], want), k
 
 
+_SPLIT_HEAD_RANK = r"""
+import sys
+import torch
+from cl_object_detection_tpu_torch.config import MeshConfig, ModelConfig
+from cl_object_detection_tpu_torch.models.heads import head_parallel
+from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+from cl_object_detection_tpu_torch.parallel import mesh as pm
+rank, store = int(sys.argv[1]), sys.argv[2]
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+dev = pm.init_distributed(num_processes=2, process_id=rank, init_method="file://" + store)
+mesh = pm.create_mesh(MeshConfig(enabled=True, num_model=2), dev)
+assert (mesh.backend, mesh.shape, mesh.model_index) == ("gloo", {"data": 1, "model": 2}, rank)
+out = {}
+for dtype in ("float32", "bfloat16"):
+    model = create_retinanet(ModelConfig(depth=18, compute_dtype=dtype), 20, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for h in (model.regression_head, model.classification_head):
+            w = h.output.weight
+            w.copy_(0.01 * torch.randn(w.shape, generator=torch.Generator().manual_seed(1)))
+    x = torch.randn(2, 256, 384, 3, generator=torch.Generator().manual_seed(2)).to(dev)
+    runs = []
+    # whole, split, then whole again with every weight moved by -1, 0 or +1
+    # float32 ulp (the rounding scale the split is held to in bfloat16)
+    for split in (None, mesh, "moved"):
+        if split == "moved":
+            split = None
+            gen = torch.Generator().manual_seed(3)
+            with torch.no_grad():
+                for p in model.parameters():
+                    sign = torch.randint(-1, 2, p.shape, generator=gen).float().to(dev)
+                    p.mul_(1 + sign * 2.0 ** -23)
+        model.zero_grad(set_to_none=True)
+        pm.model_axis_stats.reset()
+        with head_parallel(model, split):
+            cls, reg = model(x, enable_act=False)
+        (cls.square().mean() + reg.square().mean()).backward()
+        grads = pm.gather_model_grads(split, {n: p.grad for n, p in model.named_parameters()})
+        runs.append(({"cls": cls.detach().cpu(), "reg": reg.detach().cpu()},
+                     {n: g.cpu() for n, g in grads.items()}, pm.model_axis_stats.calls))
+        if split is not None:
+            reduced = {n: g.cpu() for n, g in pm.all_reduce_grads(mesh, grads).items()}
+    out[dtype] = runs + [reduced]
+torch.save(out, f"{store}.{rank}.pt")
+pm.barrier(mesh)
+"""
+
+
+def test_split_head_on_two_gloo_ranks_of_one_card(dev, tmp_path):
+    """The model axis on one card: two ranks (process flags, gloo) split an
+    R18's head trunks (FPN 256, four layers) at 256 x 384, forward and
+    backward, against the whole trunks on the same rank. float32 (TF32
+    off): the outputs within 1e-5 of the tensor's largest (float32
+    rounding), every gradient at the train step's bar (|d| <= 1e-3 |g| +
+    1e-4 max|g|: the stem's weight gradient sums the rounding of a whole
+    frame: 4.4e-5 of its largest on an H100). bfloat16 (the
+    row-parallel sums rounded once per rank, then added): the outputs
+    within 2e-2 of the tensor's largest, the gradients at phase 12's bar
+    of chip_smoke.py (the larger of the gradient bar and twice the move
+    that a one-ulp change of the weights gives the whole trunks'
+    gradients). 40 collectives of the model group per pass; after
+    ``all_reduce_grads`` both ranks hold the same bits (before it the
+    replicated leaves' gradients may differ by the card's nondeterministic
+    reductions)."""
+    store = str(tmp_path / "store")
+    _run_children(_SPLIT_HEAD_RANK, [(str(r), store) for r in range(2)],
+                  CUDA_VISIBLE_DEVICES="0", timeout=600)
+    res = [torch.load(f"{store}.{r}.pt", weights_only=True) for r in range(2)]
+
+    def worst(got, want):
+        # the largest |d| / (1e-3 |g| + 1e-4 max|g|) over every leaf
+        return max(float(((got[k] - w).abs() / (1e-3 * w.abs() + 1e-4 * w.abs().max()
+                                                 + 1e-30)).max()) for k, w in want.items())
+
+    for dtype in ("float32", "bfloat16"):
+        (out0, g0, _), (out1, g1, calls), (_, g_moved, _), _ = res[0][dtype]
+        assert calls == 40, dtype
+        for k, w in out0.items():
+            d, top = (out1[k] - w).abs().max(), w.abs().max()
+            assert float(d) <= (1e-5 if dtype == "float32" else 2e-2) * float(top), (dtype, k)
+        bar = 1.0 if dtype == "float32" else max(1.0, 2 * worst(g_moved, g0))
+        assert worst(g1, g0) <= bar, (dtype, worst(g1, g0), bar)
+        for k, v in res[0][dtype][3].items():
+            assert torch.equal(v, res[1][dtype][3][k]), (dtype, k)
+
+
 _NCCL_WORLD_ONE = r"""
 import sys
 import torch

@@ -72,16 +72,33 @@ def test_create_mesh_without_a_group_is_one_rank():
 @pytest.mark.parametrize("cfg", [MeshConfig(zero1=True), MeshConfig(num_model=2)])
 def test_zero1_and_model_axis_name_item_6b(cfg):
     """ZeRO-1 (item 6b-i) builds the mesh, where one rank splits nothing
-    (JAX's ``zero1_extend_spec`` at ``ndata <= 1``); the model axis is
-    still refused naming ROADMAP §1 item 6b."""
+    (JAX's ``zero1_extend_spec`` at ``ndata <= 1``). The model axis (item
+    6b-ii, once refused here) takes JAX's check that ``num_data x
+    num_model`` equals the devices; a rank of a 2 x 2 mesh knows its
+    place (data index r // 2, model index r % 2) and splits only the head
+    trunks' leaves (tests/test_torch_model_axis.py holds them to JAX)."""
+    linear = torch.nn.Linear(4, 2)
     if cfg.zero1:
         m = pm.create_mesh(cfg, torch.device("cpu"))
         assert m.world == 1 and not m.zero1
-        assert pm.zero1_plan(m, torch.nn.Linear(4, 2).named_parameters()) == {
-            "weight": None, "bias": None}
+        assert pm.shard_plans(m, linear.named_parameters()) == [
+            {"weight": None, "bias": None}]
         return
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(ValueError, match="mesh 0x2 != 1 devices"):
         pm.create_mesh(cfg, torch.device("cpu"))
+    m = pm.DataMesh(rank=3, world=4, device=torch.device("cpu"), backend="gloo", num_model=2)
+    assert m.shape == {"data": 2, "model": 2} and (m.data_index, m.model_index) == (1, 1)
+    assert pm.proc_shard(m) == {"process_index": 1, "process_count": 2}
+    trunk = torch.nn.Module()
+    trunk.regression_head = torch.nn.Module()
+    trunk.regression_head.conv1 = torch.nn.Conv2d(8, 8, 3)
+    trunk.regression_head.output = torch.nn.Conv2d(8, 4, 3)
+    plans = pm.shard_plans(m, trunk.named_parameters())
+    assert plans[3] == {"regression_head.conv1.weight": ((0, slice(4, 8)),),
+                        "regression_head.conv1.bias": ((0, slice(4, 8)),),
+                        "regression_head.output.weight": None,
+                        "regression_head.output.bias": None}
+    assert plans[1] == plans[3] and plans[0] == plans[2] != plans[3]
 
 
 def test_backend_rule(monkeypatch):

@@ -16,9 +16,10 @@ after the run hold against one process's at JAX's bar (rtol 2e-3, atol
     ``cli.validate --mesh --bic true`` of its state-1 checkpoint on two
     ranks against one process (the detection bar: labels equal, boxes
     and scores at rtol 1e-4), in one test;
-  * a two-process ``cli.train`` started with ``--coordinator_address``,
-    ``--num_processes`` and ``--process_id`` (and ``--val true``, so that
-    both processes read the checkpoint) against one process.
+  * a two-process ``cli.train`` started with ``--coordinator_address`` (a
+    ``file://`` store), ``--num_processes`` and ``--process_id`` (and
+    ``--val true``, so that both processes read the checkpoint) against one
+    process.
 """
 import functools
 import json
@@ -33,7 +34,6 @@ import torch
 
 from cl_object_detection_tpu_torch import config as tcfg
 from cl_object_detection_tpu_torch.cli import common, validate
-from cl_object_detection_tpu_torch.parallel.mesh import free_port
 from cl_object_detection_tpu_torch.train.loop import train_process
 from cl_object_detection_tpu_torch.train.trainer import ILTrainer
 from cl_object_detection_tpu_torch.utils.toydata import make_toy_dataset
@@ -290,7 +290,9 @@ def test_two_process_cli_train_matches_one_process(toy, tmp_path):
     alone writes, both read the checkpoint (``--val true``), and the
     trained checkpoint and the validated rows equal one process's."""
     env = dict(os.environ, PYTHONPATH=REPO, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="2")
-    address = f"127.0.0.1:{free_port()}"
+    # a file store of the test's own: a TCP port picked free could be taken
+    # by another test before rank 0 binds it
+    address = f"file://{tmp_path / 'store'}"
     mod = ["-c", NARROW_CLI]
     procs = [subprocess.Popen([sys.executable, *mod, *_cli(
         toy, str(tmp_path / "dp"), "--mesh", "true", "--coordinator_address", address,

@@ -228,11 +228,14 @@ def test_validate_quantize_runs(port_run):
     pytest.param(["--num_data", "2"], "mesh", id="flags2-item 6"),
     pytest.param(["--topk_method", "approx"], "approx", id="flags3-item 8"),
     pytest.param(["--mesh", "true", "--zero1", "true"], "mesh", id="flags4-item 6b"),
+    pytest.param(["--num_model", "2"], "mesh", id="flags5-item 6b"),
 ])
 def test_validate_refuses_what_is_not_ported(small_models, data, weights, tmp_path, capsys,
                                              flags, item):
     """``--zero1`` (item 6b-i, once refused here) is accepted and ignored,
-    as JAX's cli.validate ignores it. The data axis (item
+    as JAX's cli.validate ignores it; ``--num_model`` alone (item 6b-ii)
+    leaves a run without ``--mesh`` in one process, as JAX's does (the
+    model axis's ranks: tests/test_torch_model_axis.py). The data axis (item
     6a, once refused here) runs: ``--mesh true`` on the CPU predicts on a
     one-rank mesh, and ``--num_data`` alone, a size of the mesh's data
     axis, leaves a run without ``--mesh`` in one process, as JAX's does;

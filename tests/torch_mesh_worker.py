@@ -1,11 +1,14 @@
-"""One rank of the port's data axis, for the tests/test_torch_mesh*.py files.
+"""One rank of the port's mesh, for the tests/test_torch_mesh*.py,
+test_torch_zero1.py and test_torch_model_axis.py files.
 
     python tests/torch_mesh_worker.py RANK WORLD WORKDIR
 
 Joins a gloo group of WORLD CPU ranks through a ``file://`` store in
-WORKDIR, runs the case that ``WORKDIR/job.pt`` names with its arguments,
-and writes what the case returns to ``WORKDIR/out<RANK>.pt``. It imports
-torch and the port only (no JAX), so a rank starts in a few seconds.
+WORKDIR, builds the mesh that ``WORKDIR/job.pt`` names (the data axis
+alone unless it gives ``MeshConfig`` fields), runs the case it names
+with its arguments, and writes what the case returns to
+``WORKDIR/out<RANK>.pt``. It imports torch and the port only (no JAX),
+so a rank starts in a few seconds.
 ``run_ranks`` starts the ranks and joins each with a timeout.
 """
 from __future__ import annotations
@@ -19,17 +22,19 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_ranks(workdir: str, case: str, args: dict, world: int = 2, timeout: float = 240.0):
+def run_ranks(workdir: str, case: str, args: dict, world: int = 2, timeout: float = 240.0,
+              mesh: dict = None):
     """Run ``case`` on ``world`` ranks in fresh processes, each with the
     caller's number of torch threads (the CPU kernels' results may depend
-    on it, and the tests compare the ranks with the caller); returns each
-    rank's result. A rank that fails, or any rank still running after
-    ``timeout`` seconds, fails the caller (every rank is killed)."""
+    on it, and the tests compare the ranks with the caller), on the mesh
+    of ``MeshConfig(enabled=True, **mesh)``; returns each rank's result. A
+    rank that fails, or any rank still running after ``timeout`` seconds,
+    fails the caller (every rank is killed)."""
     import torch
 
     os.makedirs(workdir, exist_ok=True)
     threads = torch.get_num_threads()
-    torch.save({"case": case, "args": args, "threads": threads},
+    torch.save({"case": case, "args": args, "threads": threads, "mesh": mesh or {}},
                os.path.join(workdir, "job.pt"))
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
                GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS=str(threads))
@@ -455,6 +460,214 @@ def pseudo_teachers(mesh, a, workdir):
     return out
 
 
+# ----------------------------------------------------------------------
+# the model axis (tests/test_torch_model_axis.py)
+# ----------------------------------------------------------------------
+
+def _data_slice(mesh, batch):
+    """This rank's data index's slice of every array of ``batch`` (the
+    whole batch without a data axis)."""
+    n = batch[0].shape[0]
+    parts = mesh.num_data if mesh is not None else 1
+    index = mesh.data_index if mesh is not None else 0
+    per = n // parts
+    return [x[index * per:(index + 1) * per] for x in batch]
+
+
+def _worst(got, want) -> float:
+    """max |got - want| / max |want| (|got - want| for an all-zero ``want``)."""
+    top = float(want.abs().max())
+    return float((got - want).abs().max()) / top if top else float((got - want).abs().max())
+
+
+def model_axis_heads(mesh, a):
+    """The split head trunks against the whole ones on this rank, at each
+    trunk depth of ``a["head_layers"]``: one forward (both heads, five
+    levels) and backward of a sum of squares of the outputs, first whole,
+    then inside ``head_parallel`` with the slices' gradients joined
+    (``gather_model_grads``); per depth, the worst ``_worst`` of the
+    outputs, of the heads' parameter gradients and of the rest, and the
+    model group's collectives of the split pass."""
+    import torch
+
+    from cl_object_detection_tpu_torch.config import ModelConfig
+    from cl_object_detection_tpu_torch.models.heads import head_parallel
+    from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
+    from cl_object_detection_tpu_torch.parallel import mesh as pm
+
+    images = torch.from_numpy(a["images"])
+    out = {}
+    for layers in a["head_layers"]:
+        model = create_retinanet(ModelConfig(**dict(a["model"], head_layers=layers)), 3,
+                                 device="cpu", generator=torch.Generator().manual_seed(layers))
+        with torch.no_grad():
+            for h in (model.regression_head, model.classification_head):
+                h.output.weight.normal_(0, 0.05, generator=torch.Generator().manual_seed(7))
+        runs = []
+        for split in (None, mesh):
+            model.zero_grad(set_to_none=True)
+            pm.model_axis_stats.reset()
+            with head_parallel(model, split):
+                cls, reg = model(images, enable_act=False)
+            (cls.square().sum() + reg.square().sum()).backward()
+            calls = pm.model_axis_stats.calls
+            grads = pm.gather_model_grads(split, {n: p.grad for n, p in
+                                                  model.named_parameters()})
+            runs.append((cls.detach(), reg.detach(), grads, calls))
+        (c0, r0, g0, _), (c1, r1, g1, calls) = runs
+        heads = [n for n in g0 if pm.head_tp_kind(n) is not None]
+        out[layers] = dict(
+            outputs=max(_worst(c1, c0), _worst(r1, r0)),
+            trunk_grads=max(_worst(g1[n], g0[n]) for n in heads),
+            other_grads=max(_worst(g1[n], g0[n]) for n in g0 if n not in heads),
+            calls=calls, trunk_leaves=len(heads))
+    return out
+
+
+def model_axis_steps(mesh, a):
+    """On ``mesh`` (None: one process), from ``a``'s weights and batch:
+    (state 0) one train-step micro-step of the plain loss, every_iter 1,
+    no clip; (state 1) one micro-step with distillation, the classifier
+    similarity and MAS terms and the A-GEM projection against the negated
+    replay gradient of the same batch (computed on the same mesh by
+    ``AGem``), every_iter 1, clip on. Per step the gradient Adam took, the
+    metrics, the model group's collectives and gradient gathers of the
+    micro-step, and the Adam moments this rank keeps per leaf; the
+    replay gradient."""
+    import torch
+
+    from cl_object_detection_tpu_torch.config import FocalConfig, ILConfig, ScheduleConfig
+    from cl_object_detection_tpu_torch.data.loader import Batch
+    from cl_object_detection_tpu_torch.il.agem import AGem
+    from cl_object_detection_tpu_torch.il.losses import LossStatics
+    from cl_object_detection_tpu_torch.parallel import mesh as pm
+    from cl_object_detection_tpu_torch.train.optim import make_optimizer
+    from cl_object_detection_tpu_torch.train.state import TrainState
+    from cl_object_detection_tpu_torch.train.step import StepStatics, make_train_step
+
+    images, boxes, labels = (torch.from_numpy(x) for x in _data_slice(mesh, a["batch"]))
+    c, c_old = a["num_classes"], a["c_old"]
+    il_cfg = ILConfig()
+
+    def run(model, statics, step_statics, **kw):
+        opt = make_optimizer(ScheduleConfig(lr=a["lr"]), model, mesh)
+        step = make_train_step(model, kw.pop("teacher", None), a["anchors"], il_cfg,
+                               FocalConfig(), statics, step_statics, mesh=mesh)
+        applied = {}
+        real = opt.step
+
+        def record():
+            applied.update({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+            real()
+
+        opt.step = record
+        pm.model_axis_stats.reset()
+        _, metrics = step(TrainState(model, opt), images, boxes, labels, **kw)
+        stats = pm.model_axis_stats
+        return dict(applied={k: v.numpy() for k, v in applied.items()},
+                    metrics={k: float(v) for k, v in metrics.items()},
+                    calls=stats.calls, gathers=stats.gathers,
+                    moments={n: sum(v.numel() for v in opt.state[p].values())
+                             for n, p in model.named_parameters()})
+
+    out = {"state0": run(_model(a["model_cfg"], c, a["student0"]),
+                         LossStatics(num_classes=c),
+                         StepStatics(every_iter=1, use_clip=False))}
+    model = _model(a["model_cfg"], c, a["student"])
+    teacher = _model(a["model_cfg"], c_old, a["teacher"]).requires_grad_(False)
+    n = images.shape[0]
+    replay = Batch(images=images.numpy(), boxes=boxes.numpy(), labels=labels.numpy(),
+                   num_boxes=(labels.numpy() >= 0).sum(1).astype("int32"),
+                   num_pseudo=torch.zeros(n, dtype=torch.int32).numpy(),
+                   scales=torch.ones(n).numpy(), image_ids=torch.arange(n).numpy())
+    agem = AGem(model, a["anchors"], il_cfg, FocalConfig(),
+                LossStatics(num_classes=c, num_past_class=c_old, is_replay=True), [replay],
+                mesh=mesh)
+    replay_grad = {k: -v for k, v in agem.compute_replay_grad().items()}
+    out["state1"] = run(
+        model,
+        LossStatics(num_classes=c, num_past_class=c_old, incremental=True, use_distill=True,
+                    use_classifier_loss=True, use_mas=True),
+        StepStatics(every_iter=1, use_agem=True, num_past_class=c_old, num_knowing_class=c),
+        teacher=teacher, replay_grad=replay_grad, classifier_vectors=a["class_vectors"],
+        mas_prev_params=a["mas_prev"], mas_importance=a["mas_importance"])
+    out["replay_grad"] = {k: v.numpy() for k, v in replay_grad.items()}
+    return out
+
+
+def case_model_axis_1x2(mesh, a, workdir):
+    """``model_axis_heads`` and ``model_axis_steps`` on a 1 x 2 mesh; rank
+    1 returns checksums of its gradients in place of the gradients."""
+    import zlib
+
+    out = dict(heads=model_axis_heads(mesh, a), steps=model_axis_steps(mesh, a),
+               shape=mesh.shape, index=(mesh.data_index, mesh.model_index))
+    if mesh.rank:
+        for key in ("state0", "state1"):
+            st = out["steps"][key]
+            st["applied"] = {k: zlib.crc32(v.tobytes()) for k, v in st["applied"].items()}
+        out["steps"]["replay_grad"] = {k: zlib.crc32(v.tobytes())
+                                       for k, v in out["steps"]["replay_grad"].items()}
+    return out
+
+
+def case_model_axis_2x2(mesh, a, workdir):
+    """``cli.train`` of ``a["argv"]`` on the ranks (the model's config
+    given ``a["model"]``'s fields, its initial weights ``a["init"]``) into
+    ``a["root"]``, then the same under ``--zero1 true`` into
+    ``a["root_zero1"]``, then ``cli.validate`` of ``a["validate"]`` on the
+    first run's checkpoint. Per run: this rank's place, whether it is
+    sharded, its Adam moments per leaf, its checksums and global losses,
+    rank 0's parameters; whether the two runs' checkpoints (model, whole
+    moments, groups, step) are equal bit for bit; the validation's
+    mAP50."""
+    import functools
+
+    import torch
+
+    from cl_object_detection_tpu_torch import config
+    from cl_object_detection_tpu_torch.cli import common, validate
+    from cl_object_detection_tpu_torch.cli.train import main as train_main
+    from cl_object_detection_tpu_torch.parallel.mesh import barrier, module_checksums
+    from cl_object_detection_tpu_torch.train import trainer as trainer_mod
+
+    common.ModelConfig = functools.partial(config.ModelConfig, **a["model"])
+    real_create = trainer_mod.create_retinanet
+
+    def create(*args, **kw):
+        model = real_create(*args, **kw)
+        model.load_state_dict(a["init"])
+        return model
+
+    trainer_mod.create_retinanet = create
+    proc = ["--coordinator_address", f"file://{os.path.join(workdir, 'store')}",
+            "--num_processes", str(mesh.world), "--process_id", str(mesh.rank)]
+    out = {}
+    for tag, root, extra in (("plain", a["root"], []),
+                             ("zero1", a["root_zero1"], ["--zero1", "true"])):
+        tr = train_main(a["argv"] + ["--root_dir", root] + extra + proc)
+        out[tag] = dict(
+            shape=tr.mesh.shape, index=(tr.mesh.data_index, tr.mesh.model_index),
+            zero1=tr.mesh.zero1, sharded=tr.optimizer.sharded,
+            moments={n: sum(v.numel() for v in tr.optimizer.state[p].values())
+                     for n, p in tr.model.named_parameters()},
+            checksums=module_checksums(tr.model), loss_hist=list(tr.loss_hist),
+            epochs=[(r["state"], r["epoch"]) for r in tr.epoch_log])
+        if mesh.rank == 0:
+            out[tag]["params"] = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+        del tr
+    barrier(mesh)
+    if mesh.rank == 0:
+        trees = [torch.load(os.path.join(r, "checkpoint", "5", "state0", "epoch1", "state.pt"),
+                            weights_only=True) for r in (a["root"], a["root_zero1"])]
+        out["checkpoints_equal"] = _trees_equal(*trees)
+        out["moment_tensors"] = sum(len(v) for v in trees[0]["optimizer"]["state"].values())
+    a_ns = validate.get_parser().parse_args(a["validate"] + proc)
+    results = validate.run_validation(a_ns, device="cpu")
+    out["map50"] = {e: r.mean_ap50 for e, r in results.items()}
+    return out
+
+
 CASES = {k[5:]: v for k, v in dict(globals()).items() if k.startswith("case_")}
 
 
@@ -469,7 +682,7 @@ def main() -> int:
     pm.init_distributed(num_processes=world, process_id=rank, cpu=True,
                         init_method=f"file://{os.path.join(workdir, 'store')}")
     torch.set_num_threads(job["threads"])
-    mesh = pm.create_mesh(MeshConfig(enabled=True), torch.device("cpu"))
+    mesh = pm.create_mesh(MeshConfig(enabled=True, **job["mesh"]), torch.device("cpu"))
     result = CASES[job["case"]](mesh, job["args"], workdir)
     torch.save(result, os.path.join(workdir, f"out{rank}.pt"))
     pm.barrier(mesh)
