@@ -351,9 +351,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gradient gather, (f) and (h); Adam moment bytes and peak memory per
    rank beside phase 14's; the phase's seconds; the ``{"model_axis":
    ...}`` line.
+17. Tools, after phase 15 and before the lines of 16, in phase 8's
+   temporary directory. (a) ``utils.benchlib`` in this process on phase
+   4's model and frames, rebuilt from the same seeds: with the counters
+   at 0, ``make_predict_sum`` under ``nms_impl="pallas_fp"`` (the stem
+   and NMS kernels must have launched) against the summed scores of the
+   plain predict (``iterative`` NMS) at rtol 1e-4; ``time_chained``'s
+   ms per B=32 predict beside ``cuda_ms``'s and phase 4's. (b) Every
+   measuring tool of ``cl_object_detection_tpu_torch.tools`` once on
+   the card as a subprocess (``python -m``) at R50 and small
+   ``--iters``, in five lanes side by side (``TOOL_LANES``; the figures
+   are taken with the other lanes' tools on the card): ``bench_train
+   --split``, ``mem_report``, ``bench_split`` (all five modes,
+   ``pallas_fp``), ``bench_sweep --mfu``, ``bench_backbone`` (all seven
+   modes), ``bench_fwd_floor``, ``bench_bwd_breakdown``, ``bench_nms``,
+   ``bench_int8_matmul``, ``bench_loader`` and ``bench_serve`` on phase
+   8's checkpoint and toy image. Checks: every tool exits 0; every JSON
+   record parses, carries the card's ``nvidia-smi`` line, and its
+   figures are finite and positive (a figure the record lists under
+   ``differences``, a difference of two timings, finite only); the NMS
+   kernel (``bench_nms``), the int8 kernel (``bench_int8_matmul``, both
+   modes) and the stem kernel (``bench_backbone``) counted launches;
+   ``bench_serve`` at concurrency 1 and 8 answers 16 of 16 requests
+   with 0 errors; ``mem_report``'s peak for R50 B=8 608x832 within 10%
+   of phase 7's. Printed: each record, each tool's seconds, the phase's
+   seconds and the ``{"tools": ...}`` line.
 16. The ``{"trainer": ...}``, ``{"eval": ...}``, ``{"il_state1": ...}``,
    ``{"il_replay": ...}``, ``{"il_battery": ...}``, ``{"export": ...}``,
-   ``{"data_axis": ...}`` and ``{"model_axis": ...}`` lines, phase 4's and phase 5's B=32 throughput beside the figures of
+   ``{"data_axis": ...}``, ``{"model_axis": ...}`` and ``{"tools": ...}``
+   lines, phase 4's and phase 5's B=32 throughput beside the figures of
    the port before its kernels became ``torch.library`` operators
    (464.67 and 225.81 images/s, H100 80GB HBM3 at 700 W), the kernels'
    JSON line, then the ``{"ok": true, ...}`` line.
@@ -377,12 +403,12 @@ import tempfile
 import threading
 import time
 
+from cl_object_detection_tpu_torch.utils.benchlib import (
+    BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S, INT8_OPS, cuda_ms, finite_positive, graph_ms,
+    kernel_counters, launch_counts, smi_line, synthetic_gt)
+
 H, W = 608, 832
 NUM_CLASSES = 20
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM
-BF16_FLOPS = 989e12              # H100 SXM, dense tensor cores
-FP32_FLOPS = 67e12               # H100 SXM, outside the tensor cores
-INT8_OPS = 1979e12               # H100 SXM, dense tensor cores
 NMS_OPS_PER_PAIR = 14            # 4 min/max, 2 sub, 2 clamp, mul, add, sub, max, div, cmp
 STEM_OUT = (7, 15)               # pooled outputs of one stem-kernel unit (csrc/stem_fused.cu)
 STEM_WINDOW = 8 * 16             # conv pixels the unit computes, the pool's halo included
@@ -390,67 +416,6 @@ STEM_WINDOW = 8 * 16             # conv pixels the unit computes, the pool's hal
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-@functools.cache
-def _capture_stream():
-    """One side stream for every graph capture: cuBLAS keeps a workspace
-    for each stream it has run on, so a fresh stream per capture would
-    leave memory behind."""
-    import torch
-
-    return torch.cuda.Stream()
-
-
-def graph_ms(fn, iters: int = 20) -> float:
-    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
-    graph and replayed between two events, so that the host's time per
-    call (a wrapper's Python, which can exceed a small kernel's time)
-    stays out of the figure. Warmed up on the capture stream first."""
-    import torch
-
-    side = _capture_stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bf16_ulp(x):
@@ -945,22 +910,9 @@ def make_frames(n: int, seed: int):
     return r.randint(0, 256, (n, H, W, 3)).astype(np.uint8)
 
 
-def _counters():
-    from cl_object_detection_tpu_torch.ops.int8_matmul import int8_conv_nhwc, int8_matmul
-    from cl_object_detection_tpu_torch.ops.nms_fp import nms_fp
-    from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused, stem_fused_f32
-
-    return {"stem_fused": stem_fused, "stem_fused_f32": stem_fused_f32, "nms_fp": nms_fp,
-            "int8_matmul": int8_matmul, "int8_conv_nhwc": int8_conv_nhwc}
-
-
 def zero_counts() -> None:
-    for fn in _counters().values():
+    for fn in kernel_counters().values():
         fn.launches = 0
-
-
-def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def serve_and_time(predict, frames32, x4, tag: str):
@@ -1017,7 +969,7 @@ def serve_and_time(predict, frames32, x4, tag: str):
     failed = [a for a in answers if a is None or "detections" not in a]
     if failed:
         raise AssertionError(f"{tag}: {len(failed)} of 16 requests unanswered: {failed[:2]}")
-    served = read_counts()
+    served = launch_counts()
     n_det = sum(len(a["detections"]) for a in answers)
     log(f"{tag} serve loop: 16 requests from 4 threads at max_batch 8 answered in "
         f"{serve_s:.3f} s, {n_det} detections above 0.3; launches {served}; request "
@@ -1030,7 +982,7 @@ def serve_and_time(predict, frames32, x4, tag: str):
         det = predict(frames32)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = read_counts()
+    counts = launch_counts()
     per_predict = {k: (v - served[k]) / iters for k, v in counts.items()}
     ips = 32 * iters / dt
     log(f"{tag} predict B=32 608x832 R50 bf16 fused-stem pallas_fp: "
@@ -1204,7 +1156,7 @@ def f32_path(results: dict, ctx: dict) -> None:
             det = predict(frames)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / 3
-        counts = read_counts()
+        counts = launch_counts()
         log(f"f32 predict B=8 608x832 R50 float32 fused-stem pallas_fp (TF32 off): "
             f"{dt * 1e3:.3f} ms per batch, {8 / dt:.2f} images/s; launches {counts}")
         if counts["stem_fused_f32"] <= 0 or counts["nms_fp"] <= 0:
@@ -1234,21 +1186,6 @@ def f32_path(results: dict, ctx: dict) -> None:
 
 TRAIN_B = 8
 TRAIN_LR = 1e-5
-
-
-def synthetic_gt(b: int):
-    """tools/bench_train.py's GT: 8 boxes per image in 32 slots, labels
-    (image + box) mod the class count."""
-    import numpy as np
-
-    boxes = np.full((b, 32, 4), -1, np.float32)
-    labels = np.full((b, 32), -1, np.int32)
-    for i in range(b):
-        for j in range(8):
-            x1, y1 = 32 * (j + 1), 16 * (j + 1)
-            boxes[i, j] = [x1, y1, x1 + 96, y1 + 64]
-            labels[i, j] = (i + j) % NUM_CLASSES
-    return boxes, labels
 
 
 def check_stem_backward(x4) -> None:
@@ -1342,7 +1279,7 @@ def train_path(ctx: dict, profile_dir: str | None = None) -> dict:
     end.record()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = read_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     loss = torch.stack(losses).float().cpu().numpy()
     ms = dt / iters * 1e3
@@ -1562,7 +1499,7 @@ def trainer_path(step_ips: float, tmp: str, profile_dir: str | None = None) -> d
         tr = train_main(args + ["--start_epoch", "1", "--end_epoch", "2"])
         run_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        counts = read_counts()
+        counts = launch_counts()
         losses = np.asarray(tr.loss_hist, np.float64)
         steps = len(losses)
         log(f"trainer: 2 epochs through cli.train.main in {run_s:.2f} s (model build, "
@@ -1618,7 +1555,7 @@ def trainer_path(step_ips: float, tmp: str, profile_dir: str | None = None) -> d
         if profile_dir:
             args[args.index("--profile") + 1] = os.path.join(profile_dir, "trainer_resume")
         tr2 = train_main(args + ["--start_epoch", "2", "--end_epoch", "2"])
-        counts2 = read_counts()
+        counts2 = launch_counts()
         want = tr.ckpt.restore(0, 1)[0]
         same_model = all(torch.equal(restored["model"][k], want["model"][k])
                          for k in want["model"]) and set(restored["model"]) == set(want["model"])
@@ -1709,7 +1646,7 @@ def eval_path(tmp: str) -> dict:
         t0 = time.perf_counter()
         res = validate.main(flags + ["--epoch", "1", "2"])
         validate_s = time.perf_counter() - t0
-        counts = read_counts()
+        counts = launch_counts()
         Evaluator.predict_dataset_multi = real_multi
         n_batches = timing["batches"]
         rows = {}
@@ -1749,7 +1686,7 @@ def eval_path(tmp: str) -> dict:
         zero_counts()
         kernel_rows = ev.predict_dataset(model)
         torch.cuda.synchronize()
-        ev_counts = read_counts()
+        ev_counts = launch_counts()
         log(f"eval: Evaluator nms_impl=pallas_fp on epoch 2: {len(kernel_rows)} rows, equal to "
             f"cli.validate's epoch-2 rows: {kernel_rows == rows[2]}; launches {ev_counts}")
         if ev_counts["nms_fp"] != len(ev.loader) or kernel_rows != rows[2]:
@@ -1799,7 +1736,7 @@ def eval_path(tmp: str) -> dict:
         qres = validate.main(flags + ["--epoch", "2", "--quantize", "true", "--new_folder",
                                       "true", "--specific_folder", "int8"])
         quant_s = time.perf_counter() - t0
-        qcounts = read_counts()
+        qcounts = launch_counts()
         log(f"eval: cli.validate --quantize true, epoch 2: {quant_s:.2f} s; mAP50 "
             f"{qres[2].mean_ap50:.4f} (float {res[2].mean_ap50:.4f}), AR "
             f"{qres[2].mean_recall:.4f} (float {res[2].mean_recall:.4f}); launches {qcounts}")
@@ -1914,7 +1851,7 @@ def il_state1_path(tmp: str, state0_step_ms: float) -> dict:
         tr = train_main(["--root_dir", root, "--start_state", "0", "--end_state", "1",
                          "--start_epoch", "1", "--end_epoch", "1"] + flags)
         run_s = time.perf_counter() - t0
-        counts = read_counts()
+        counts = launch_counts()
         losses = np.asarray(tr.loss_hist, np.float64)
         per_state = {k: [n for st, n, _ in steps if st == k] for k in (0, 1)}
         keys1 = set.intersection(*(set(ks) for st, _, ks in steps if st == 1))
@@ -1957,7 +1894,7 @@ def il_state1_path(tmp: str, state0_step_ms: float) -> dict:
         n_steps = len(steps)
         tr2 = train_main(["--root_dir", entry, "--start_state", "1", "--start_epoch", "1",
                           "--end_epoch", "1"] + flags)
-        counts2 = read_counts()
+        counts2 = launch_counts()
         entry_same = len(expanded) == 2 and set(expanded[1]) == set(expanded[0]) and all(
             torch.equal(expanded[1][k], expanded[0][k]) for k in expanded[0])
         entry_launches = sorted({n for _, n, _ in steps[n_steps:]})
@@ -1994,7 +1931,7 @@ def il_state1_path(tmp: str, state0_step_ms: float) -> dict:
         res = validate.main(["--root_dir", root, "--test_json", os.path.join(data, "test.json"),
                              "--image_dir", os.path.join(data, "images"), "--state", "1",
                              "--epoch", "1", "--threshold", "0.001"] + IL_MODEL_FLAGS)
-        vcounts = read_counts()
+        vcounts = launch_counts()
         with open(os.path.join(root, "val_result", "15_5", "state1",
                                "voc2007_results_epoch1.json")) as f:
             rows = json.load(f)
@@ -2135,7 +2072,7 @@ def il_replay_path(tmp: str, state1_step_ms: float) -> dict:
                                     override=_replay_override)
             train_process(tr)
             run_s = time.perf_counter() - t0
-            counts = read_counts()
+            counts = launch_counts()
             runs[tag] = check_replay_run(tag, tr, steps, passes, counts, run_s)
             if tag == "b":
                 step_ms = state1_step_with_prototype(tr)
@@ -2554,7 +2491,7 @@ def il_battery_path(tmp: str, state1_step_ms: float) -> dict:
         t0 = time.perf_counter()
         tr = train_main(flags)
         run_s = time.perf_counter() - t0
-        counts = read_counts()
+        counts = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         record = check_battery_run(tr, steps, passes, dots, counts, run_s)
         step_ms = battery_step_ms(tr)
@@ -2568,7 +2505,7 @@ def il_battery_path(tmp: str, state1_step_ms: float) -> dict:
         t0 = time.perf_counter()
         res_bic = validate.main(vflags + ["--bic", "true"])
         val_s = time.perf_counter() - t0
-        vcounts = read_counts()
+        vcounts = launch_counts()
         res_plain = validate.main(vflags)
         record["validate"] = check_battery_validate(tr, root, res_bic, res_plain, vcounts,
                                                     val_s)
@@ -3991,7 +3928,7 @@ def data_axis_validate(root: str, data: str, vflags, recs) -> dict:
     try:
         zero_counts()
         res4 = single("single4", vflags + ["--batch_size", "4"])
-        counts = read_counts()
+        counts = launch_counts()
         res8 = single("single8", vflags)
     finally:
         config_mod.PredictConfig = real_pc
@@ -4502,6 +4439,186 @@ def model_axis_validate(root: str, root_h: str, data: str, vflags, recs) -> dict
                 readback_map50=read)
 
 
+# Phase 17's tools, in lanes that run side by side on the card (each lane
+# one tool after another): (tool, arguments); phase 8's run and toy images
+# fill the serving tool's {run} and {image}
+TOOL_LANES = (
+    (("bench_train", ["--split", "--batch", "8", "--iters", "3", "--stem", "fused",
+                      "--height", "608", "--width", "832"]),
+     ("mem_report", ["--depth", "50", "--batch", "8", "--height", "608", "--width", "832"])),
+    (("bench_split", ["--batch", "32", "--iters", "3", "--nms_impl", "pallas_fp",
+                      "fwd", "det", "full", "bb", "feats"]),
+     ("bench_sweep", ["--stem", "fused", "--nms_impl", "pallas_fp", "--iters", "3", "--mfu",
+                      "32"])),
+    (("bench_backbone", ["--batch", "16", "--iters", "3", "stem", "s1", "s2", "s3", "s4",
+                         "nobn", "f32"]),
+     ("bench_fwd_floor", ["--batch", "32", "--iters", "3"])),
+    (("bench_bwd_breakdown", ["--batch", "8", "--iters", "3"]),
+     ("bench_nms", ["--iters", "5"]),
+     ("bench_int8_matmul", ["--iters", "10"])),
+    (("bench_loader", ["--images", "32", "--workers", "2", "--epochs", "2", "--fused"]),
+     ("bench_serve", ["--root_dir", "{run}", "--scenario", "20", "--state", "0",
+                      "--image", "{image}", "--concurrency", "1", "8", "--requests", "16",
+                      "--warmup", "2"])),
+)
+TOOL_TIMEOUT = 400               # seconds for one tool
+CHAIN_ITERS = 10                 # predicts per chained run, and per cuda_ms figure
+
+
+def run_lane(lane, fill: dict, out: dict) -> None:
+    """Run one lane's tools one after another; ``out[tool]`` = (exit code,
+    stdout, stderr tail, seconds)."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for tool, args in lane:
+        t0 = time.perf_counter()
+        try:
+            done = subprocess.run(
+                [sys.executable, "-m", f"cl_object_detection_tpu_torch.tools.{tool}",
+                 *(a.format(**fill) for a in args)],
+                cwd=repo, env=env, capture_output=True, text=True, timeout=TOOL_TIMEOUT)
+            out[tool] = (done.returncode, done.stdout, done.stderr[-3000:],
+                         time.perf_counter() - t0)
+        except subprocess.TimeoutExpired as e:
+            out[tool] = (None, e.stdout or "", f"timed out after {TOOL_TIMEOUT} s",
+                         time.perf_counter() - t0)
+
+
+def _compact(record: dict) -> dict:
+    """A record's figures for the summary line: numbers to 4 significant
+    digits, nonzero launch counts, the card left out."""
+    out = {}
+    for k, v in record.items():
+        if k in ("card", "differences", "image_format", "flops_source", "unit", "timer"):
+            continue
+        if isinstance(v, float):
+            out[k] = float(f"{v:.4g}")
+        elif isinstance(v, dict):
+            kept = {n: c for n, c in v.items() if c}
+            if kept:
+                out[k] = kept
+        else:
+            out[k] = v
+    return out
+
+
+def tools_path(tmp: str, train: dict, phase4_ms: float) -> dict:
+    """Phase 17: ``utils.benchlib`` in this process, then every measuring
+    tool of ``cl_object_detection_tpu_torch.tools`` as a subprocess on the
+    card (module docstring)."""
+    import os
+
+    import torch
+
+    from cl_object_detection_tpu_torch.config import PredictConfig
+    from cl_object_detection_tpu_torch.data.transforms import space_to_depth
+    from cl_object_detection_tpu_torch.eval.predictor import make_predict_fn
+    from cl_object_detection_tpu_torch.ops.anchors import anchors_for_shape
+    from cl_object_detection_tpu_torch.utils import benchlib
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    smi = smi_line()
+
+    # ---- (a) benchlib in this process, on phase 4's model and frames ----
+    model = build_model()
+    frames32 = torch.from_numpy(space_to_depth(make_frames(32, 5), factor=4)).to(dev)
+    calibrate_logits(model, frames32[:2])
+    anchors = torch.tensor(anchors_for_shape(H, W), device=dev)
+    predict_sum = benchlib.make_predict_sum(model, anchors, PredictConfig(nms_impl="pallas_fp"),
+                                            H, W)
+    zero_counts()
+    got = float(predict_sum(frames32))
+    counts = launch_counts()
+    plain = make_predict_fn(model, PredictConfig(nms_impl="iterative"))(frames32)
+    want = float(plain.scores.float().sum())
+    log(f"tools: make_predict_sum (pallas_fp) {got:.6f} against the plain predict's summed "
+        f"scores (iterative NMS) {want:.6f}, relative difference "
+        f"{abs(got - want) / abs(want):.3e} (bar 1e-4); launches {counts}")
+    if not abs(got - want) <= 1e-4 * abs(want):
+        raise AssertionError("make_predict_sum disagrees with the plain predict")
+    if counts["stem_fused"] < 1 or counts["nms_fp"] < 1:
+        raise AssertionError(f"make_predict_sum did not launch the stem and NMS kernels: "
+                             f"{counts}")
+    predict = make_predict_fn(model, PredictConfig(nms_impl="pallas_fp"))
+    chained_ms = benchlib.time_chained(predict_sum, frames32, iters=CHAIN_ITERS,
+                                       reps=1) / CHAIN_ITERS * 1e3
+    events_ms = cuda_ms(lambda: predict(frames32), iters=CHAIN_ITERS, warmup=1)
+    log(f"tools: B=32 float predict, time_chained {chained_ms:.3f} ms per predict (chains of "
+        f"{CHAIN_ITERS}, one wait) against cuda_ms {events_ms:.3f} ms (ratio "
+        f"{chained_ms / events_ms:.4f}) and phase 4's host clock {phase4_ms:.3f} ms; {smi}")
+    del model, frames32, predict_sum, predict, plain
+    torch.cuda.empty_cache()
+
+    # ---- (b) every measuring tool as a subprocess ----
+    fill = {"run": os.path.join(tmp, "run"),
+            "image": os.path.join(tmp, "data", "images", "train_0001.png")}
+    results: dict = {}
+    t0 = time.perf_counter()
+    lanes = [threading.Thread(target=run_lane, args=(lane, fill, results))
+             for lane in TOOL_LANES]
+    for t in lanes:
+        t.start()
+    for t in lanes:
+        t.join()
+    tools_s = time.perf_counter() - t0
+    checked = check_tool_records(results, smi, train["peak_gib"])
+    phase_s = time.perf_counter() - t_phase
+    log(f"tools: phase 17 took {phase_s:.1f} s ({tools_s:.1f} s for the tools in "
+        f"{len(TOOL_LANES)} lanes side by side on the card)")
+    return {"card": smi, "seconds": phase_s, "tools_seconds": tools_s,
+            "predict_sum": got, "plain_scores_sum": want,
+            "time_chained_ms": chained_ms, "cuda_ms": events_ms, "phase4_ms": phase4_ms,
+            **checked}
+
+
+def check_tool_records(results: dict, smi: str, train_peak_gib: float) -> dict:
+    """Phase 17's checks of the tools' runs (module docstring);
+    ``results[tool]`` = (exit code, stdout, stderr tail, seconds). Returns
+    the launches counted, ``mem_report``'s peak against phase 7's and
+    each tool's records, compacted."""
+    records: dict = {}
+    for lane in TOOL_LANES:
+        for tool, _ in lane:
+            rc, out, err, seconds = results[tool]
+            if rc != 0:
+                raise AssertionError(f"tool {tool} exited {rc}: {err}")
+            recs = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+            if not recs:
+                raise AssertionError(f"tool {tool} printed no record")
+            for r in recs:
+                log(f"  {tool}: {json.dumps(r)}")
+                bad = finite_positive(r, r.get("differences", ()))
+                if r.get("card") != smi or bad:
+                    raise AssertionError(f"tool {tool}: record without the card's line or "
+                                         f"with figures not finite and positive {bad}: {r}")
+            records[tool] = recs
+            log(f"tools: {tool} {seconds:.1f} s, {len(recs)} records")
+
+    nms = sum(r["launches"] for r in records["bench_nms"] if r["kind"] == "pallas_fp")
+    int8 = [r["launches"] for r in records["bench_int8_matmul"] if "launches" in r]
+    stem = sum(r["launches"]["stem_fused"] for r in records["bench_backbone"])
+    serve = {r["concurrency"]: r for r in records["bench_serve"]}
+    mem = records["mem_report"][0]
+    mem_rel = mem["peak_allocated_gib"] / train_peak_gib - 1
+    log(f"tools: kernels launched through the tools: NMS {nms} (bench_nms), int8 {int8} "
+        f"(bench_int8_matmul, GEMM and conv modes), stem {stem} (bench_backbone); "
+        f"bench_serve errors at concurrency 1 and 8: {serve[1]['errors']}, "
+        f"{serve[8]['errors']}; mem_report's peak {mem['peak_allocated_gib']:.3f} GiB "
+        f"against phase 7's {train_peak_gib:.3f} GiB ({mem_rel:+.2%}, bar 10%)")
+    if nms < 1 or len(int8) != 2 or min(int8) < 1 or stem < 1:
+        raise AssertionError("a kernel was not launched through the tools")
+    if any(serve[c]["errors"] or serve[c]["requests"] != 16 for c in (1, 8)):
+        raise AssertionError(f"bench_serve: {serve}")
+    if abs(mem_rel) > 0.10:
+        raise AssertionError("mem_report's peak is not within 10% of phase 7's")
+    return {"launches": {"nms_fp": nms, "int8_matmul": sum(int8), "stem_fused": stem},
+            "mem_report_vs_phase7": mem_rel,
+            "records": {tool: [_compact(r) for r in recs] for tool, recs in records.items()}}
+
+
 def trainer_from_flags(argv, override=None):
     """An ``ILTrainer`` on the card from ``cli.train``'s flags, built as
     ``cli.train.main`` builds it (no training); ``override`` maps the
@@ -4793,6 +4910,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         model_axis = model_axis_path(tmp, reference, data_axis)
         del reference
+        torch.cuda.empty_cache()
+        tools = tools_path(tmp, train, 32 / ips["float"] * 1e3)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4811,6 +4930,7 @@ def main() -> int:
     log(json.dumps({"export": export, "operator_overhead_us": overhead}))
     log(json.dumps({"data_axis": data_axis}))
     log(json.dumps({"model_axis": model_axis}))
+    log(json.dumps({"tools": tools}))
     log(f"predict B=32 images/s: float {ips['float']:.2f}, int8 {ips['int8']:.2f} (before the "
         f"kernels became torch.library operators: 464.67 and 225.81 on an H100 80GB HBM3 at "
         f"700 W); the operators add {overhead['int8_matmul']['added_us']:.1f} us of host time "

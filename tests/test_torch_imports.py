@@ -78,7 +78,9 @@ def test_port_imports_no_jax():
             "cl_object_detection_tpu_torch.utils.notebook",
             "cl_object_detection_tpu_torch.utils.diagnostics",
             "cl_object_detection_tpu_torch.parallel",
-            "cl_object_detection_tpu_torch.parallel.mesh"} <= set(got["modules"])
+            "cl_object_detection_tpu_torch.parallel.mesh",
+            "cl_object_detection_tpu_torch.utils.benchlib",
+            "cl_object_detection_tpu_torch.tools"} <= set(got["modules"])
     assert got["jax"] == [], got["jax"]
     assert got["jax_package"] == [], got["jax_package"]
     assert got["built"] == []
@@ -171,3 +173,38 @@ def test_chip_smoke_imports_no_jax():
     roots = {n.split(".")[0] for n in names}
     assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "cl_object_detection_tpu"}, roots
     assert "cl_object_detection_tpu_torch" in roots
+
+
+TOOLS_PROBE = r"""
+import importlib, json, pkgutil, sys
+import cl_object_detection_tpu_torch.tools as tools
+names = []
+for m in pkgutil.iter_modules(tools.__path__):
+    importlib.import_module(f"{tools.__name__}.{m.name}")
+    names.append(m.name)
+from cl_object_detection_tpu_torch import _build
+print(json.dumps({
+    "tools": sorted(names),
+    "jax": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")),
+    "jax_package": sorted(m for m in sys.modules
+                          if m.split(".")[0] == "cl_object_detection_tpu"),
+    "built": sorted(_build._libs),
+}))
+"""
+
+
+def test_tools_import_no_jax():
+    """Every module of the port's ``tools`` subpackage imports in a fresh
+    process without JAX, the JAX package or a kernel build."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", TOOLS_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(got["tools"]) >= {
+        "bench_backbone", "bench_bwd_breakdown", "bench_fwd_floor", "bench_int8_matmul",
+        "bench_loader", "bench_nms", "bench_serve", "bench_split", "bench_sweep",
+        "bench_train", "coco_tool", "make_toy_dataset", "mem_report"}, got["tools"]
+    assert got["jax"] == [] and got["jax_package"] == [], got
+    assert got["built"] == []
