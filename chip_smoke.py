@@ -3972,7 +3972,7 @@ def data_axis_validate(root: str, data: str, vflags, recs) -> dict:
 # flags are added per run
 MODEL_AXIS_1X2 = ["--mesh", "true", "--num_data", "1", "--num_model", "2"]
 MODEL_AXIS_2X2 = ["--mesh", "true", "--num_data", "2", "--num_model", "2"]
-MODEL_AXIS_TIMED = 4             # micro-steps (two applies) with the collectives timed
+MODEL_AXIS_TIMED = 4             # micro-steps (two applies) with the collectives profiled
 # the trunk's leaves whose slices the phase prints: (name, its slice on a rank)
 MODEL_AXIS_SLICES = (("classification_head.conv1.weight", [128, 256, 3, 3]),
                      ("classification_head.conv2.weight", [256, 128, 3, 3]))
@@ -3982,8 +3982,9 @@ MODEL_AXIS_SLICES = (("classification_head.conv1.weight", [128, 256, 3, 3]),
 MODEL_AXIS_CALLS = 2 * 2 * 5 * 2
 
 # One rank of phase 15. Group "A" (2 ranks, 1 x 2): (f) cli.train state 0, then
-# MODEL_AXIS_TIMED more micro-steps of (f)'s trainer with the collectives timed
-# between card synchronisations, then (g) cli.train state 1 with the battery.
+# MODEL_AXIS_TIMED more micro-steps of (f)'s trainer under the profiler (the
+# collectives' stream ms from the program's mesh spans), then (g) cli.train
+# state 1 with the battery.
 # Group "B" (4 ranks, 2 x 2): (h) cli.train state 0 under --zero1, its timed
 # micro-steps, then (i) cli.validate --bic under pallas_fp. Each through its
 # entry point with the process flags; records per micro-step the stem launches
@@ -4008,6 +4009,7 @@ from cl_object_detection_tpu_torch.ops.stem_fused import stem_fused
 from cl_object_detection_tpu_torch.parallel import mesh as pm
 from cl_object_detection_tpu_torch.train import step as step_mod
 from cl_object_detection_tpu_torch.train import trainer as trainer_mod
+from cl_object_detection_tpu_torch.utils import profiling
 from cl_object_detection_tpu_torch.utils.checkpoint import host_copy
 
 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
@@ -4015,7 +4017,8 @@ proc = ["--coordinator_address", address, "--num_processes", str(world),
         "--process_id", str(rank)]
 out = os.path.join(spec["out"], group, f"rank{rank}")
 os.makedirs(out)
-stats = pm.model_axis_stats
+TRUNK = ("cldet.mesh.model_all_reduce", "cldet.mesh.model_all_gather")
+GATHER = "cldet.mesh.gather_model_grads"
 rec = {"rank": rank, "steps": [], "refreshes": [], "writes": {"checkpoints": 0, "arrays": 0}}
 first = {}
 run = {"tag": None, "refresh_calls": 0}
@@ -4024,9 +4027,10 @@ real = dict(run_batch=trainer_mod.ILTrainer.run_batch, reduce=step_mod.all_reduc
             refresh=agem_mod.AGem.compute_replay_grad)
 
 def snap():
-    return dict(calls=stats.calls, bytes=stats.bytes, coll_s=stats.seconds,
-                gathers=stats.gathers, gather_bytes=stats.gather_bytes,
-                gather_s=stats.gather_seconds)
+    c, none = profiling.counters(), profiling.Count(0, 0)
+    return dict(calls=sum(c.get(n, none).calls for n in TRUNK),
+                bytes=sum(c.get(n, none).bytes for n in TRUNK),
+                gathers=c.get(GATHER, none).calls, gather_bytes=c.get(GATHER, none).bytes)
 
 def since(before):
     return {k: v - before[k] for k, v in snap().items()}
@@ -4105,17 +4109,23 @@ def train(tag):
     return tr
 
 def timed_steps(tr, tag):
-    # the collectives of MODEL_AXIS_TIMED more micro-steps, each between two
-    # synchronisations of the card, on the trainer's first batch
+    # MODEL_AXIS_TIMED more micro-steps on the trainer's first batch under the
+    # profiler: each one's stream ms of the model group's collectives and
+    # gradient gathers, from the program's mesh spans
     run["tag"] = tag
     batch = next(iter(tr.train_loader))
-    stats.sync = True
     start = len(rec["steps"])
-    try:
+    profiling.clear_spans()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
         for _ in range(spec["timed"]):
             tr.run_batch(batch, sync_metrics=False)
-    finally:
-        stats.sync = False
+    spans = profiling.spans()
+    roots = [s.call for s in spans if s.parent is None and s.name == "cldet.train.step"]
+    for step, call in zip(rec["steps"][start:], roots):
+        mine = [s for s in spans if s.call == call]
+        step["coll_s"] = sum(s.stream_ms for s in mine if s.name in TRUNK) / 1e3
+        step["gather_s"] = sum(s.stream_ms for s in mine if s.name == GATHER) / 1e3
     rec[tag] = {"steps": [start, len(rec["steps"])]}
 
 if group == "A":
@@ -4284,8 +4294,8 @@ def model_axis_path(tmp: str, reference: dict, data_axis: dict) -> dict:
             f"{np.median(t['coll_ms']):.1f} ms median (min {t['coll_ms'][0]:.1f}) for {t['mb']:.1f} MB "
             f"in {t['calls'][0]} collectives; gradient gather over the model group "
             f"{np.median(t['gather_ms']):.1f} ms median (min {t['gather_ms'][0]:.1f}) for "
-            f"{t['gather_mb']:.1f} MB; the micro-step with the card synchronised around each "
-            f"collective {np.median(t['step_ms']):.1f} ms")
+            f"{t['gather_mb']:.1f} MB (stream ms of the mesh spans); the micro-step under the "
+            f"profiler {np.median(t['step_ms']):.1f} ms (host clock)")
     log(f"model axis ({smi}): Adam moments per rank (f) "
         + ", ".join(f"{r['f']['moment_bytes'] / 1e6:.1f}" for r in recs_a) + " MB, (h) "
         + ", ".join(f"{r['h']['moment_bytes'] / 1e6:.1f}" for r in recs_b) + " MB (phase 14: (a) "

@@ -131,15 +131,22 @@ def frame_spec(height: int, width: int, s2d: bool, fused: bool,
 
 
 def make_run_predict(predict, device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
-    """Wrap a port ``predict`` as numpy frames in -> numpy detections out."""
+    """Wrap a port ``predict`` as numpy frames in -> numpy detections out,
+    each call the root span ``cldet.serve.batch`` around the copies' spans
+    and ``predict``'s (``utils/profiling.py``)."""
     import torch
 
+    from ..utils.profiling import span
+
     def run_predict(images: np.ndarray) -> Dict[str, np.ndarray]:
-        det = predict(torch.from_numpy(images).to(device))
-        return {"boxes": det.boxes.cpu().numpy(),
-                "scores": det.scores.cpu().numpy(),
-                "labels": det.labels.cpu().numpy(),
-                "valid": det.valid.cpu().numpy()}
+        with span("cldet.serve.batch"):
+            with span("cldet.serve.copy_in", images.nbytes):
+                x = torch.from_numpy(images).to(device)
+            det = predict(x)
+            outs = (det.boxes, det.scores, det.labels, det.valid)
+            with span("cldet.serve.copy_out", sum(t.numel() * t.element_size() for t in outs)):
+                boxes, scores, labels, valid = (t.cpu().numpy() for t in outs)
+        return {"boxes": boxes, "scores": scores, "labels": labels, "valid": valid}
 
     return run_predict
 

@@ -14,6 +14,7 @@ from ..data.transforms import logical_image_hw
 from ..ops.anchors import anchors_for_shape
 from ..ops.nms import Detections, detect_batch
 from ..ops.quant import quantized_apply
+from ..utils.profiling import span
 
 
 def make_predict_fn(model, predict_cfg: PredictConfig,
@@ -39,6 +40,10 @@ def make_predict_fn(model, predict_cfg: PredictConfig,
     int8 convs (the int8 GEMM kernel on the card), head outputs and stem
     float. The model itself is not changed, so float and quantized
     predict functions of one model can be used side by side.
+
+    The forward (with the BiC or class affine) is the span
+    ``cldet.predict.forward``, ``detect_batch`` ``cldet.predict.postprocess``
+    (``utils/profiling.py``).
     """
     apply_fn = quantized_apply(model) if predict_cfg.quantize else model
     anchor_cache: Dict[Tuple[int, int, str], torch.Tensor] = {}
@@ -51,23 +56,25 @@ def make_predict_fn(model, predict_cfg: PredictConfig,
         if anchors is None:
             anchors = torch.tensor(anchors_for_shape(h, w), device=images.device)
             anchor_cache[key] = anchors
-        logits, regression = apply_fn(images, enable_act=False)
-        if bic_correct is not None:
-            logits = bic_correct(logits)
-        elif class_scale is not None:
-            logits = logits * class_scale[None, None, :] + class_offset[None, None, :]
+        with span("cldet.predict.forward"):
+            logits, regression = apply_fn(images, enable_act=False)
+            if bic_correct is not None:
+                logits = bic_correct(logits)
+            elif class_scale is not None:
+                logits = logits * class_scale[None, None, :] + class_offset[None, None, :]
         # sigmoid is monotone: selection runs on logits and the sigmoid
         # touches only the k survivors
-        return detect_batch(
-            logits, regression, anchors, height=h, width=w,
-            score_thresh=predict_cfg.score_thresh,
-            iou_thresh=predict_cfg.nms_iou,
-            pre_nms_topk=predict_cfg.pre_nms_topk,
-            max_detections=predict_cfg.max_detections,
-            nms_impl=predict_cfg.nms_impl,
-            scores_are_logits=True,
-            topk_method=predict_cfg.topk_method,
-            bbox_std=tuple(predict_cfg.bbox_std))
+        with span("cldet.predict.postprocess"):
+            return detect_batch(
+                logits, regression, anchors, height=h, width=w,
+                score_thresh=predict_cfg.score_thresh,
+                iou_thresh=predict_cfg.nms_iou,
+                pre_nms_topk=predict_cfg.pre_nms_topk,
+                max_detections=predict_cfg.max_detections,
+                nms_impl=predict_cfg.nms_impl,
+                scores_are_logits=True,
+                topk_method=predict_cfg.topk_method,
+                bbox_std=tuple(predict_cfg.bbox_std))
 
     return predict
 

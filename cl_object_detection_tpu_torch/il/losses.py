@@ -68,6 +68,7 @@ import torch
 from ..config import FocalConfig, ILConfig
 from ..ops.focal_loss import focal_loss
 from ..parallel.mesh import DataMesh, all_reduce_sum, data_active
+from ..utils.profiling import span
 from .prototype import prototype_loss_from_batch
 
 
@@ -313,7 +314,7 @@ def _incremental_losses(model, images, gt_boxes, gt_labels, anchors, il_cfg: ILC
     if teacher is None:
         raise ValueError("distillation needs the teacher model")
 
-    with torch.no_grad():
+    with torch.no_grad(), span("cldet.train.teacher"):
         t_logits, t_reg, t_feats = teacher.forward_all(images, False)
     result["dist_feat_loss"] = _cosine_feat_loss(feats, t_feats)
 

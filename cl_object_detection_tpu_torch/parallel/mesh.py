@@ -71,7 +71,10 @@ a rank of one process group, and reduces by hand:
 Collectives are called from the main thread only (never from the loader's
 or the checkpoint writer's), in the same order on every rank. Every group
 has a timeout (``DEFAULT_TIMEOUT``), so a rank that died ends the others'
-next collective with an error instead of a hang.
+next collective with an error instead of a hang. Each collective that runs
+is a span ``cldet.mesh.<name>`` whose bytes are its buffer's
+(``utils/profiling.py``): its counters give the calls and bytes, a
+profiled stretch its stream time.
 """
 from __future__ import annotations
 
@@ -86,6 +89,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import MeshConfig
+from ..utils.profiling import span
 
 DEFAULT_TIMEOUT = timedelta(seconds=120)
 
@@ -385,9 +389,10 @@ def all_reduce_sum(mesh: Optional[DataMesh], x: torch.Tensor,
     term; ``axis="world"`` for a tool pass split over every rank)."""
     if not _spans(mesh, axis):
         return x
-    buf = x.detach().to(mesh.comm_device, torch.float32, copy=True)
-    dist.all_reduce(buf, group=_axis(mesh, axis)[0])
-    return buf.to(x.device, x.dtype)
+    with span("cldet.mesh.all_reduce_sum", 4 * x.numel()):
+        buf = x.detach().to(mesh.comm_device, torch.float32, copy=True)
+        dist.all_reduce(buf, group=_axis(mesh, axis)[0])
+        return buf.to(x.device, x.dtype)
 
 
 def all_reduce_sums(mesh: Optional[DataMesh], tensors: Mapping[str, torch.Tensor],
@@ -400,11 +405,12 @@ def all_reduce_sums(mesh: Optional[DataMesh], tensors: Mapping[str, torch.Tensor
         return dict(tensors)
     group, size = _axis(mesh, axis)
     names, values = list(tensors), list(tensors.values())
-    flat = _flat(values, torch.float32, mesh.comm_device)
-    dist.all_reduce(flat, group=group)
-    if mean:
-        flat /= size
-    return dict(zip(names, _unflat(flat, values)))
+    with span("cldet.mesh.all_reduce_sums", 4 * sum(v.numel() for v in values)):
+        flat = _flat(values, torch.float32, mesh.comm_device)
+        dist.all_reduce(flat, group=group)
+        if mean:
+            flat /= size
+        return dict(zip(names, _unflat(flat, values)))
 
 
 def all_reduce_grads(mesh: Optional[DataMesh],
@@ -428,10 +434,11 @@ def all_reduce_metrics(mesh: Optional[DataMesh],
     if not active(mesh) or not metrics:
         return dict(metrics)
     names, values = list(metrics), [v.detach() for v in metrics.values()]
-    buf = torch.stack([v.float().to(mesh.comm_device) for v in values])
-    dist.all_reduce(buf)
-    buf /= mesh.world
-    return {k: buf[i].to(v.device) for i, (k, v) in enumerate(zip(names, values))}
+    with span("cldet.mesh.all_reduce_metrics", 4 * len(values)):
+        buf = torch.stack([v.float().to(mesh.comm_device) for v in values])
+        dist.all_reduce(buf)
+        buf /= mesh.world
+        return {k: buf[i].to(v.device) for i, (k, v) in enumerate(zip(names, values))}
 
 
 def batch_global(mesh: Optional[DataMesh], value: torch.Tensor) -> torch.Tensor:
@@ -650,7 +657,8 @@ def param_all_gather(mesh: Optional[DataMesh], params: Mapping[str, torch.Tensor
     mine = plans[mesh.rank]
     pieces = [(shard_of(params[n], mine[n]), params[n].shape, [p[n] for p in plans])
               for n in names]
-    with torch.no_grad():
+    nbytes = mesh.world * sum(t.numel() * t.element_size() for t, _, _ in pieces)
+    with span("cldet.mesh.param_all_gather", nbytes), torch.no_grad():
         for n, whole in zip(names, gather_shards(mesh, pieces)):
             params[n].copy_(whole)
 
@@ -659,65 +667,21 @@ def param_all_gather(mesh: Optional[DataMesh], params: Mapping[str, torch.Tensor
 # the model axis: Megatron's f and g, and the gradient gather
 # ----------------------------------------------------------------------
 
-class ModelAxisStats:
-    """Counts of the model group's collectives: the trunks' (``calls``,
-    ``bytes``, ``seconds``: each collective of *f*, *g* and the split
-    changes, forward and backward) and the gradient gathers'
-    (``gathers``, ``gather_bytes``, ``gather_seconds``). With ``sync`` on,
-    each collective's seconds are taken between two card synchronisations
-    (a measurement; off by default)."""
-
-    def __init__(self):
-        self.sync = False
-        self.reset()
-
-    def reset(self) -> None:
-        self.calls = self.bytes = self.gathers = self.gather_bytes = 0
-        self.seconds = self.gather_seconds = 0.0
-
-
-model_axis_stats = ModelAxisStats()
-
-
-def _timed(mesh: DataMesh, fn):
-    import time
-
-    if model_axis_stats.sync and mesh.device.type == "cuda":
-        torch.cuda.synchronize(mesh.device)
-    t = time.perf_counter()
-    out = fn()
-    if model_axis_stats.sync and mesh.device.type == "cuda":
-        torch.cuda.synchronize(mesh.device)
-    return out, time.perf_counter() - t
-
-
 def _model_all_reduce(mesh: DataMesh, x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the model group (in ``x``'s dtype)."""
-    def run():
+    with span("cldet.mesh.model_all_reduce", x.numel() * x.element_size()):
         buf = x.detach().to(mesh.comm_device, copy=True).contiguous()
         dist.all_reduce(buf, group=mesh.model_group)
         return buf.to(x.device)
 
-    out, s = _timed(mesh, run)
-    model_axis_stats.calls += 1
-    model_axis_stats.bytes += x.numel() * x.element_size()
-    model_axis_stats.seconds += s
-    return out
-
 
 def _model_all_gather(mesh: DataMesh, x: torch.Tensor, dim: int) -> torch.Tensor:
     """The model group's ``x`` joined along ``dim`` in model-index order."""
-    def run():
+    with span("cldet.mesh.model_all_gather", x.numel() * x.element_size()):
         mine = x.detach().movedim(dim, 0).contiguous().to(mesh.comm_device)
         flat = mine.new_empty((mesh.num_model,) + tuple(mine.shape))
         _all_gather_flat(mesh, flat.view(-1), mine.view(-1), axis="model")
         return flat.flatten(0, 1).movedim(0, dim).to(x.device)
-
-    out, s = _timed(mesh, run)
-    model_axis_stats.calls += 1
-    model_axis_stats.bytes += x.numel() * x.element_size()
-    model_axis_stats.seconds += s
-    return out
 
 
 def _model_slice(mesh: DataMesh, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -815,17 +779,14 @@ def gather_model_grads(mesh: Optional[DataMesh],
     for n in names:
         by_dtype.setdefault(grads[n].dtype, []).append(n)
     for dtype, group in by_dtype.items():
-        def run():
+        # each rank's slice holds 1 / num_model of every leaf of the group
+        nbytes = sum(grads[n].numel() for n in group) * grads[group[0]].element_size()
+        with span("cldet.mesh.gather_model_grads", nbytes):
             mine = torch.cat([shard_of(grads[n], (splits[n],)).reshape(-1)
                               for n in group]).to(mesh.comm_device)
             flat = mine.new_empty(mesh.num_model * mine.numel())
             _all_gather_flat(mesh, flat, mine, axis="model")
-            return mine.numel(), flat.to(grads[group[0]].device).view(mesh.num_model, -1)
-
-        (n_mine, ranks), s = _timed(mesh, run)
-        model_axis_stats.gathers += 1
-        model_axis_stats.gather_bytes += mesh.num_model * n_mine * ranks.element_size()
-        model_axis_stats.gather_seconds += s
+            ranks = flat.to(grads[group[0]].device).view(mesh.num_model, -1)
         at = 0
         for n in group:
             dim, _ = splits[n]

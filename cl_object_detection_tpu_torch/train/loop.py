@@ -16,7 +16,8 @@ state loop -> epoch loop -> iteration loop, with
     at most 20;
   * ``trainer.next_state()`` between states; a state after the first
     trains epochs 1..``new_state_epoch``;
-  * ``--profile``: a torch.profiler trace of the second epoch.
+  * ``--profile``: a torch.profiler trace of the second epoch, with the
+    program's spans (``utils/profiling.py``).
 
 The metrics of a micro-step are read one micro-step late
 (``flush_pending``): reading them at once would make the host wait for
@@ -43,18 +44,20 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..parallel.mesh import check_replicas
+from ..utils.profiling import span
 from ..utils.recorder import Recorder
 from .trainer import ILTrainer
 
 
 def _timed(loader, waits: List[float]):
     """Iterate ``loader``, adding the seconds each ``next`` took to
-    ``waits``."""
+    ``waits``; each wait is the span ``cldet.train.loader_wait``."""
     it = iter(loader)
     while True:
         t0 = time.perf_counter()
         try:
-            batch = next(it)
+            with span("cldet.train.loader_wait"):
+                batch = next(it)
         except StopIteration:
             return
         finally:

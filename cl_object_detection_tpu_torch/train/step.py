@@ -50,6 +50,7 @@ from ..config import FocalConfig, ILConfig
 from ..il.losses import LossStatics, compute_losses
 from ..models.heads import head_parallel
 from ..parallel.mesh import DataMesh, all_reduce_grads, all_reduce_metrics, gather_model_grads
+from ..utils.profiling import span
 from .state import TrainState
 
 Grads = Dict[str, torch.Tensor]
@@ -143,19 +144,25 @@ def make_train_step(
     anchors = torch.tensor(anchors, dtype=torch.float32, device=device)
     params = dict(model.named_parameters())
 
-    def apply(state: TrainState, g: Grads, trainable_mask, replay_grad) -> None:
-        g = all_reduce_grads(mesh, gather_model_grads(mesh, g))
-        if trainable_mask is not None:
-            g = {k: v * trainable_mask[k] for k, v in g.items()}
-        if ss.use_clip and ss.grad_clip > 0:
-            g = _clip_by_global_norm(g, ss.grad_clip)
-        if ss.warm_classifier:
-            g = _zero_old_class_grads(g, ss)
-        if ss.use_agem and replay_grad is not None:
-            g = _agem_project(g, replay_grad)
-        for k, p in params.items():
-            p.grad = g[k]
-        state.optimizer.step()
+    def apply(state: TrainState, trainable_mask, replay_grad) -> None:
+        """The accumulated gradient (its mean over ``every_iter``) through
+        the optimizer: the span ``cldet.train.apply``."""
+        with span("cldet.train.apply"):
+            g = state.grad_acc
+            if ss.every_iter > 1:
+                g = dict(zip(g, torch._foreach_div(list(g.values()), ss.every_iter)))
+            g = all_reduce_grads(mesh, gather_model_grads(mesh, g))
+            if trainable_mask is not None:
+                g = {k: v * trainable_mask[k] for k, v in g.items()}
+            if ss.use_clip and ss.grad_clip > 0:
+                g = _clip_by_global_norm(g, ss.grad_clip)
+            if ss.warm_classifier:
+                g = _zero_old_class_grads(g, ss)
+            if ss.use_agem and replay_grad is not None:
+                g = _agem_project(g, replay_grad)
+            for k, p in params.items():
+                p.grad = g[k]
+            state.optimizer.step()
 
     def step_fn(state: TrainState, images, boxes, labels, *,
                 replay_grad: Optional[Grads] = None,
@@ -166,25 +173,25 @@ def make_train_step(
                 mas_prev_params: Optional[Grads] = None,
                 mas_importance: Optional[Grads] = None):
         with torch.enable_grad(), head_parallel(state.model, mesh):
-            total, metrics = compute_losses(
-                state.model, images, boxes, labels, anchors, il_cfg, focal_cfg,
-                loss_statics, teacher=teacher_model,
-                classifier_vectors=classifier_vectors, pseudo_progress=pseudo_progress,
-                prototype_features=prototype_features, mas_prev_params=mas_prev_params,
-                mas_importance=mas_importance, mesh=mesh)
-            total.backward()
+            with span("cldet.train.forward"):
+                total, metrics = compute_losses(
+                    state.model, images, boxes, labels, anchors, il_cfg, focal_cfg,
+                    loss_statics, teacher=teacher_model,
+                    classifier_vectors=classifier_vectors, pseudo_progress=pseudo_progress,
+                    prototype_features=prototype_features, mas_prev_params=mas_prev_params,
+                    mas_importance=mas_importance, mesh=mesh)
+            with span("cldet.train.backward"):
+                total.backward()
         metrics = all_reduce_metrics(mesh, {k: v.detach() for k, v in metrics.items()})
         state.step += 1
         if ss.every_iter <= 1:
             if not loss_statics.enhance_only or bool(metrics["total_loss"] > 0):
-                apply(state, state.grad_acc, trainable_mask, replay_grad)
+                apply(state, trainable_mask, replay_grad)
         else:
             state.acc_count += 1
             if state.acc_count < ss.every_iter:
                 return state, metrics
-            g = state.grad_acc
-            apply(state, dict(zip(g, torch._foreach_div(list(g.values()), ss.every_iter))),
-                  trainable_mask, replay_grad)
+            apply(state, trainable_mask, replay_grad)
             state.acc_count = 0
         state.model.zero_grad(set_to_none=True)
         return state, metrics

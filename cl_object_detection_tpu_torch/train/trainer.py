@@ -96,6 +96,7 @@ from ..ops.anchors import anchors_for_shape
 from ..parallel import mesh as pmesh
 from ..states import ILStates
 from ..utils.checkpoint import CheckpointManager
+from ..utils.profiling import span
 from .optim import lr_at_epoch, make_optimizer, set_beta1, set_learning_rate
 from .state import TrainState
 from .step import StepStatics, make_train_step
@@ -726,33 +727,35 @@ class ILTrainer:
     def run_batch(self, batch, is_replay: bool = False,
                   sync_metrics: bool = True,
                   correction: bool = False) -> Dict[str, Any]:
-        """One micro-step. ``sync_metrics=False`` returns the metrics as
-        device tensors, so the caller decides when to wait for them."""
-        step = self._get_step(is_replay, logical_image_hw(batch.images),
-                              correction=correction)
-        kwargs = {}
-        if self._trainable is not None:
-            kwargs["trainable_mask"] = self._trainable
-        statics = self._loss_statics(is_replay, enhance_only=correction)
-        if statics.use_classifier_loss and self._teacher_class_vectors is not None:
-            kwargs["classifier_vectors"] = self._teacher_class_vectors
-        if statics.use_pseudo_progress:
-            kwargs["pseudo_progress"] = self._pseudo_progress()
-        if statics.use_prototype:
-            kwargs["prototype_features"] = self._prototype_mean
-        if statics.use_mas:
-            kwargs["mas_prev_params"] = self.mas_prev_params
-            kwargs["mas_importance"] = self.mas_importance
-        if (self.cfg.il.agem.enabled and self.agem is not None
-                and not is_replay and not correction):
-            if self.agem.replay_grad is None:
-                self.agem.compute_replay_grad(self.model)
-            kwargs["replay_grad"] = self.agem.replay_grad
-        images, boxes, labels = self._put_batch(batch)
-        self.train_state, metrics = step(self.train_state, images, boxes, labels, **kwargs)
-        if sync_metrics:
-            return {k: float(v) for k, v in metrics.items()}
-        return metrics
+        """One micro-step (the root span ``cldet.train.step``).
+        ``sync_metrics=False`` returns the metrics as device tensors, so the
+        caller decides when to wait for them."""
+        with span("cldet.train.step"):
+            step = self._get_step(is_replay, logical_image_hw(batch.images),
+                                  correction=correction)
+            kwargs = {}
+            if self._trainable is not None:
+                kwargs["trainable_mask"] = self._trainable
+            statics = self._loss_statics(is_replay, enhance_only=correction)
+            if statics.use_classifier_loss and self._teacher_class_vectors is not None:
+                kwargs["classifier_vectors"] = self._teacher_class_vectors
+            if statics.use_pseudo_progress:
+                kwargs["pseudo_progress"] = self._pseudo_progress()
+            if statics.use_prototype:
+                kwargs["prototype_features"] = self._prototype_mean
+            if statics.use_mas:
+                kwargs["mas_prev_params"] = self.mas_prev_params
+                kwargs["mas_importance"] = self.mas_importance
+            if (self.cfg.il.agem.enabled and self.agem is not None
+                    and not is_replay and not correction):
+                if self.agem.replay_grad is None:
+                    self.agem.compute_replay_grad(self.model)
+                kwargs["replay_grad"] = self.agem.replay_grad
+            images, boxes, labels = self._put_batch(batch)
+            self.train_state, metrics = step(self.train_state, images, boxes, labels, **kwargs)
+            if sync_metrics:
+                return {k: float(v) for k, v in metrics.items()}
+            return metrics
 
     def _pseudo_progress(self) -> torch.Tensor:
         """``cur_epoch / max(end_epoch, 1)`` as a float32 0-d tensor on the

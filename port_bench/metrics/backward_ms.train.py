@@ -1,0 +1,9 @@
+"""Device milliseconds per micro-step of the student's backward: the stream ms of the
+program's span ``cldet.train.backward``, over the micro-steps of the traced
+device-only pass (``trace.profile`` runs it first, then the host pass:
+``_spans.py``)."""
+from port_bench.metrics import _spans
+
+
+def read(rec):
+    return _spans.per_call(rec, "train", "cldet.train.backward")

@@ -1,0 +1,9 @@
+"""Device milliseconds per batch of the post-processing (top-k, decode, NMS, selection): the
+stream ms of the program's span ``cldet.predict.postprocess``, over the batches of the traced
+device-only pass (``trace.profile`` runs it first, then the host pass:
+``_spans.py``)."""
+from port_bench.metrics import _spans
+
+
+def read(rec):
+    return _spans.per_call(rec, "predict", "cldet.predict.postprocess")

@@ -1270,6 +1270,7 @@ from cl_object_detection_tpu_torch.config import MeshConfig, ModelConfig
 from cl_object_detection_tpu_torch.models.heads import head_parallel
 from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
 from cl_object_detection_tpu_torch.parallel import mesh as pm
+from cl_object_detection_tpu_torch.utils import profiling
 rank, store = int(sys.argv[1]), sys.argv[2]
 torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
 dev = pm.init_distributed(num_processes=2, process_id=rank, init_method="file://" + store)
@@ -1296,13 +1297,15 @@ for dtype in ("float32", "bfloat16"):
                     sign = torch.randint(-1, 2, p.shape, generator=gen).float().to(dev)
                     p.mul_(1 + sign * 2.0 ** -23)
         model.zero_grad(set_to_none=True)
-        pm.model_axis_stats.reset()
+        profiling.reset_counters()
         with head_parallel(model, split):
             cls, reg = model(x, enable_act=False)
         (cls.square().mean() + reg.square().mean()).backward()
         grads = pm.gather_model_grads(split, {n: p.grad for n, p in model.named_parameters()})
+        trunk = [c.calls for n, c in profiling.counters().items()
+                 if n in ("cldet.mesh.model_all_reduce", "cldet.mesh.model_all_gather")]
         runs.append(({"cls": cls.detach().cpu(), "reg": reg.detach().cpu()},
-                     {n: g.cpu() for n, g in grads.items()}, pm.model_axis_stats.calls))
+                     {n: g.cpu() for n, g in grads.items()}, sum(trunk)))
         if split is not None:
             reduced = {n: g.cpu() for n, g in pm.all_reduce_grads(mesh, grads).items()}
     out[dtype] = runs + [reduced]

@@ -480,6 +480,17 @@ def _worst(got, want) -> float:
     return float((got - want).abs().max()) / top if top else float((got - want).abs().max())
 
 
+def _model_group_counts():
+    """(calls of the model group's trunk collectives, gradient gathers)
+    since the counters were last reset (the mesh spans' counters)."""
+    from cl_object_detection_tpu_torch.utils import profiling
+
+    c, none = profiling.counters(), profiling.Count(0, 0)
+    calls = (c.get("cldet.mesh.model_all_reduce", none).calls
+             + c.get("cldet.mesh.model_all_gather", none).calls)
+    return calls, c.get("cldet.mesh.gather_model_grads", none).calls
+
+
 def model_axis_heads(mesh, a):
     """The split head trunks against the whole ones on this rank, at each
     trunk depth of ``a["head_layers"]``: one forward (both heads, five
@@ -494,6 +505,7 @@ def model_axis_heads(mesh, a):
     from cl_object_detection_tpu_torch.models.heads import head_parallel
     from cl_object_detection_tpu_torch.models.retinanet import create_retinanet
     from cl_object_detection_tpu_torch.parallel import mesh as pm
+    from cl_object_detection_tpu_torch.utils import profiling
 
     images = torch.from_numpy(a["images"])
     out = {}
@@ -506,11 +518,11 @@ def model_axis_heads(mesh, a):
         runs = []
         for split in (None, mesh):
             model.zero_grad(set_to_none=True)
-            pm.model_axis_stats.reset()
+            profiling.reset_counters()
             with head_parallel(model, split):
                 cls, reg = model(images, enable_act=False)
             (cls.square().sum() + reg.square().sum()).backward()
-            calls = pm.model_axis_stats.calls
+            calls, _ = _model_group_counts()
             grads = pm.gather_model_grads(split, {n: p.grad for n, p in
                                                   model.named_parameters()})
             runs.append((cls.detach(), reg.detach(), grads, calls))
@@ -540,10 +552,10 @@ def model_axis_steps(mesh, a):
     from cl_object_detection_tpu_torch.data.loader import Batch
     from cl_object_detection_tpu_torch.il.agem import AGem
     from cl_object_detection_tpu_torch.il.losses import LossStatics
-    from cl_object_detection_tpu_torch.parallel import mesh as pm
     from cl_object_detection_tpu_torch.train.optim import make_optimizer
     from cl_object_detection_tpu_torch.train.state import TrainState
     from cl_object_detection_tpu_torch.train.step import StepStatics, make_train_step
+    from cl_object_detection_tpu_torch.utils import profiling
 
     images, boxes, labels = (torch.from_numpy(x) for x in _data_slice(mesh, a["batch"]))
     c, c_old = a["num_classes"], a["c_old"]
@@ -561,12 +573,12 @@ def model_axis_steps(mesh, a):
             real()
 
         opt.step = record
-        pm.model_axis_stats.reset()
+        profiling.reset_counters()
         _, metrics = step(TrainState(model, opt), images, boxes, labels, **kw)
-        stats = pm.model_axis_stats
+        calls, gathers = _model_group_counts()
         return dict(applied={k: v.numpy() for k, v in applied.items()},
                     metrics={k: float(v) for k, v in metrics.items()},
-                    calls=stats.calls, gathers=stats.gathers,
+                    calls=calls, gathers=gathers,
                     moments={n: sum(v.numel() for v in opt.state[p].values())
                              for n, p in model.named_parameters()})
 
